@@ -1,0 +1,144 @@
+"""Serving launcher CLI: the slot engine serving a Poisson request stream.
+
+The engine half of ``repro.launch.serve``: a model at full width (random
+weights from seed 0) serves ``--requests`` requests arriving at ``--rps``
+on the CUDA card, through the port's RMSNorm, flash-attention and
+decode-attention kernels. ``--reduced`` swaps in the tiny same-family config
+the CPU tests use. The gateway half (Algorithm 1 over the profiled service)
+is not ported yet (ROADMAP A2).
+
+Arrivals are replayed on the engine clock: a request is admitted once the
+clock passes its arrival, the clock advances by each measured service time,
+and an idle engine jumps to the next arrival. Latency is therefore queue
+wait plus measured service.
+
+Each slot's cache holds the longest prompt the workload can draw plus its
+new tokens, rounded up to a multiple of 64, unless ``--max-seq`` sets it.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \
+      --requests 16 --rps 20 --prompt-len 256 --prompt-jitter 64 --max-new 32 --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ARCH_IDS, get_config
+from repro_torch.device import resolve_device
+from repro_torch.models.lm import LM
+from repro_torch.serving.engine import Engine, Request, ServeConfig
+from repro_torch.serving.workload import PoissonWorkload, WorkloadConfig
+
+__all__ = ["replay", "summarize", "run", "main"]
+
+_EPS = 1e-12
+SEQ_ALIGN = 64  # cache capacity per slot is a multiple of this
+
+
+def replay(engine: Engine, requests: list[Request]) -> float:
+    """Serve ``requests`` (sorted by arrival) on the engine clock; returns the
+    clock when the last request completes."""
+    t, i, n = 0.0, 0, len(requests)
+    while i < n or engine.queue or any(r is not None for r in engine.active):
+        while i < n and requests[i].arrival_s <= t + _EPS:
+            engine.submit(requests[i])
+            i += 1
+        if not engine.queue and not any(r is not None for r in engine.active):
+            t = requests[i].arrival_s  # idle: jump to the next arrival
+            continue
+        k0 = len(engine.service_log)
+        engine.tick(now=t)
+        t += sum(ev.duration_s for ev in engine.service_log[k0:])
+    return t
+
+
+def summarize(engine: Engine) -> dict:
+    """End-to-end numbers of a replay: latency on the engine clock, mean
+    service per phase, and output tokens per second of busy time."""
+    lat = np.array([r.latency_s for r in engine.completed if r.latency_s is not None])
+    warm = [ev for ev in engine.service_log if not ev.compile]
+    prefill = [ev.duration_s for ev in warm if ev.phase == "prefill"]
+    decode = [ev.duration_s for ev in warm if ev.phase == "decode"]
+    busy = sum(ev.duration_s for ev in engine.service_log)
+    tokens = sum(len(r.tokens_out) for r in engine.completed)
+    return {
+        "device": str(engine.device),
+        "requests_done": len(engine.completed),
+        "latency_p50_ms": float(np.percentile(lat, 50) * 1e3) if lat.size else None,
+        "latency_p99_ms": float(np.percentile(lat, 99) * 1e3) if lat.size else None,
+        "prefill_ms_mean": float(np.mean(prefill) * 1e3) if prefill else None,
+        "decode_step_ms_mean": float(np.mean(decode) * 1e3) if decode else None,
+        "prefills": len(prefill),
+        "decode_steps": len(decode),
+        "tokens_out": tokens,
+        "tokens_per_s_busy": tokens / busy if busy > 0 else None,
+    }
+
+
+def _fmt(x: float | None) -> str:
+    return "n/a" if x is None else f"{x:.3f}"
+
+
+def run(argv=None) -> Engine:
+    """Parse the command line, serve the stream, print the summary and return
+    the engine (its completed requests and service log)."""
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", choices=ARCH_IDS, default="starcoder2_3b")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--rps", type=float, default=20.0)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--prompt-jitter", type=int, default=0,
+                    help="prompt lengths are uniform in prompt-len +/- this")
+    ap.add_argument("--max-new", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--max-seq", type=int, default=None,
+                    help="cache capacity per slot (default: what the workload needs)")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config (CPU tests) instead of full width")
+    args = ap.parse_args(argv)
+    # the furthest shared decode position is the longest prompt plus its new tokens
+    need = args.prompt_len + args.prompt_jitter + args.max_new + 1
+    max_seq = args.max_seq or -(-need // SEQ_ALIGN) * SEQ_ALIGN
+    if max_seq < need:
+        ap.error(f"--max-seq {max_seq} does not hold a {args.prompt_len + args.prompt_jitter}"
+                 f"-token prompt and {args.max_new} new tokens")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced(seq_chunk=8)
+    device = resolve_device(args.device)
+    model = LM(cfg, device=device)
+    engine = Engine(cfg, model, ServeConfig(slots=args.slots, max_seq=max_seq), device=device)
+    requests = PoissonWorkload(WorkloadConfig(
+        arrival_rate=args.rps, prompt_len=args.prompt_len,
+        prompt_len_jitter=args.prompt_jitter, max_new_tokens=args.max_new,
+        vocab=cfg.vocab_size,
+    )).take(args.requests)
+    engine.warmup(sorted({len(r.prompt) for r in requests}))
+    replay(engine, requests)
+    s = summarize(engine)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"[serve] {cfg.name} ({model.num_params():,} params, {cfg.dtype}) on {name}, "
+          f"{args.slots} slots of {max_seq} positions")
+    print(f"[serve] {s['requests_done']} requests done; latency p50 {_fmt(s['latency_p50_ms'])} "
+          f"ms, p99 {_fmt(s['latency_p99_ms'])} ms")
+    print(f"[serve] prefill {_fmt(s['prefill_ms_mean'])} ms mean over {s['prefills']}; "
+          f"decode step {_fmt(s['decode_step_ms_mean'])} ms mean over {s['decode_steps']}; "
+          f"{_fmt(s['tokens_per_s_busy'])} tokens/s of busy time")
+    return engine
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

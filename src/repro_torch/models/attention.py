@@ -1,0 +1,112 @@
+"""Attention: GQA with RoPE, optional sliding window + softcap, KV caches.
+
+The port's counterpart of ``repro.models.attention``:
+  * full-sequence (prefill): projections, RoPE, then the flash-attention
+    kernel wrapper (the reference ran XLA's query-chunked attention here);
+  * decode: one query token against the append cache, through the
+    decode-attention kernel wrapper. The cache is preallocated and the new
+    token's K/V are written into it in place, where the reference built a new
+    cache with ``dynamic_update_slice``.
+Sliding-window (ring-buffer) decode (ROADMAP A5) and cross-attention for
+enc-dec (ROADMAP A9) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+from .layers import rope_rotate, rope_tables
+from .params import TSpec
+
+__all__ = [
+    "attn_template",
+    "kv_cache_template",
+    "attn_forward",
+    "attn_decode",
+    "prefill_cache_from_kv",
+]
+
+LOCAL_DECODE_TODO = ("sliding-window (ring-buffer) decode is not ported yet; "
+                     "ROADMAP A5 (gemma2 local attention) ports it")
+
+
+def attn_template(cfg: ModelConfig) -> dict:
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    return {
+        "wq": TSpec((d, q), ("embed", "qkv"), init="fan_in"),
+        "wk": TSpec((d, kv), ("embed", "kv"), init="fan_in"),
+        "wv": TSpec((d, kv), ("embed", "kv"), init="fan_in"),
+        "wo": TSpec((q, d), ("qkv", "embed"), init="fan_in"),
+    }
+
+
+def kv_cache_template(cfg: ModelConfig, batch: int, cache_len: int, *, local: bool) -> dict:
+    s = min(cache_len, cfg.window_size) if local else cache_len
+    shape = (batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+    axes = ("cache_batch", "cache_seq", None, None)
+    return {
+        "k": TSpec(shape, axes, init="zeros"),
+        "v": TSpec(shape, axes, init="zeros"),
+    }
+
+
+def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
+                 local: bool = False, return_kv: bool = False, rope_cs=None):
+    """x: (B, S, d). Full-sequence attention through the flash kernel.
+
+    ``rope_cs`` takes (cos, sin) tables precomputed for positions 0..S-1, so a
+    model computes them once for all its layers."""
+    B, S, _ = x.shape
+    K, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
+    q = (x @ p["wq"]).view(B, S, H, hd)
+    k = (x @ p["wk"]).view(B, S, K, hd)
+    v = (x @ p["wv"]).view(B, S, K, hd)
+    if cfg.rope:
+        cos, sin = rope_cs if rope_cs is not None else rope_tables(
+            torch.arange(S, device=x.device), hd, cfg.rope_theta)
+        q = rope_rotate(q, cos, sin)
+        k = rope_rotate(k, cos, sin)
+    window = cfg.window_size if local else 0
+    out = flash_attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap)
+    y = out.reshape(B, S, H * hd) @ p["wo"]
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def prefill_cache_from_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, *, local: bool):
+    """Convert full-sequence K/V into the decode cache layout: the identity
+    for the global append cache. (The reference's local ring buffer comes
+    with sliding-window decode.)"""
+    if local:
+        raise NotImplementedError(LOCAL_DECODE_TODO)
+    return {"k": k, "v": v}
+
+
+def attn_decode(p, x: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig, *,
+                local: bool = False, rope_cs=None):
+    """x: (B, 1, d); pos: the absolute position of this token, shared by the
+    whole batch. Writes the token's K/V into ``cache`` at ``pos`` in place
+    and returns (y, cache)."""
+    if local:
+        raise NotImplementedError(LOCAL_DECODE_TODO)
+    pos = int(pos)
+    B = x.shape[0]
+    K, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
+    q = (x @ p["wq"]).view(B, 1, H, hd)
+    k_new = (x @ p["wk"]).view(B, 1, K, hd)
+    v_new = (x @ p["wv"]).view(B, 1, K, hd)
+    if cfg.rope:
+        cos, sin = rope_cs if rope_cs is not None else rope_tables(
+            torch.tensor([pos], device=x.device), hd, cfg.rope_theta)
+        q = rope_rotate(q, cos, sin)
+        k_new = rope_rotate(k_new, cos, sin)
+    cache["k"][:, pos] = k_new[:, 0]
+    cache["v"][:, pos] = v_new[:, 0]
+    out = decode_attention(q, cache["k"], cache["v"], pos, softcap=cfg.attn_softcap)
+    y = out.reshape(B, 1, H * hd) @ p["wo"]
+    return y, cache

@@ -1,0 +1,225 @@
+"""The port's kernel wrappers on the CPU (their plain versions) against the
+JAX package's kernels: ``impl="xla"`` (the reference oracle) everywhere and
+``impl="interpret"`` (the Pallas kernel run on the CPU) for a few cases.
+
+Inputs are drawn from a seed with numpy and handed to both packages.
+Tolerances: float32 1e-5 (same arithmetic, other summation order), bfloat16
+2e-2 (outputs round to bf16 at different points; tests/test_kernels.py uses
+the same bf16 budget for the Pallas kernels).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.ops import decode_attention as jax_decode_attention
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
+from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.rmsnorm.ops import rmsnorm
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def tol(dtype: str) -> dict:
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=1e-5, atol=1e-5)
+
+
+def pair(a: np.ndarray, dtype: str = "float32"):
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
+
+
+def as_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+
+class TestRmsNorm:
+    @pytest.mark.parametrize("shape", [(1, 1, 64), (3, 17, 128), (2, 97, 256), (5, 3072)])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_jax(self, shape, dtype):
+        rng = np.random.default_rng(sum(shape))
+        x = (rng.standard_normal(shape) * 3).astype(np.float32)
+        # non-zero scales: the templates zero-init them, which would hide the (1+scale) term
+        sc = (rng.standard_normal(shape[-1]) * 0.2).astype(np.float32)
+        (jx, tx), (js, ts) = pair(x, dtype), pair(sc, dtype)
+        out = rmsnorm(tx, ts, 1e-6)
+        assert out.dtype == DTYPES[dtype][1] and out.shape == tx.shape
+        np.testing.assert_allclose(as_np(out), as_np(jax_rmsnorm(jx, js, impl="xla")),
+                                   **tol(dtype))
+
+    def test_matches_pallas_interpret(self):
+        rng = np.random.default_rng(3)
+        x = rng.standard_normal((2, 40, 128)).astype(np.float32)
+        sc = (rng.standard_normal(128) * 0.1).astype(np.float32)
+        (jx, tx), (js, ts) = pair(x), pair(sc)
+        ref = jax_rmsnorm(jx, js, impl="interpret", blk_rows=32)
+        np.testing.assert_allclose(rmsnorm(tx, ts, 1e-6).numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (prefill)
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # B, Sq, Skv, H, K, hd, causal, window, cap   (tests/test_kernels.py cases first)
+    (2, 256, 256, 4, 2, 64, True, 0, 0.0),  # GQA causal
+    (1, 256, 256, 4, 4, 128, True, 128, 0.0),  # MHA sliding window
+    (2, 128, 128, 8, 2, 64, True, 0, 50.0),  # softcap (gemma2)
+    (1, 256, 256, 2, 1, 64, False, 0, 0.0),  # bidirectional MQA
+    (1, 192, 192, 6, 3, 32, True, 64, 30.0),  # window + softcap, odd dims
+    (1, 200, 200, 24, 2, 128, True, 0, 0.0),  # ragged prompt at the StarCoder2 head split
+    (2, 37, 300, 4, 2, 64, True, 0, 0.0),  # Sq < Skv, ragged both
+    (1, 100, 100, 4, 2, 128, True, 64, 50.0),  # window 64 + softcap 50, ragged
+]
+
+
+def _qkv(B, Sq, Skv, H, K, hd, seed=7):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Skv, K, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Skv, K, hd)).astype(np.float32)
+    return q, k, v
+
+
+class TestFlashAttention:
+    @pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,cap", FLASH_CASES)
+    def test_matches_jax(self, B, Sq, Skv, H, K, hd, causal, window, cap):
+        q, k, v = _qkv(B, Sq, Skv, H, K, hd)
+        (jq, tq), (jk, tk), (jv, tv) = pair(q), pair(k), pair(v)
+        out = flash_attention(tq, tk, tv, causal=causal, window=window, softcap=cap)
+        ref = jax_flash_attention(jq, jk, jv, causal=causal, window=window, softcap=cap,
+                                  impl="xla")
+        assert out.shape == (B, Sq, H, hd)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("causal,window,cap", [(True, 0, 0.0), (True, 64, 50.0)])
+    def test_matches_pallas_interpret(self, causal, window, cap):
+        q, k, v = _qkv(1, 128, 128, 4, 2, 64, seed=11)
+        (jq, tq), (jk, tk), (jv, tv) = pair(q), pair(k), pair(v)
+        ref = jax_flash_attention(jq, jk, jv, causal=causal, window=window, softcap=cap,
+                                  impl="interpret", blk_q=64, blk_k=64)
+        out = flash_attention(tq, tk, tv, causal=causal, window=window, softcap=cap)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+    def test_bfloat16(self):
+        q, k, v = _qkv(1, 96, 96, 4, 2, 64, seed=5)
+        (jq, tq), (jk, tk), (jv, tv) = pair(q, "bfloat16"), pair(k, "bfloat16"), pair(v, "bfloat16")
+        out = flash_attention(tq, tk, tv)
+        assert out.dtype == torch.bfloat16
+        np.testing.assert_allclose(as_np(out), as_np(jax_flash_attention(jq, jk, jv, impl="xla")),
+                                   **tol("bfloat16"))
+
+
+# ---------------------------------------------------------------------------
+# Decode attention
+# ---------------------------------------------------------------------------
+
+DECODE_CASES = [
+    # B, S, H, K, hd, pos, cap   (tests/test_kernels.py cases first)
+    (2, 512, 8, 2, 64, 511, 0.0),
+    (1, 1024, 4, 4, 128, 700, 0.0),  # partially filled cache
+    (2, 512, 6, 2, 64, 40, 50.0),  # softcap, short valid region
+    (1, 256, 16, 8, 32, 255, 0.0),
+    (4, 1024, 24, 2, 128, 300, 0.0),  # the StarCoder2-3B decode shape, 4 slots
+    (3, 100, 4, 2, 16, 0, 0.0),  # only position 0 visible
+]
+
+
+def _cache(B, S, H, K, hd, seed=9):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    kc = rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    vc = rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    return q, kc, vc
+
+
+class TestDecodeAttention:
+    @pytest.mark.parametrize("B,S,H,K,hd,pos,cap", DECODE_CASES)
+    def test_matches_jax(self, B, S, H, K, hd, pos, cap):
+        q, kc, vc = _cache(B, S, H, K, hd)
+        (jq, tq), (jk, tk), (jv, tv) = pair(q), pair(kc), pair(vc)
+        out = decode_attention(tq, tk, tv, pos, softcap=cap)
+        ref = jax_decode_attention(jq, jk, jv, jnp.int32(pos), softcap=cap, impl="xla")
+        assert out.shape == (B, 1, H, hd)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+    def test_matches_pallas_interpret(self):
+        q, kc, vc = _cache(2, 256, 6, 2, 64, seed=4)
+        (jq, tq), (jk, tk), (jv, tv) = pair(q), pair(kc), pair(vc)
+        ref = jax_decode_attention(jq, jk, jv, jnp.int32(130), softcap=30.0,
+                                   impl="interpret", blk_k=64)
+        out = decode_attention(tq, tk, tv, 130, softcap=30.0)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+    def test_garbage_past_pos_is_ignored(self):
+        """Cache slots beyond ``pos`` must not affect the output."""
+        q, kc, vc = _cache(1, 256, 4, 2, 64)
+        pos = 100
+        tq, tk, tv = (torch.from_numpy(a) for a in (q, kc, vc))
+        o1 = decode_attention(tq, tk, tv, pos)
+        tk2, tv2 = tk.clone(), tv.clone()
+        tk2[:, pos + 1:] = 1e6
+        tv2[:, pos + 1:] = -1e6
+        o2 = decode_attention(tq, tk2, tv2, pos)
+        np.testing.assert_allclose(o1.numpy(), o2.numpy(), rtol=1e-6, atol=1e-6)
+
+    def test_bfloat16(self):
+        q, kc, vc = _cache(2, 128, 8, 2, 64, seed=2)
+        (jq, tq), (jk, tk), (jv, tv) = (pair(a, "bfloat16") for a in (q, kc, vc))
+        out = decode_attention(tq, tk, tv, 77)
+        assert out.dtype == torch.bfloat16
+        ref = jax_decode_attention(jq, jk, jv, jnp.int32(77), impl="xla")
+        np.testing.assert_allclose(as_np(out), as_np(ref), **tol("bfloat16"))
+
+
+# ---------------------------------------------------------------------------
+# Dispatch: CPU tensors take the plain version and never count a launch
+# ---------------------------------------------------------------------------
+
+
+def _launch_counts():
+    return (rmsnorm.launches, flash_attention.launches, decode_attention.launches)
+
+
+def test_cpu_calls_never_touch_the_launch_counters():
+    before = _launch_counts()
+    rmsnorm(torch.ones(2, 64), torch.zeros(64), 1e-6)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 16, 4, 2, 32))
+    flash_attention(q, k, v)
+    q, kc, vc = (torch.from_numpy(a) for a in _cache(1, 32, 4, 2, 32))
+    decode_attention(q, kc, vc, 5)
+    assert _launch_counts() == before
+
+
+def test_other_devices_are_refused():
+    meta = torch.empty(2, 64, device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA card"):
+        rmsnorm(meta, torch.empty(64, device="meta"))
+    q = torch.empty(1, 8, 4, 32, device="meta")
+    kv = torch.empty(1, 8, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA card"):
+        flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="CPU or a CUDA card"):
+        decode_attention(q[:, :1], kv, kv, 3)
+
+
+def test_building_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(("rmsnorm",))
