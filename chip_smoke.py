@@ -9,18 +9,30 @@ Phases; any failure exits non-zero before the result lines are printed:
      started together) and print ptxas' register / shared-memory report;
   2. check: every kernel against its plain PyTorch version on the card, on the
      same inputs, at the slice's shapes and edge cases (ragged prompts,
-     Sq < Skv, window + softcap, decode at pos 700 of 1024, garbage past pos);
+     Sq < Skv, window + softcap, decode at pos 700 of 1024, garbage past pos;
+     Lindley scans bit for bit in float64 and float32 at B = 1, ragged B and T,
+     zero services, arrival ties, k-server rows of mixed k, and the fleet
+     path's (4096, 120000) float64);
   3. time: each kernel's device time per call (CUDA-graph replay between CUDA
      events) beside its plain version, one PyTorch library call for the same
-     function (a yardstick the port never calls) and its bound
-     max(bytes / 3.35 TB/s, operations / peak rate); and its eager time per
-     call from Python, host overhead included;
+     function (a yardstick the port never calls; for the Lindley scan, which
+     no single call computes, the cumsum/cummax identity instead) and its
+     bound max(bytes / 3.35 TB/s, operations / peak rate); and its eager time
+     per call from Python, host overhead included;
   4. serve: StarCoder2-3B at full width (bf16, random weights from seed 0)
      serving 16 Poisson requests through the serving CLI's own path
      (``repro_torch.launch.serve.run``), with the launch counters reset just
      before and read just after; then the served model's kernel-path logits
      held against its plain path, and a profiler trace of decode steps;
-  5. report: one ``kernels`` JSON line, the card's name and power limit as
+  5. fleet: the fleet path at its users' sizes, counters reset just before and
+     read just after: ``repro_torch.launch.fleet_sweep.run_sweep`` over a
+     131,072-row grid with bandwidth crossovers (spot rows held against the
+     scalar closed forms), ``simulate_fleet`` on 4,096 rows x 120,000 jobs on
+     the device and through edge[0] (one and three Lindley launches; steady
+     means within 5% MAPE of the closed forms) and through an edge of 1..4
+     servers (two launches and one k-server launch), and differential gates
+     1-3 on the golden corpus' smoke subset;
+  6. report: one ``kernels`` JSON line, the card's name and power limit as
      nvidia-smi gives them, and the final ``{"ok": true, ...}`` line.
 Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -38,10 +50,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 tensor-core and
-# fp32 CUDA-core operations/s
+# fp32 / fp64 CUDA-core operations/s
 HBM_BPS = 3.35e12
 BF16_OPS = 989e12
 FP32_OPS = 67e12
+FP64_OPS = 34e12  # float64 outside the tensor cores (NVIDIA data sheet, H100 SXM)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)  # outputs round to bf16 at different points
 # decode attention stages K/V and accumulates in fp32 and rounds once; its
 # bf16 error on the card was 3.9e-3 at most (one bf16 step below 1)
@@ -53,6 +66,14 @@ LOGITS_REL_L2 = 3e-2
 
 FAILURES: list[str] = []
 RESULT: dict = {}
+COUNTED: list = []  # every kernel wrapper with a launch counter (filled by main)
+
+# the fleet path's sizes: the acceptance sweep of tests/test_fleet.py (131,072
+# rows) and the reference's full differential-gate run length (base_n 120,000)
+SWEEP_AXES = {"network.bandwidth_Bps": ("geom", 1e5, 1e8, 512),
+              "workload.arrival_rate": ("lin", 0.5, 30.0, 256)}
+SIM_ROWS, SIM_JOBS = 4096, 120_000
+SIM_MAPE_BUDGET_PCT = 5.0
 
 
 def log(msg: str) -> None:
@@ -68,6 +89,15 @@ def end_phase(name: str) -> None:
     if FAILURES:
         fail(f"phase {name}: " + "; ".join(FAILURES))
     log(f"[smoke] phase {name} passed")
+
+
+def reset_counts() -> None:
+    for op in COUNTED:
+        op.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {op.__name__: op.launches for op in COUNTED}
 
 
 # ---------------------------------------------------------------------------
@@ -341,13 +371,12 @@ def phase_serve(torch, ops, refs) -> dict:
     from repro_torch.models.lm import num_params
 
     torch.cuda.reset_peak_memory_stats()
-    for op in ops:
-        op.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     engine = serve.run(SERVE_ARGV)  # the CLI's path: model, warmup, replay, summary
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {op.__name__: op.launches for op in ops}
+    launches = read_counts()
     cfg, model = engine.cfg, engine.model
     n_params = model.num_params()
     if cfg.name != "starcoder2_3b" or n_params != num_params(cfg):
@@ -383,7 +412,8 @@ def phase_serve(torch, ops, refs) -> dict:
     n_norm = 2 * cfg.num_layers + 1
     expect = {"rmsnorm": n_norm * (n_prefill + n_decode),
               "flash_attention": cfg.num_layers * n_prefill,
-              "decode_attention": cfg.num_layers * n_decode}
+              "decode_attention": cfg.num_layers * n_decode,
+              "lindley_scan": 0, "lindley_kserver": 0}
     log(f"[serve] launches {launches}; expected {expect} for {n_prefill} prefills "
         f"({n_norm} rmsnorm + {cfg.num_layers} flash each) and {n_decode} decode steps "
         f"({n_norm} rmsnorm + {cfg.num_layers} decode each)")
@@ -469,6 +499,342 @@ def profile_decode(torch, engine, model) -> dict | None:
 
 
 # ---------------------------------------------------------------------------
+# the fleet path: Lindley scans, closed forms, the batched simulator, gates 1-3
+
+
+def lindley_inputs(torch, gen, B, T, dtype, kind="exp"):
+    """Poisson arrival clocks and exponential services, made on the card."""
+    inter = torch.empty(B, T, dtype=torch.float64, device="cuda").exponential_(generator=gen)
+    if kind == "ties":
+        inter[:, ::3] = 0.0  # every third job arrives with the one before it
+    svc = torch.empty(B, T, dtype=torch.float64, device="cuda").exponential_(generator=gen)
+    svc.mul_(0.9)
+    if kind == "zero":
+        svc.zero_()
+    return torch.cumsum(inter, dim=1).to(dtype), svc.to(dtype)
+
+
+def sim_grids():
+    """The simulator's two grids of SIM_ROWS scenarios: arrival rate by
+    bandwidth, and the same with edge[0] at 1..4 servers (k the last axis,
+    so row i has i % 4 + 1 servers)."""
+    import numpy as np
+
+    from repro_torch.fleet import ScenarioBatch
+    from repro_torch.launch import fleet_sweep
+
+    base = fleet_sweep.default_scenario()
+    rates = np.linspace(0.5, 6.0, 64)
+    batch = ScenarioBatch.from_sweep(base, {
+        "workload.arrival_rate": rates,
+        "network.bandwidth_Bps": np.geomspace(6.0 * 30_000 / 0.9, 100e6 / 8, 64)})
+    batch_k = ScenarioBatch.from_sweep(base, {
+        "workload.arrival_rate": rates,
+        "network.bandwidth_Bps": np.geomspace(6.0 * 30_000 / 0.9, 100e6 / 8, 16),
+        "edges[0].tier.parallelism_k": [1.0, 2.0, 3.0, 4.0]})
+    if batch.size != SIM_ROWS or batch_k.size != SIM_ROWS:
+        fail(f"simulation grids have {batch.size} and {batch_k.size} rows, not {SIM_ROWS}")
+    return batch, batch_k
+
+
+def phase_check_lindley(torch, ck: Checker, lindley, refs) -> None:
+    """The Lindley kernels against their plain versions with torch.equal: a
+    max and an add round exactly, so any difference is a bug."""
+    lindley_scan, lindley_kserver = lindley
+    scan_ref, kserver_ref = refs
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    exact = dict(atol=0.0, rtol=0.0)
+
+    cases = [(1, 5000, "exp"), (45, 3000, "exp"), (33, 130, "exp"), (300, 1000, "exp"),
+             (64, 700, "zero"), (40, 2000, "ties")]
+    for B, T, kind in cases:
+        for dtype in (torch.float64, torch.float32):
+            what = f"({B},{T}) {kind} {str(dtype)[6:]}"
+
+            def case(B=B, T=T, kind=kind, dtype=dtype, what=what):
+                arr, svc = lindley_inputs(torch, gen, B, T, dtype, kind)
+                got, want = lindley_scan(arr, svc), scan_ref(arr, svc)
+                ck.compare("lindley_scan", what, got, want, exact)
+                if not torch.equal(got, want):
+                    FAILURES.append(f"lindley_scan {what}: not bit-equal to the plain version")
+            ck.run("lindley_scan", what, case)
+
+    for B, T, k_max in ((70, 2000, 8), (4096, 300, 8), (5, 100, 1)):
+        what = f"k-server ({B},{T}) k in 1..{k_max}"
+
+        def kcase(B=B, T=T, k_max=k_max, what=what):
+            arr, svc = lindley_inputs(torch, gen, B, T, torch.float64)
+            svc.mul_(k_max)  # keep every k busy
+            k = torch.randint(1, k_max + 1, (B,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+            got, want = lindley_kserver(arr, svc, k, k_max), kserver_ref(arr, svc, k, k_max)
+            ck.compare("lindley_scan", what, got, want, exact)
+            if not torch.equal(got, want):
+                FAILURES.append(f"lindley_kserver {what}: not bit-equal to the plain version")
+        ck.run("lindley_scan", what, kcase)
+
+    def full():
+        arr, svc = lindley_inputs(torch, gen, SIM_ROWS, SIM_JOBS, torch.float64)
+        got = lindley_scan(arr, svc)
+        want = scan_ref(arr, svc)
+        ck.compare("lindley_scan", f"({SIM_ROWS},{SIM_JOBS}) float64, the fleet path's shape",
+                   got, want, exact)
+        if not torch.equal(got, want):
+            FAILURES.append("lindley_scan at the fleet path's shape: not bit-equal")
+    ck.run("lindley_scan", "fleet path's shape", full)
+
+    def kfull():  # the k-server entry at the shape and k mix of the k = 1..4 fleet run
+        k = torch.as_tensor(sim_grids()[1].edge_k[:, 0], device="cuda").to(torch.int32)
+        arr, svc = lindley_inputs(torch, gen, SIM_ROWS, SIM_JOBS, torch.float64)
+        svc.mul_(k[:, None])  # every server of a row at load 0.9
+        got = lindley_kserver(arr, svc, k, 4)
+        want = kserver_ref(arr, svc, k, 4)
+        what = f"k-server ({SIM_ROWS},{SIM_JOBS}) float64, k = row % 4 + 1 as the fleet run"
+        ck.compare("lindley_scan", what, got, want, exact)
+        if not torch.equal(got, want):
+            FAILURES.append("lindley_kserver at the fleet path's shape and k mix: not bit-equal")
+    ck.run("lindley_scan", "k-server at the fleet path's shape", kfull)
+
+    def refuses():
+        arr, svc = lindley_inputs(torch, gen, 8, 64, torch.float64)
+        k = torch.ones(8, dtype=torch.int32, device="cuda")
+        bad = [("bfloat16", TypeError, lambda: lindley_scan(arr.bfloat16(), svc.bfloat16())),
+               ("mixed dtypes", TypeError, lambda: lindley_scan(arr, svc.float())),
+               ("strided rows", ValueError, lambda: lindley_scan(arr[:, ::2], svc[:, ::2])),
+               ("shape mismatch", ValueError, lambda: lindley_scan(arr, svc[:4])),
+               ("1-D input", ValueError, lambda: lindley_scan(arr[0], svc[0])),
+               ("int64 k", ValueError, lambda: lindley_kserver(arr, svc, k.long(), 2)),
+               ("k_max over the limit", ValueError, lambda: lindley_kserver(arr, svc, k, 999)),
+               ("k over k_max", ValueError, lambda: lindley_kserver(arr, svc, k + 2, 2)),
+               ("k of 0", ValueError, lambda: lindley_kserver(arr, svc, k - 1, 2))]
+        for what, exc, call in bad:
+            try:
+                call()
+            except exc:
+                log(f"[check] {'lindley_scan':16s} {what + ' raises ' + exc.__name__:52s} ok")
+                continue
+            FAILURES.append(f"lindley_scan accepted {what}")
+    ck.run("lindley_scan", "wrong inputs refused", refuses)
+    torch.cuda.synchronize()
+
+
+def phase_time_lindley(torch, lindley, refs) -> dict:
+    """Device time of the k = 1 kernel at the fleet path's shape beside its
+    bound, its plain loop (timed once from Python: 120,000 steps of a few
+    launches each, too many to capture) and the cumsum/cummax identity of
+    ``core.simulation.station_pass`` as a yardstick; and the k-server kernel
+    at k = 4, timed from Python (its wrapper reads k on the host)."""
+    lindley_scan, lindley_kserver = lindley
+    scan_ref, _ = refs
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(77)
+    arr, svc = lindley_inputs(torch, gen, SIM_ROWS, SIM_JOBS, torch.float64)
+
+    def identity():
+        csum = torch.cumsum(svc, dim=1)
+        return csum + torch.cummax(arr - (csum - svc), dim=1).values
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    scan_ref(arr, svc)
+    stop.record()
+    stop.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    nbytes = 3 * SIM_ROWS * SIM_JOBS * 8
+    b_ms, b_by = bound(nbytes, 2 * SIM_ROWS * SIM_JOBS, FP64_OPS)
+    k, svc4 = torch.full((SIM_ROWS,), 4, dtype=torch.int32, device="cuda"), 4.0 * svc
+    r = dict(shape=f"arrivals, services ({SIM_ROWS},{SIM_JOBS}) float64",
+             ms=device_ms(torch, lambda: lindley_scan(arr, svc), calls=5, replays=4),
+             plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+             yardstick_ms=device_ms(torch, identity, calls=5, replays=4),
+             eager_ms=eager_ms(torch, lambda: lindley_scan(arr, svc), iters=5, warmup=1),
+             kserver_k4_ms=eager_ms(torch, lambda: lindley_kserver(arr, svc4, k, 4),
+                                    iters=3, warmup=1))
+    log(f"[time] {'lindley_scan':16s} {r['shape']:44s} kernel {r['ms']:.4f} ms  plain "
+        f"{plain_ms:.1f} ms (eager loop)  yardstick cumsum/cummax {r['yardstick_ms']:.4f} ms  "
+        f"bound {b_ms:.5f} ms ({b_by});  k-server at k=4 {r['kserver_k4_ms']:.4f} ms (from "
+        f"Python: its wrapper reads k's range on the host, which a graph cannot capture); "
+        f"eager from Python: kernel {r['eager_ms']:.4f} ms")
+    return r
+
+
+def profile_fleet_sim(torch, simulate_fleet, batch) -> dict | None:
+    """Device busy share and time by kernel over one simulate_fleet call
+    through edge[0] at the fleet path's size (host copies included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        simulate_fleet(batch, "edge[0]", n=SIM_JOBS, seed=1, device="cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, dev_total = [], 0.0
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            kernels.append((us / 1e3, e.key, e.count))
+            dev_total += us / 1e3
+    kernels.sort(reverse=True)
+    if not kernels:
+        log("[profile] no device time in the trace: device busy share not measured")
+        return None
+    log(f"[profile] simulate_fleet edge[0] {SIM_ROWS} x {SIM_JOBS}: {wall_ms:.1f} ms wall, "
+        f"device busy {dev_total:.1f} ms ({dev_total / wall_ms:.0%}); top by device time:")
+    for ms, key, count in kernels[:8]:
+        log(f"[profile]   {ms:9.3f} ms  x{count:<3d} {key[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": dev_total,
+            "top": [dict(ms=ms, name=key, count=count) for ms, key, count in kernels[:12]]}
+
+
+def _axis(spec):
+    import numpy as np
+
+    kind, lo, hi, n = spec
+    return np.geomspace(lo, hi, n) if kind == "geom" else np.linspace(lo, hi, n)
+
+
+def phase_fleet(torch) -> dict:
+    import numpy as np
+
+    from repro_torch.fleet import ScenarioBatch, fleet_analytic, fleet_crossover, simulate_fleet
+    from repro_torch.launch import fleet_sweep
+    from repro_torch.validate import load_corpus, run_differential, smoke_subset
+
+    out: dict = {}
+    base = fleet_sweep.default_scenario()
+    reset_counts()
+
+    # 1. the sweep CLI's own path over the acceptance-size grid, with crossovers
+    axes = {path: _axis(spec) for path, spec in SWEEP_AXES.items()}
+    rep = fleet_sweep.run_sweep(base, axes, crossover_axis="bandwidth", repeat=3, device="cuda")
+    t, cx = rep["timing"], rep["crossover"]
+    log(f"[fleet] sweep: {rep['batch_size']} scenarios on {rep['device']}; closed forms "
+        f"{t['eval_ms']:.3f} ms per call ({t['scenarios_per_sec'] / 1e6:.2f}M scenarios/s, "
+        f"device result copied to the host included); crossovers {cx['solve_ms']:.1f} ms, found "
+        f"for {cx['found_frac']:.1%}, median {cx['median']}; shares {rep['strategy_counts']}")
+    if rep["batch_size"] != 131_072 or sum(rep["strategy_counts"].values()) != 131_072 \
+            or not 0.0 < rep["best_latency_s"]["finite_frac"] <= 1.0:
+        FAILURES.append(f"sweep report malformed: {rep['batch_size']} rows, "
+                        f"{rep['strategy_counts']}")
+    # spot rows of the same grid against the scalar closed forms and solver
+    grid_rows = np.random.default_rng(0).choice(rep["batch_size"], 48, replace=False)
+    full = ScenarioBatch.from_sweep(base, axes)
+    pick = ScenarioBatch(**{k: v[grid_rows] for k, v in full.arrays().items()})
+    pred = fleet_analytic(pick, device="cuda")
+    cxs = fleet_crossover(pick, "bandwidth", device="cuda")
+    worst, worst_cx = 0.0, 0.0
+    for row, i in enumerate(grid_rows):
+        scn = base  # grid row i, C order: the last axis fastest
+        for (path, vals), j in zip(axes.items(), np.unravel_index(i, [len(v) for v in
+                                                                        axes.values()])):
+            scn = scn.replaced(path, float(vals[j]))
+        for k, v in scn.analytic().totals().items():
+            got = pred.totals(row)[k]
+            if np.isinf(v) or np.isinf(got):
+                worst = max(worst, 0.0 if v == got else np.inf)
+            else:
+                worst = max(worst, abs(got - v) / abs(v))
+        sc = scn.crossovers("bandwidth")
+        if (sc.value is None) == bool(cxs.found[row]):
+            worst_cx = np.inf
+        elif sc.value is not None:
+            worst_cx = max(worst_cx, abs(cxs.value[row] - sc.value) / sc.value)
+    ok = worst <= 1e-9 and worst_cx <= 1e-6
+    log(f"[fleet] sweep spot check, 48 grid rows vs scalar analytic(): max rel err {worst:.2e} "
+        f"(limit 1e-9); crossovers vs the scalar solver {worst_cx:.2e} (limit 1e-6) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"sweep spot check: {worst:.2e} / crossovers {worst_cx:.2e}")
+    out["sweep"] = {k: rep[k] for k in ("batch_size", "timing", "strategy_counts",
+                                        "best_latency_s", "crossover")}
+    out["sweep"]["spot_max_rel_err"], out["sweep"]["spot_cx_max_rel_err"] = worst, worst_cx
+    sweep_counts = read_counts()
+
+    # 2. the batched simulator at the reference's gate run length: every queue
+    # at rho <= 0.9 (device tx2 0.15 s at up to 6 rps; NIC at up to 0.9); then
+    # the edge with 1..4 servers, which takes the k-server kernel and both
+    # resorts (its MAPE is reported, not gated: at k > 1 the closed forms use
+    # the paper's k*mu aggregation, which the reference does not gate either)
+    batch, batch_k = sim_grids()
+    out["sim"] = {}
+    for label, b, strategy, expect, gated in (
+            ("on_device", batch, "on_device", (1, 0), True),
+            ("edge[0]", batch, "edge[0]", (3, 0), True),
+            ("edge[0] k=1..4", batch_k, "edge[0]", (2, 1), False)):
+        pred = fleet_analytic(b, device="cuda")
+        before = read_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = simulate_fleet(b, strategy, n=SIM_JOBS, seed=0, device="cuda")
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        after = read_counts()
+        n_k1 = after["lindley_scan"] - before["lindley_scan"]
+        n_kk = after["lindley_kserver"] - before["lindley_kserver"]
+        want = pred.t_dev if strategy == "on_device" else pred.t_edge[:, 0]
+        mean = res.mean
+        ape = np.abs(mean - want) / want * 100
+        shape_ok = res.latencies.shape == (SIM_ROWS, SIM_JOBS) and bool(
+            np.isfinite(res.latencies).all()) and bool((res.latencies > 0).all())
+        ok = shape_ok and (n_k1, n_kk) == expect and (
+            not gated or ape.mean() <= SIM_MAPE_BUDGET_PCT)
+        log(f"[fleet] simulate_fleet {label}: {SIM_ROWS} x {SIM_JOBS} jobs in {wall:.2f} s "
+            f"wall (draws, {n_k1} lindley_scan + {n_kk} k-server launches, host copies); "
+            f"steady mean vs fleet_analytic: MAPE {ape.mean():.3f}% mean, "
+            f"{np.median(ape):.3f}% median, {ape.max():.3f}% max ("
+            + (f"limit {SIM_MAPE_BUDGET_PCT:g}% mean" if gated else "k*mu aggregation, not gated")
+            + f"); peak device memory {peak:.2f} GiB {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"simulate_fleet {label}: shape/finite {shape_ok}, launches "
+                            f"{n_k1}+{n_kk} (expected {expect}), MAPE {ape.mean():.3f}%")
+        out["sim"][label] = dict(wall_s=wall, peak_mem_gib=peak, lindley_scan=n_k1,
+                                 lindley_kserver=n_kk, mape_mean_pct=float(ape.mean()),
+                                 mape_median_pct=float(np.median(ape)),
+                                 mape_max_pct=float(ape.max()), gated=gated)
+        del res
+
+    out["sim_profile"] = profile_fleet_sim(torch, simulate_fleet, batch)
+
+    # 3. differential gates 1-3 on the golden corpus' smoke subset, at the
+    # reference's tier-1 smoke sizes
+    entries, meta = load_corpus()
+    sub = smoke_subset(entries)
+    t0 = time.perf_counter()
+    val = run_differential(sub, expected_totals=meta["expected_totals"], base_n=20_000,
+                           max_n_factor=2.0, bootstrap=100, sim_cross_count=2, device="cuda")
+    d = val.to_dict()
+    log(f"[fleet] differential gates 1-3 on {len(sub)} smoke entries in "
+        f"{time.perf_counter() - t0:.2f} s: scalar vs batched max rel err "
+        f"{d['scalar_vs_vec']['max_rel_err']:.2e} (limit {val.vec_tol:g}); golden "
+        f"{d['golden']['max_rel_err']:.2e} (limit {val.golden_tol:g}); analytic vs simulated "
+        f"MAPE {val.gate.mean_pct:.3f}% over {val.gate.n} (limit {val.mape_budget_pct:g}%); "
+        f"simulators agree to {val.sim_cross.get('max_mape_pct', float('nan')):.3f}% "
+        f"{'ok' if val.passed else 'FAIL'}")
+    if not (val.vec_passed and val.golden_passed and val.gate_passed) or val.gate.n != len(sub):
+        FAILURES.append(f"differential gates: {d['scalar_vs_vec']}, {d['golden']}, "
+                        f"{d['mape_gate']}")
+    out["gates"] = {k: d[k] for k in ("passed", "covers", "scalar_vs_vec", "golden",
+                                      "mape_gate", "sim_cross")}
+
+    launches = read_counts()
+    out["launches"] = launches
+    log(f"[fleet] launches over the fleet path: {launches} (the sweep alone: {sweep_counts})")
+    others = {k: v for k, v in launches.items() if not k.startswith("lindley")}
+    if any(others.values()) or any(sweep_counts.values()) or launches["lindley_scan"] < 9 \
+            or launches["lindley_kserver"] < 1:
+        FAILURES.append(f"fleet launch counts {launches}, sweep {sweep_counts}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -490,11 +856,19 @@ def main() -> int:
     from repro_torch.kernels.decode_attention.ref import decode_attention_reference
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+    from repro_torch.kernels.lindley_scan.ops import lindley_kserver, lindley_scan
+    from repro_torch.kernels.lindley_scan.ref import (
+        lindley_kserver_reference,
+        lindley_scan_reference,
+    )
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
 
     ops = (rmsnorm, flash_attention, decode_attention)
     refs = (rmsnorm_reference, flash_attention_reference, decode_attention_reference)
+    lindley = (lindley_scan, lindley_kserver)
+    lindley_refs = (lindley_scan_reference, lindley_kserver_reference)
+    COUNTED.extend(ops + lindley)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     card = smi[0].strip() if smi else "nvidia-smi gave nothing"
@@ -505,11 +879,18 @@ def main() -> int:
     phase_build(_build)
     end_phase("build")
     ck = phase_check(torch, ops, refs)
+    phase_check_lindley(torch, ck, lindley, lindley_refs)
+    torch.cuda.empty_cache()
     end_phase("check")
     timing = phase_time(torch, F, ops, refs)
+    timing["lindley_scan"] = [phase_time_lindley(torch, lindley, lindley_refs)]
+    torch.cuda.empty_cache()
     end_phase("time")
     serve = phase_serve(torch, ops, refs)
+    torch.cuda.empty_cache()
     end_phase("serve")
+    fleet = phase_fleet(torch)
+    end_phase("fleet")
 
     where = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:32"),
@@ -517,19 +898,25 @@ def main() -> int:
                             "src/repro/kernels/flash_attention/flash_attention.py:112"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention/decode_attention.py:88"),
+        "lindley_scan": ("src/repro_torch/csrc/lindley_scan.cu",
+                         "src/repro/kernels/lindley_scan/lindley_scan.py:58"),
     }
     kernels = []
-    for op in ops:
-        name = op.__name__
+    for name, path_launches in (("rmsnorm", serve), ("flash_attention", serve),
+                                ("decode_attention", serve), ("lindley_scan", fleet)):
         t = timing[name][0]  # the shape the main path launches most
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": where[name][0], "replaces": where[name][1],
-            "launches": serve["launches"][name], "max_abs_err": ck.max_err[name],
+            "launches": path_launches["launches"][name], "max_abs_err": ck.max_err[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
             "eager_ms": t["eager_ms"],
-        })
-    RESULT.update(kernels=kernels, timing=timing, serve=serve)
+        }
+        if name == "lindley_scan":  # no one library call; the k-server entry of the same .cu
+            row.update(yardstick_ms=t["yardstick_ms"], kserver_k4_ms=t["kserver_k4_ms"],
+                       kserver_launches=fleet["launches"]["lindley_kserver"])
+        kernels.append(row)
+    RESULT.update(kernels=kernels, timing=timing, serve=serve, fleet=fleet)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(RESULT, indent=1, default=str))

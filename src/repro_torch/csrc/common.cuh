@@ -11,7 +11,7 @@
 #include <math.h>
 
 // dtype codes shared with the Python wrappers (kernels/_build.py: DTYPE_CODES)
-enum { kFloat32 = 0, kBFloat16 = 1 };
+enum { kFloat32 = 0, kBFloat16 = 1, kFloat64 = 2 };
 
 namespace repro {
 

@@ -33,13 +33,13 @@ __all__ = [
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("rmsnorm", "flash_attention", "decode_attention")
+SOURCES = ("rmsnorm", "flash_attention", "decode_attention", "lindley_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 # dtype codes of csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -60,7 +60,8 @@ def decode_attention(
     pos = int(pos)
     if not 0 <= pos:
         raise ValueError(f"pos must be >= 0, got {pos}")
-    if q.dtype not in _build.DTYPE_CODES or not q.dtype == k_cache.dtype == v_cache.dtype:
+    if (q.dtype not in (torch.float32, torch.bfloat16)
+            or not q.dtype == k_cache.dtype == v_cache.dtype):
         raise TypeError("decode_attention kernel takes float32 or bfloat16 throughout, got "
                         f"{q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
     if hd not in HEAD_DIMS:

@@ -27,7 +27,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
         return rmsnorm_reference(x, scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm runs on the CPU or a CUDA card, not {x.device}")
-    if x.dtype not in _build.DTYPE_CODES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"rmsnorm kernel takes float32 or bfloat16, got {x.dtype}")
     d = x.shape[-1]
     if scale.dtype != x.dtype or tuple(scale.shape) != (d,) or scale.device != x.device:
