@@ -12,11 +12,16 @@ Phases; any failure exits non-zero before the result lines are printed:
      Sq < Skv, window + softcap, decode at pos 700 of 1024, garbage past pos;
      Lindley scans bit for bit in float64 and float32 at B = 1, ragged B and T,
      zero services, arrival ties, k-server rows of mixed k, and the fleet
-     path's (4096, 120000) float64);
+     path's (4096, 120000) float64; the decision scan bit for bit at the
+     cluster's (120, 64, 5) and (600, 2048, 129), float64 and float32, every
+     stagger in {1, 3, 8} with every hysteresis in {0, 0.15, 0.3}, ragged N,
+     NaN / +inf / tied columns, and the closed loop's one-epoch entry);
   3. time: each kernel's device time per call (CUDA-graph replay between CUDA
      events) beside its plain version, one PyTorch library call for the same
      function (a yardstick the port never calls; for the Lindley scan, which
-     no single call computes, the cumsum/cummax identity instead) and its
+     no single call computes, the cumsum/cummax identity instead; for the
+     decision scan ``torch.argmin(costs, -1) - 1``, the same function at
+     h = 0 and stagger 1) and its
      bound max(bytes / 3.35 TB/s, operations / peak rate); and its eager time
      per call from Python, host overhead included;
   4. serve: StarCoder2-3B at full width (bf16, random weights from seed 0)
@@ -32,7 +37,17 @@ Phases; any failure exits non-zero before the result lines are printed:
      means within 5% MAPE of the closed forms) and through an edge of 1..4
      servers (two launches and one k-server launch), and differential gates
      1-3 on the golden corpus' smoke subset;
-  6. report: one ``kernels`` JSON line, the card's name and power limit as
+  6. cluster: the closed-loop cluster path, counters reset just before and
+     read just after: the 64-client / 4-edge acceptance cluster
+     (``solve_equilibrium`` within 20 iterations, one decision-scan launch
+     per synchronous step, every edge at rho <= 0.9; ``cross_check_equilibrium``
+     at 60,000 jobs, gated max MAPE <= 5%; ``simulate_cluster`` on the
+     120-epoch bandwidth-step trace, exactly 120 launches, adaptive <= every
+     static with no saturated epoch), then a city-scale pool (the four edge
+     tiers x 32 = 128 edges, 2,048 clients, 600 one-second epochs, exactly 600
+     launches) whose choices are held against the same run through the plain
+     decision function, and a profile of that call;
+  7. report: one ``kernels`` JSON line, the card's name and power limit as
      nvidia-smi gives them, and the final ``{"ok": true, ...}`` line.
 Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -74,6 +89,14 @@ SWEEP_AXES = {"network.bandwidth_Bps": ("geom", 1e5, 1e8, 512),
               "workload.arrival_rate": ("lin", 0.5, 30.0, 256)}
 SIM_ROWS, SIM_JOBS = 4096, 120_000
 SIM_MAPE_BUDGET_PCT = 5.0
+# the cluster path's sizes: the reference's 64 x 4 acceptance cluster and
+# 120-epoch trace (tests/test_cluster.py:204,300,324), and a city-scale pool:
+# default_cluster's four edge tiers x 32, 2,048 clients (16 per edge, the
+# acceptance ratio), 600 one-second epochs of the CLI's bandwidth walk
+ACCEPT_CLIENTS, ACCEPT_EPOCHS = 64, 120
+CITY_REPEAT, CITY_CLIENTS, CITY_EPOCHS, CITY_STAGGER = 32, 2048, 600, 8
+DECISION_SHAPES = ((ACCEPT_EPOCHS, ACCEPT_CLIENTS, 5),
+                   (CITY_EPOCHS, CITY_CLIENTS, 4 * CITY_REPEAT + 1))
 
 
 def log(msg: str) -> None:
@@ -413,7 +436,7 @@ def phase_serve(torch, ops, refs) -> dict:
     expect = {"rmsnorm": n_norm * (n_prefill + n_decode),
               "flash_attention": cfg.num_layers * n_prefill,
               "decode_attention": cfg.num_layers * n_decode,
-              "lindley_scan": 0, "lindley_kserver": 0}
+              "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0}
     log(f"[serve] launches {launches}; expected {expect} for {n_prefill} prefills "
         f"({n_norm} rmsnorm + {cfg.num_layers} flash each) and {n_decode} decode steps "
         f"({n_norm} rmsnorm + {cfg.num_layers} decode each)")
@@ -835,6 +858,349 @@ def phase_fleet(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the cluster path: the decision scan, the equilibrium, the closed loop
+
+
+def decision_costs(torch, gen, T, N, E1, dtype, specials=True):
+    """Exponential costs made on the card; with ``specials``, all-+inf rows,
+    a +inf column, a NaN and exact ties, at epochs every cohort reaches."""
+    c = torch.empty(T, N, E1, dtype=torch.float64, device="cuda").exponential_(generator=gen)
+    c = (0.05 * c).to(dtype)
+    if specials:
+        c[2, : N // 2] = float("inf")
+        c[3, :, E1 - 1] = float("inf")
+        c[4, 2 % N, E1 // 2] = float("nan")
+        c[5, 1 % N, :] = 0.07
+        c[6, ::5] = c[6, ::5, :1]  # every fifth client: every column ties with on-device
+    return c
+
+
+def phase_check_decision(torch, ck: Checker, decision_scan, scan_ref) -> None:
+    """The decision scan against its plain loop with torch.equal: choices are
+    integers, and one boundary case an ulp apart would flip one."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+
+    def check(what, costs, cohort, **kw):
+        got, want = decision_scan(costs, cohort, **kw), scan_ref(costs, cohort, **kw)
+        ck.compare("decision_scan", what, got, want, dict(atol=0.0, rtol=0.0))
+        if not torch.equal(got, want):
+            FAILURES.append(f"decision_scan {what}: not equal to the plain version")
+
+    shapes = DECISION_SHAPES + ((37, 13, 4), (50, 1000, 33), (9, 70, 1))
+    for T, N, E1 in shapes:
+        for dtype in (torch.float64, torch.float32):
+            for stagger in (1, 3, 8):
+                for h in (0.0, 0.15, 0.3):
+                    what = f"({T},{N},{E1}) {str(dtype)[6:]} stagger {stagger} h {h:g}"
+
+                    def case(T=T, N=N, E1=E1, dtype=dtype, stagger=stagger, h=h, what=what):
+                        costs = decision_costs(torch, gen, T, N, E1, dtype, specials=T > 6)
+                        cohort = (torch.arange(N, device="cuda") % stagger).to(torch.int32)
+                        check(what, costs, cohort, hysteresis=h, stagger=stagger)
+                    ck.run("decision_scan", what, case)
+
+    for t0 in (0, 1, 7, 8, 599):  # the closed loop's one-epoch entry
+        what = f"(1,{CITY_CLIENTS},129) with prev, t0 {t0}, stagger 8, h 0.15"
+
+        def one(t0=t0, what=what):
+            costs = decision_costs(torch, gen, 1, CITY_CLIENTS, 129, torch.float64, specials=False)
+            costs[0, ::7] = costs[0, ::7, :1]
+            cohort = (torch.arange(CITY_CLIENTS, device="cuda") % 8).to(torch.int32)
+            prev = torch.randint(-1, 128, (CITY_CLIENTS,), generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            check(what, costs, cohort, hysteresis=0.15, stagger=8, prev=prev, t0=t0)
+        ck.run("decision_scan", what, one)
+
+    def refuses():
+        costs = decision_costs(torch, gen, 8, 16, 5, torch.float64, specials=False)
+        cohort = torch.zeros(16, dtype=torch.int32, device="cuda")
+        bad = [("bfloat16 costs", TypeError, lambda: decision_scan(costs.bfloat16(), cohort)),
+               ("2-D costs", ValueError, lambda: decision_scan(costs[0], cohort)),
+               ("strided costs", ValueError, lambda: decision_scan(costs[:, :, ::2], cohort)),
+               ("stagger 0", ValueError, lambda: decision_scan(costs, cohort, stagger=0)),
+               ("int64 cohort", ValueError, lambda: decision_scan(costs, cohort.long())),
+               ("prev past the last edge", ValueError, lambda: decision_scan(
+                   costs, cohort, prev=torch.full((16,), 4, dtype=torch.int32, device="cuda")))]
+        for what, exc, call in bad:
+            try:
+                call()
+            except exc:
+                log(f"[check] {'decision_scan':16s} {what + ' raises ' + exc.__name__:52s} ok")
+                continue
+            FAILURES.append(f"decision_scan accepted {what}")
+    ck.run("decision_scan", "wrong inputs refused", refuses)
+    torch.cuda.synchronize()
+
+
+def phase_time_decision(torch, decision_scan, scan_ref) -> dict:
+    """Device time of the decision scan at the city-scale shape, all 600
+    epochs in one call (CUDA-graph replay), beside its byte bound, its plain
+    loop (timed once from Python), the ``argmin - 1`` yardstick (the same
+    function at h = 0, stagger 1), and the eager time of the closed loop's
+    own call: one epoch with ``prev`` and ``t0``, whose wrapper reads prev's
+    range on the host."""
+    T, N, E1 = DECISION_SHAPES[1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1357)
+    costs = decision_costs(torch, gen, T, N, E1, torch.float64, specials=False)
+    cohort1 = torch.zeros(N, dtype=torch.int32, device="cuda")
+    cohort8 = (torch.arange(N, device="cuda") % CITY_STAGGER).to(torch.int32)
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    scan_ref(costs, cohort1)
+    stop.record()
+    stop.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    nbytes = T * N * E1 * 8 + T * N * 4 + N * 4
+    b_ms, b_by = bound(nbytes, T * N * E1, FP64_OPS)
+    one = costs[:1].contiguous()
+    prev = torch.randint(-1, E1 - 1, (N,), generator=gen, device="cuda", dtype=torch.int32)
+    r = dict(shape=f"costs ({T},{N},{E1}) float64",
+             ms=device_ms(torch, lambda: decision_scan(costs, cohort1), calls=5, replays=4),
+             ms_stagger8_h015=device_ms(torch, lambda: decision_scan(
+                 costs, cohort8, hysteresis=0.15, stagger=CITY_STAGGER), calls=5, replays=4),
+             plain_ms=plain_ms,
+             library_ms=device_ms(torch, lambda: torch.argmin(costs, -1) - 1, calls=5, replays=4),
+             bound_ms=b_ms, bound_by=b_by,
+             eager_ms=eager_ms(torch, lambda: decision_scan(costs, cohort1), iters=10),
+             epoch_eager_ms=eager_ms(torch, lambda: decision_scan(
+                 one, cohort8, stagger=CITY_STAGGER, prev=prev, t0=9), iters=200, warmup=20),
+             epoch_device_ms=device_ms(torch, lambda: decision_scan(
+                 one, cohort8, stagger=CITY_STAGGER, t0=9), calls=50, replays=10))
+    log(f"[time] {'decision_scan':16s} {r['shape']:44s} kernel {r['ms']:.4f} ms (stagger 8, "
+        f"h 0.15: {r['ms_stagger8_h015']:.4f} ms)  plain {plain_ms:.1f} ms (eager loop)  "
+        f"library argmin-1 {r['library_ms']:.4f} ms  bound {b_ms:.5f} ms ({b_by});  one epoch "
+        f"(1,{N},{E1}): {r['epoch_device_ms']:.4f} ms device, {r['epoch_eager_ms']:.4f} ms eager "
+        f"from Python with prev (its range read on the host)")
+    return r
+
+
+def city_cluster():
+    """default_cluster's four edge tiers repeated CITY_REPEAT times (each copy
+    renamed), shared by CITY_CLIENTS clients."""
+    from dataclasses import replace
+
+    from repro_torch.core.scenario import ClusterSpec
+    from repro_torch.launch.cluster_sim import default_cluster
+
+    base = default_cluster(ACCEPT_CLIENTS).base
+    edges = tuple(replace(e, tier=replace(e.tier, name=f"{e.tier.name}-{r}"))
+                  for r in range(CITY_REPEAT) for e in base.edges)
+    return ClusterSpec(base=replace(base, edges=edges, name="city-base"),
+                       n_clients=CITY_CLIENTS,
+                       name=f"city-{CITY_CLIENTS}x{len(edges)}")
+
+
+def walk_trace(duration: float, bw0: float, drop: float = 0.15):
+    """The cluster CLI's default walk: bandwidth x ``drop`` in the middle third."""
+    from repro_torch.fleet import make_trace, step_signal
+
+    third = duration / 3
+    return make_trace(duration, 1.0, arrival_rate=2.0, bandwidth_Bps=lambda t: step_signal(
+        t, [(0.0, bw0), (third, bw0 * drop), (2 * third, bw0)]))
+
+
+@contextlib.contextmanager
+def route_decisions(fn):
+    """Route the cluster's decide steps through ``fn`` (comparisons only)."""
+    from repro_torch.fleet import cluster
+
+    saved = cluster.decision_scan
+    cluster.decision_scan = fn
+    try:
+        yield
+    finally:
+        cluster.decision_scan = saved
+
+
+def profile_cluster(torch, simulate_cluster, spec, trace, n_req) -> dict | None:
+    """Host and device time, and device time by kernel, of one city-scale
+    closed-loop run (adaptive policy only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        simulate_cluster(spec, trace, policies=("adaptive",), stagger=CITY_STAGGER, n_req=n_req)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, dev_total = [], 0.0
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            kernels.append((us / 1e3, e.key, e.count))
+            dev_total += us / 1e3
+    kernels.sort(reverse=True)
+    if not kernels:
+        log("[profile] no device time in the trace: device busy share not measured")
+        return None
+    log(f"[profile] simulate_cluster adaptive {CITY_CLIENTS} x {CITY_EPOCHS} epochs: "
+        f"{wall_ms:.1f} ms wall (profiler on), device busy {dev_total:.1f} ms "
+        f"({dev_total / wall_ms:.0%}); top by device time:")
+    for ms, key, count in kernels[:10]:
+        log(f"[profile]   {ms:9.3f} ms  x{count:<6d} {key[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": dev_total,
+            "top": [dict(ms=ms, name=key, count=count) for ms, key, count in kernels[:14]]}
+
+
+def phase_cluster(torch, scan_ref) -> dict:
+    import numpy as np
+
+    from repro_torch.fleet import cross_check_equilibrium, simulate_cluster, solve_equilibrium
+    from repro_torch.launch.cluster_sim import default_cluster
+
+    out: dict = {}
+    reset_counts()
+    spec = default_cluster(ACCEPT_CLIENTS)
+    bw0 = float(np.asarray(spec.base.network.bandwidth_Bps))
+
+    # 1. the acceptance equilibrium: one launch per synchronous step (the
+    # same solve on the CPU counts the steps), then the damped sweeps on the host
+    before = read_counts()
+    t0 = time.perf_counter()
+    eq = solve_equilibrium(spec, max_iter=20, device="cuda")
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    n_eq = read_counts()["decision_scan"] - before["decision_scan"]
+    steps = []
+    with route_decisions(lambda *a, **k: steps.append(1) or scan_ref(*a, **k)):
+        eq_cpu = solve_equilibrium(spec, max_iter=20, device="cpu")
+    used = sum(1 for c in eq.counts().values() if c)
+    ok = (eq.converged and eq.iterations <= 20 and used >= 2 and bool(np.all(eq.rho_edges <= 0.9))
+          and n_eq == len(steps) >= 1 and np.array_equal(eq.choices, eq_cpu.choices)
+          and eq.iterations == eq_cpu.iterations)
+    log(f"[cluster] equilibrium {ACCEPT_CLIENTS} x 4: converged {eq.converged} in "
+        f"{eq.iterations} iterations (limit 20; damped after oscillation: {eq.oscillation}) in "
+        f"{solve_ms:.1f} ms; {n_eq} decision_scan launches for {len(steps)} synchronous steps; "
+        f"counts {eq.counts()}; edge rho {np.round(eq.rho_edges, 4).tolist()} (limit 0.9); "
+        f"choices equal to the CPU solve: {np.array_equal(eq.choices, eq_cpu.choices)} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"equilibrium: converged {eq.converged}, {eq.iterations} iterations, "
+                        f"{used} targets, rho {eq.rho_edges}, {n_eq} launches for "
+                        f"{len(steps)} steps")
+    out["equilibrium"] = dict(iterations=eq.iterations, converged=eq.converged,
+                              oscillation=eq.oscillation, counts=eq.counts(),
+                              rho_edges=eq.rho_edges.tolist(), solve_ms=solve_ms,
+                              launches=n_eq, synchronous_steps=len(steps))
+
+    before = read_counts()
+    t0 = time.perf_counter()
+    cc = cross_check_equilibrium(spec, eq, n=60_000, seed=0, device="cuda")
+    cc_s = time.perf_counter() - t0
+    n_lindley = read_counts()["lindley_scan"] - before["lindley_scan"]
+    on_dev = any(g["target"] == "on_device" for g in cc["groups"])
+    gated = cc["gated_max_mape_pct"]
+    ok = gated is not None and gated <= 5.0 and n_lindley == int(on_dev)
+    log(f"[cluster] cross-check at 60,000 jobs in {cc_s:.2f} s: "
+        + "; ".join(f"{g['target']} x{g['n_clients']} rho {g['rho']:.3f} MAPE "
+                    f"{g['mape_pct']:.3f}%" for g in cc["groups"])
+        + f"; gated max MAPE {gated} (limit 5%); {n_lindley} lindley_scan launches (one per "
+          f"on-device batch; on-device groups: {on_dev}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"cross-check: gated max MAPE {gated}, {n_lindley} Lindley launches")
+    out["cross_check"] = dict(gated_max_mape_pct=gated, groups=cc["groups"], elapsed_s=cc_s,
+                              lindley_launches=n_lindley)
+
+    # 2. the acceptance closed loop: 120 epochs, stagger 8, seed 1, every static
+    pols = ("adaptive", "on_device") + tuple(f"edge[{j}]" for j in range(spec.n_edges))
+    trace = walk_trace(float(ACCEPT_EPOCHS), bw0)
+    before = read_counts()
+    t0 = time.perf_counter()
+    res = simulate_cluster(spec, trace, policies=pols, stagger=8, seed=1)
+    wall = time.perf_counter() - t0
+    n_dec = read_counts()["decision_scan"] - before["decision_scan"]
+    a = res.policies["adaptive"]
+    finite = all(np.isfinite(p.latencies_s).all() and p.latencies_s.shape ==
+                 (ACCEPT_EPOCHS, ACCEPT_CLIENTS) for p in res.policies.values())
+    ok = finite and res.adaptive_wins and a.saturated_epochs == 0 and n_dec == ACCEPT_EPOCHS
+    log(f"[cluster] closed loop {ACCEPT_CLIENTS} x 4 x {ACCEPT_EPOCHS} epochs in {wall:.2f} s: "
+        + ", ".join(f"{n} {p.mean_latency_s * 1e3:.3f} ms (sat {p.saturated_epochs})"
+                    for n, p in res.policies.items())
+        + f"; adaptive <= every static: {res.adaptive_wins}; {n_dec} decision_scan launches "
+          f"(expected {ACCEPT_EPOCHS}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"acceptance closed loop: wins {res.adaptive_wins}, saturated "
+                        f"{a.saturated_epochs}, launches {n_dec}, finite {finite}")
+    out["acceptance"] = dict(wall_s=wall, launches=n_dec, adaptive_wins=res.adaptive_wins,
+                             means_s={n: p.mean_latency_s for n, p in res.policies.items()},
+                             saturated={n: p.saturated_epochs for n, p in res.policies.items()})
+
+    # 3. the city-scale pool: its counts drawn once on the card, so that the
+    # plain-decision run below sees the same arrivals
+    city = city_cluster()
+    n_e = city.n_edges
+    trace = walk_trace(float(CITY_EPOCHS), bw0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    lam = torch.full((CITY_EPOCHS, CITY_CLIENTS), 2.0, dtype=torch.float64, device="cuda")
+    n_req = torch.poisson(lam * trace.epoch_s, generator=gen).cpu().numpy()
+    table_gb = CITY_EPOCHS * CITY_CLIENTS * n_e * 8 / 1e9
+    log(f"[cluster] city pool: {CITY_CLIENTS} clients x {n_e} edges x {CITY_EPOCHS} epochs; "
+        f"a (T*N, E) float64 scoring table is {table_gb:.3f} GB; the scoring holds about 16 of "
+        f"them at once (their temporaries in analytic_vec), so the peak is reckoned near "
+        f"{16 * table_gb:.0f} GB (T would be halved above 60 GB)")
+    city_pols = ("adaptive", "on_device", "edge[0]")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = read_counts()
+    t0 = time.perf_counter()
+    res = simulate_cluster(city, trace, policies=city_pols, stagger=CITY_STAGGER, n_req=n_req)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_dec = read_counts()["decision_scan"] - before["decision_scan"]
+    t0 = time.perf_counter()
+    res_a = simulate_cluster(city, trace, policies=("adaptive",), stagger=CITY_STAGGER,
+                             n_req=n_req)
+    wall_a = time.perf_counter() - t0
+    launches = read_counts()
+    out["launches"] = launches
+    a = res.policies["adaptive"]
+    ce = CITY_EPOCHS * CITY_CLIENTS
+    finite = all(np.isfinite(p.latencies_s).all() and p.latencies_s.shape ==
+                 (CITY_EPOCHS, CITY_CLIENTS) for p in res.policies.values())
+    with route_decisions(scan_ref):
+        res_p = simulate_cluster(city, trace, policies=("adaptive",), stagger=CITY_STAGGER,
+                                 n_req=n_req)
+    same = np.array_equal(a.choices, res_p.policies["adaptive"].choices) and np.array_equal(
+        a.choices, res_a.policies["adaptive"].choices)
+    ok = finite and same and n_dec == CITY_EPOCHS and peak <= 60 * 1e9 / 2**30
+    log(f"[cluster] city closed loop: {ce} client-epochs, all three policies in {wall:.2f} s "
+        f"wall; adaptive alone {wall_a:.2f} s ({ce / wall_a:,.0f} client-epochs/s); peak device "
+        f"memory {peak:.2f} GiB; {n_dec} decision_scan launches (expected {CITY_EPOCHS}); "
+        f"choices equal to the plain-decision run: {same} {'ok' if ok else 'FAIL'}")
+    log("[cluster] city means: " + ", ".join(
+        f"{n} {p.mean_latency_s * 1e3:.3f} ms (saturated {p.saturated_epochs} of {ce}, "
+        f"offload {p.offload_frac:.1%}, switches {p.switches})" for n, p in res.policies.items())
+        + f"; adaptive <= both statics: {res.adaptive_wins} (reported, not gated)")
+    if not ok:
+        FAILURES.append(f"city closed loop: finite {finite}, choices equal {same}, launches "
+                        f"{n_dec}, peak {peak:.2f} GiB")
+    out["city"] = dict(clients=CITY_CLIENTS, edges=n_e, epochs=CITY_EPOCHS, wall_s=wall,
+                       adaptive_wall_s=wall_a, client_epochs_per_s=ce / wall_a,
+                       peak_mem_gib=peak, launches=n_dec, choices_equal_plain=same,
+                       adaptive_wins=res.adaptive_wins,
+                       means_s={n: p.mean_latency_s for n, p in res.policies.items()},
+                       saturated={n: p.saturated_epochs for n, p in res.policies.items()},
+                       offload_frac={n: p.offload_frac for n, p in res.policies.items()},
+                       adaptive_switches=a.switches)
+    del res, res_a, res_p
+    out["city_profile"] = profile_cluster(torch, simulate_cluster, city, trace, n_req)
+
+    serving = {k: launches[k] for k in ("rmsnorm", "flash_attention", "decode_attention")}
+    if any(serving.values()):
+        FAILURES.append(f"serving kernels ran in the cluster phase: {serving}")
+    log(f"[cluster] launches over the cluster path: {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -852,6 +1218,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decision_scan.ops import decision_scan
+    from repro_torch.kernels.decision_scan.ref import decision_scan_reference
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_reference
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -868,7 +1236,7 @@ def main() -> int:
     refs = (rmsnorm_reference, flash_attention_reference, decode_attention_reference)
     lindley = (lindley_scan, lindley_kserver)
     lindley_refs = (lindley_scan_reference, lindley_kserver_reference)
-    COUNTED.extend(ops + lindley)
+    COUNTED.extend(ops + lindley + (decision_scan,))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     card = smi[0].strip() if smi else "nvidia-smi gave nothing"
@@ -881,16 +1249,23 @@ def main() -> int:
     ck = phase_check(torch, ops, refs)
     phase_check_lindley(torch, ck, lindley, lindley_refs)
     torch.cuda.empty_cache()
+    phase_check_decision(torch, ck, decision_scan, decision_scan_reference)
+    torch.cuda.empty_cache()
     end_phase("check")
     timing = phase_time(torch, F, ops, refs)
     timing["lindley_scan"] = [phase_time_lindley(torch, lindley, lindley_refs)]
+    torch.cuda.empty_cache()
+    timing["decision_scan"] = [phase_time_decision(torch, decision_scan, decision_scan_reference)]
     torch.cuda.empty_cache()
     end_phase("time")
     serve = phase_serve(torch, ops, refs)
     torch.cuda.empty_cache()
     end_phase("serve")
     fleet = phase_fleet(torch)
+    torch.cuda.empty_cache()
     end_phase("fleet")
+    cluster = phase_cluster(torch, decision_scan_reference)
+    end_phase("cluster")
 
     where = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:32"),
@@ -900,10 +1275,13 @@ def main() -> int:
                              "src/repro/kernels/decode_attention/decode_attention.py:88"),
         "lindley_scan": ("src/repro_torch/csrc/lindley_scan.cu",
                          "src/repro/kernels/lindley_scan/lindley_scan.py:58"),
+        "decision_scan": ("src/repro_torch/csrc/decision_scan.cu",
+                          "src/repro/kernels/decision_scan/decision_scan.py:87"),
     }
     kernels = []
     for name, path_launches in (("rmsnorm", serve), ("flash_attention", serve),
-                                ("decode_attention", serve), ("lindley_scan", fleet)):
+                                ("decode_attention", serve), ("lindley_scan", fleet),
+                                ("decision_scan", cluster)):
         t = timing[name][0]  # the shape the main path launches most
         row = {
             "name": name, "route": "cuda", "source": where[name][0], "replaces": where[name][1],
@@ -915,8 +1293,11 @@ def main() -> int:
         if name == "lindley_scan":  # no one library call; the k-server entry of the same .cu
             row.update(yardstick_ms=t["yardstick_ms"], kserver_k4_ms=t["kserver_k4_ms"],
                        kserver_launches=fleet["launches"]["lindley_kserver"])
+        if name == "decision_scan":  # the closed loop launches it one epoch at a time
+            row.update(epoch_ms=t["epoch_device_ms"], epoch_eager_ms=t["epoch_eager_ms"],
+                       ms_stagger8_h015=t["ms_stagger8_h015"])
         kernels.append(row)
-    RESULT.update(kernels=kernels, timing=timing, serve=serve, fleet=fleet)
+    RESULT.update(kernels=kernels, timing=timing, serve=serve, fleet=fleet, cluster=cluster)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(RESULT, indent=1, default=str))

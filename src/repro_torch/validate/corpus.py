@@ -24,8 +24,9 @@ golden scalar-analytic totals, so any future change to the closed forms that
 moves a prediction is caught as a diff, not a silent drift.
 
 The port reads that fixture (``load_corpus``) and never writes it. Its
-generator covers every regime but the cluster and mean-field equilibria,
-whose solvers are not ported yet: reaching them raises ``NotImplementedError``.
+generator covers every regime but the mean-field equilibria, whose solver is
+not ported yet: reaching them raises ``NotImplementedError``. The cluster
+equilibria are solved on ``device`` (default: the card).
 """
 
 from __future__ import annotations
@@ -330,14 +331,58 @@ def _cluster_entry(
     *,
     sim_gate: bool = True,
     smoke: bool = False,
+    device=None,
 ) -> CorpusEntry:
     """Closed-loop regime: a representative client's induced scenario at the
-    solved equilibrium of a small cluster (paper §6). Needs the equilibrium
-    solver of ``fleet/cluster.py``, which the port does not have yet."""
-    raise NotImplementedError(
-        "cluster-equilibrium corpus entries need fleet/cluster.py (solve_equilibrium, "
-        "induced_scenario), which ROADMAP A3 ports later (with B2 decision_scan); "
-        "read the pinned entries with load_corpus instead")
+    solved equilibrium of a small cluster (paper §6), solved on ``device``.
+
+    The cluster is sized so the fleet's best response concentrates on the
+    fast edge at ~``target_rho`` utilization — a slow device keeps everyone
+    offloading, and the second edge is bad enough that nobody spills — and
+    the representative's view of that fixed point (the other clients as
+    per-stream background) is pinned like any other multitenant entry. The
+    equilibrium solver is deterministic, so regeneration stays byte-identical."""
+    from repro_torch.core.scenario import ClusterSpec
+    from repro_torch.fleet.cluster import induced_scenario, solve_equilibrium
+
+    lam = _jitter(rng, 2.0)
+    s_fast = _jitter(rng, target_rho / (n_clients * lam), 0.05)
+    spec = ClusterSpec(
+        base=Scenario(
+            workload=Workload(arrival_rate=lam, req_bytes=40_000, res_bytes=2_000,
+                              name="corpus"),
+            device=Tier("cpu-slow", 0.400),
+            network=NetworkPath(bandwidth_Bps=_BANDWIDTHS_BPS[2]),
+            edges=(
+                EdgeSpec(_tier("cluster-fast", s_fast, ServiceModel.DETERMINISTIC, 0.0)),
+                EdgeSpec(_tier("cluster-slow", 6.0 * s_fast,
+                               ServiceModel.DETERMINISTIC, 0.0)),
+            ),
+            name=f"cluster-base-rho{target_rho:.2f}",
+        ),
+        n_clients=n_clients,
+        name=f"cluster-{n_clients}c-rho{target_rho:.2f}",
+    )
+    eq = solve_equilibrium(spec, device=device)
+    assert eq.converged, "corpus cluster must reach its fixed point"
+    on_edges = eq.choices[eq.choices >= 0]
+    assert on_edges.size, "corpus cluster equilibrium must offload"
+    j = int(np.argmax(np.bincount(on_edges, minlength=spec.n_edges)))
+    rep = int(np.nonzero(eq.choices == j)[0][0])
+    scn = induced_scenario(
+        spec, eq.choices, rep,
+        name=f"cluster-{n_clients}c-rho{target_rho:.2f}",
+    )
+    strategy = f"edge[{j}]"
+    rho = bottleneck_rho(scn, strategy)
+    return CorpusEntry(
+        scenario=scn,
+        strategy=strategy,
+        regime="cluster-equilibrium",
+        rho=rho,
+        sim_gate=sim_gate and rho <= 0.9,
+        smoke=smoke,
+    )
 
 
 def _meanfield_entry(
@@ -356,7 +401,7 @@ def _meanfield_entry(
         "entries with load_corpus instead")
 
 
-def generate_corpus(seed: int = DEFAULT_SEED) -> tuple[CorpusEntry, ...]:
+def generate_corpus(seed: int = DEFAULT_SEED, *, device=None) -> tuple[CorpusEntry, ...]:
     """The golden corpus: deterministic in ``seed``, spanning tiers x
     bandwidth x arrival rate x tenancy x service-model mix x utilization
     bands up to rho ~ 0.95."""
@@ -410,8 +455,8 @@ def generate_corpus(seed: int = DEFAULT_SEED) -> tuple[CorpusEntry, ...]:
 
     # -- closed-loop cluster equilibria (§6): a representative client's view
     # of the solved fixed point, gated like any multitenant entry ------------
-    entries.append(_cluster_entry(rng, 8, 0.55))
-    entries.append(_cluster_entry(rng, 8, 0.82))
+    entries.append(_cluster_entry(rng, 8, 0.55, device=device))
+    entries.append(_cluster_entry(rng, 8, 0.82, device=device))
 
     # -- tail-percentile regime: entries whose job is exercising the sojourn-
     # QUANTILE layer (analytic p99 vs simulated percentile(99)). Appended

@@ -6,22 +6,34 @@ elsewhere. On a machine with the card:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 (``python3 chip_smoke.py`` runs the same comparisons at more shapes, times
-the kernels, serves the full-width model and runs the fleet path.)
-Tolerances: bfloat16 2e-2 (outputs round to bf16 at different points),
-float32 1e-5; the Lindley scans exact (one max and one add per job, no
-reassociation); the fleet path on the card against the CPU 1e-12 relative on
-departure clocks (the card's cumsum associates differently) and 1e-9 on the
-closed forms (the card's pow/log/exp may round an ulp apart).
+the kernels, serves the full-width model and runs the fleet and cluster
+paths.) Tolerances: bfloat16 2e-2 (outputs round to bf16 at different
+points), float32 1e-5; the Lindley and decision scans exact (one max and one
+add per job; compares and one multiply per decision, no reassociation); the
+fleet path on the card against the CPU 1e-12 relative on departure clocks
+(the card's cumsum associates differently) and 1e-9 on the closed forms (the
+card's pow/log/exp may round an ulp apart); the cluster on the card against
+the CPU on the same counts: choices exact, floats 1e-12 relative (client-axis
+sums associate differently).
 """
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.fleet import (
+    ScenarioBatch,
+    fleet_analytic,
+    fleet_crossover,
+    make_trace,
+    simulate_cluster,
+    simulate_fleet,
+    step_signal,
+)
+from repro_torch.kernels.decision_scan.ops import decision_scan
+from repro_torch.kernels.decision_scan.ref import decision_scan_reference
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_reference
-import numpy as np
-
-from repro_torch.fleet import ScenarioBatch, fleet_analytic, fleet_crossover, simulate_fleet
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 from repro_torch.kernels.lindley_scan.ops import lindley_kserver, lindley_scan
@@ -31,6 +43,7 @@ from repro_torch.kernels.lindley_scan.ref import (
 )
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+from repro_torch.launch.cluster_sim import default_cluster
 from repro_torch.launch.fleet_sweep import default_scenario
 
 pytestmark = pytest.mark.cuda
@@ -187,3 +200,78 @@ def test_fleet_closed_forms_match_cpu(gen):  # gen: skips without a card
                                                                       device="cpu")
     np.testing.assert_array_equal(cx.found, cx_cpu.found)
     np.testing.assert_allclose(cx.value[cx.found], cx_cpu.value[cx.found], rtol=1e-9)
+
+
+def decision_costs(gen, T, N, E1, dtype=torch.float64, specials=True):
+    """Exponential costs; with ``specials``, all-+inf rows, a +inf column, a
+    NaN and an exact tie."""
+    c = torch.empty(T, N, E1, dtype=torch.float64, device="cuda").exponential_(generator=gen)
+    c = (0.05 * c).to(dtype)
+    if specials:
+        c[2, : N // 2] = float("inf")
+        c[3, :, E1 - 1] = float("inf")
+        c[4, 2 % N, E1 // 2] = float("nan")
+        c[5, 1 % N, :] = 0.07
+    return c
+
+
+@pytest.mark.parametrize("T,N,E1", [(120, 64, 5), (37, 13, 4), (600, 2048, 129)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("stagger,h", [(1, 0.0), (3, 0.15), (4, 0.3)])
+def test_decision_scan(gen, T, N, E1, dtype, stagger, h):
+    costs = decision_costs(gen, T, N, E1, dtype)
+    cohort = (torch.arange(N, device="cuda") % stagger).to(torch.int32)
+    before = decision_scan.launches
+    out = decision_scan(costs, cohort, hysteresis=h, stagger=stagger)
+    torch.cuda.synchronize()
+    assert decision_scan.launches == before + 1
+    assert torch.equal(out, decision_scan_reference(costs, cohort, hysteresis=h, stagger=stagger))
+
+
+@pytest.mark.parametrize("t0", [0, 1, 5, 7])
+def test_decision_scan_one_epoch_entry(gen, t0):
+    """The closed loop's per-epoch launch: T = 1 with the carry and global epoch."""
+    costs = decision_costs(gen, 1, 2048, 129, specials=False)
+    costs[0, ::7] = costs[0, ::7, :1]  # exact ties with on-device
+    cohort = (torch.arange(2048, device="cuda") % 3).to(torch.int32)
+    prev = torch.randint(-1, 128, (2048,), generator=gen, device="cuda", dtype=torch.int32)
+    kw = dict(hysteresis=0.15, stagger=3, prev=prev, t0=t0)
+    assert torch.equal(decision_scan(costs, cohort, **kw),
+                       decision_scan_reference(costs, cohort, **kw))
+
+
+def test_decision_scan_wrong_inputs_raise(gen):
+    costs = decision_costs(gen, 8, 16, 5, specials=False)
+    cohort = torch.zeros(16, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        decision_scan(costs.to(torch.bfloat16), cohort)
+    with pytest.raises(ValueError):
+        decision_scan(costs[0], cohort)  # not (T, N, E+1)
+    with pytest.raises(ValueError):
+        decision_scan(costs[:, :, ::2], cohort)  # not contiguous
+    with pytest.raises(ValueError):
+        decision_scan(costs, cohort, stagger=0)
+    with pytest.raises(ValueError):
+        decision_scan(costs, cohort.long())
+    with pytest.raises(ValueError):
+        decision_scan(costs, cohort, prev=torch.full((16,), 4, dtype=torch.int32, device="cuda"))
+
+
+def test_simulate_cluster_on_the_card_matches_cpu(gen):
+    spec = default_cluster(24)
+    tr = make_trace(60.0, 1.0, arrival_rate=2.0, bandwidth_Bps=lambda t: step_signal(
+        t, [(0, 2.5e6), (20, 3.75e5), (40, 2.5e6)]))
+    n_req = np.random.default_rng(3).poisson(2.0, (tr.n_epochs, 24)).astype(np.float64)
+    kw = dict(policies=("adaptive", "on_device", "edge[1]"), stagger=3, hysteresis=0.05,
+              n_req=n_req)
+    before = decision_scan.launches
+    got = simulate_cluster(spec, tr, **kw)
+    assert decision_scan.launches == before + tr.n_epochs
+    want = simulate_cluster(spec, tr, device="cpu", **kw)
+    for name in kw["policies"]:
+        a, b = got.policies[name], want.policies[name]
+        np.testing.assert_array_equal(a.choices, b.choices)
+        np.testing.assert_allclose(a.latencies_s, b.latencies_s, rtol=1e-12, atol=0)
+        np.testing.assert_allclose(a.edge_loads, b.edge_loads, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(got.est_endo_rate, want.est_endo_rate, rtol=1e-12, atol=1e-15)
+    np.testing.assert_allclose(got.est_arrival_rate, want.est_arrival_rate, rtol=1e-12, atol=0)
