@@ -15,13 +15,16 @@ Phases; any failure exits non-zero before the result lines are printed:
      path's (4096, 120000) float64; the decision scan bit for bit at the
      cluster's (120, 64, 5) and (600, 2048, 129), float64 and float32, every
      stagger in {1, 3, 8} with every hysteresis in {0, 0.15, 0.3}, ragged N,
-     NaN / +inf / tied columns, and the closed loop's one-epoch entry);
+     NaN / +inf / tied columns, and the closed loop's one-epoch entry; the
+     selective scan at jamba's full-width prefill (1, 241, 8192, 16) from
+     zeros and decode step (4, 1, 8192, 16) from a random state, ragged T and
+     D, N = 4 in fp32, and B and C as strided slices of one x_proj output);
   3. time: each kernel's device time per call (CUDA-graph replay between CUDA
      events) beside its plain version, one PyTorch library call for the same
      function (a yardstick the port never calls; for the Lindley scan, which
      no single call computes, the cumsum/cummax identity instead; for the
      decision scan ``torch.argmin(costs, -1) - 1``, the same function at
-     h = 0 and stagger 1) and its
+     h = 0 and stagger 1; for the selective scan none) and its
      bound max(bytes / 3.35 TB/s, operations / peak rate); and its eager time
      per call from Python, host overhead included;
   4. serve: StarCoder2-3B at full width (bf16, random weights from seed 0)
@@ -29,6 +32,12 @@ Phases; any failure exits non-zero before the result lines are printed:
      (``repro_torch.launch.serve.run``), with the launch counters reset just
      before and read just after; then the served model's kernel-path logits
      held against its plain path, and a profiler trace of decode steps;
+  4b. serve_hybrid: the StarCoder engine freed, then jamba (mamba + MoE) at
+     full width with 2 of its 4 superblocks (16 of 32 layers: 103 GB of bf16
+     weights do not fit 80 GB) serving 8 Poisson requests through the same
+     CLI path, launch counts reset just before and read just after (14
+     selective-scan launches per prefill and per decode step); its kernel
+     path held against its plain path, and a profiler trace of decode steps;
   5. fleet: the fleet path at its users' sizes, counters reset just before and
      read just after: ``repro_torch.launch.fleet_sweep.run_sweep`` over a
      131,072-row grid with bandwidth crossovers (spot rows held against the
@@ -47,7 +56,7 @@ Phases; any failure exits non-zero before the result lines are printed:
      tiers x 32 = 128 edges, 2,048 clients, 600 one-second epochs, exactly 600
      launches) whose choices are held against the same run through the plain
      decision function, and a profile of that call;
-  7. report: one ``kernels`` JSON line, the card's name and power limit as
+  7. report: one ``kernels`` JSON line (all six kernels), the card's name and power limit as
      nvidia-smi gives them, and the final ``{"ok": true, ...}`` line.
 Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -55,6 +64,7 @@ Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -78,6 +88,26 @@ FP32_TOL = dict(atol=1e-5, rtol=1e-5)  # same arithmetic, other summation order
 # kernel-path vs plain-path logits of the full 30-layer bf16 model: bf16
 # rounding of attention outputs compounds over 30 residual layers
 LOGITS_REL_L2 = 3e-2
+# the selective scan: y is rounded once to bf16 by kernel and plain loop alike,
+# so they differ by one bf16 step (at most 2^-7 of |y|) where fp32 sums over N
+# in another order fall on either side of a rounding boundary, plus that
+# order difference itself (16 terms up to ~10 at 2^-24 each, with margin);
+# the fp32 state to 1e-5 (exp and multiply-adds, contracted into FMAs here)
+SCAN_Y_BF16_TOL = dict(atol=1e-4, rtol=2**-7)
+SCAN_H_TOL = dict(atol=1e-5, rtol=1e-5)
+# H100 SXM special-function units: 16 results per clock per SM (CUDA C++
+# programming guide, arithmetic instruction throughput, compute capability
+# 9.0) x 132 SMs x 1.98 GHz boost clock: the rate of expf's exponentials
+MUFU_OPS = 16 * 132 * 1.98e9
+# jamba's full-width cut: 2 of 4 superblocks, 8 Poisson requests at 4 rps,
+# prompts 256 +/- 64, 16 new tokens, 4 slots of 512 positions
+HYBRID_ARGV = ["--arch", "jamba_v0_1_52b", "--superblocks", "2", "--requests", "8",
+               "--rps", "4", "--prompt-len", "256", "--prompt-jitter", "64", "--max-new", "16",
+               "--slots", "4", "--max-seq", "512", "--device", "cuda"]
+# kernel-path vs plain-path logits of the 16-layer bf16 hybrid, the plain
+# path routed to the experts the kernel path chose: the same bf16 rounding
+# as the dense model's, over 16 layers (14 of them scans that round y once)
+HYBRID_LOGITS_REL_L2 = 3e-2
 
 FAILURES: list[str] = []
 RESULT: dict = {}
@@ -371,15 +401,20 @@ def phase_time(torch, F, ops, refs) -> dict:
 
 @contextlib.contextmanager
 def plain_path(refs):
-    """Route the model through the plain versions (for the logits check only)."""
-    from repro_torch.models import attention, layers
+    """Route the model through the plain versions (for the logits check only):
+    ``refs`` are RMSNorm's, flash and decode attention's and the selective
+    scan's."""
+    from repro_torch.models import attention, layers, ssm
 
-    saved = (layers.rmsnorm, attention.flash_attention, attention.decode_attention)
-    layers.rmsnorm, attention.flash_attention, attention.decode_attention = refs
+    saved = (layers.rmsnorm, attention.flash_attention, attention.decode_attention,
+             ssm.ssm_scan)
+    (layers.rmsnorm, attention.flash_attention, attention.decode_attention,
+     ssm.ssm_scan) = refs
     try:
         yield
     finally:
-        layers.rmsnorm, attention.flash_attention, attention.decode_attention = saved
+        (layers.rmsnorm, attention.flash_attention, attention.decode_attention,
+         ssm.ssm_scan) = saved
 
 
 # the slice's cell: 16 Poisson requests at 20 rps, prompts 256 +/- 64, 32 new
@@ -436,7 +471,7 @@ def phase_serve(torch, ops, refs) -> dict:
     expect = {"rmsnorm": n_norm * (n_prefill + n_decode),
               "flash_attention": cfg.num_layers * n_prefill,
               "decode_attention": cfg.num_layers * n_decode,
-              "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0}
+              "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0}
     log(f"[serve] launches {launches}; expected {expect} for {n_prefill} prefills "
         f"({n_norm} rmsnorm + {cfg.num_layers} flash each) and {n_decode} decode steps "
         f"({n_norm} rmsnorm + {cfg.num_layers} decode each)")
@@ -444,59 +479,129 @@ def phase_serve(torch, ops, refs) -> dict:
         FAILURES.append(f"launch counts {launches} != {expect}")
     out["launches"] = launches
 
-    # the served model, kernel path vs plain path: a ragged prompt, then one decode step
+    out.update(kernel_vs_plain(torch, model, refs, LOGITS_REL_L2, cache_len=1024))
+    out["profile"] = profile_decode(torch, model, slots=4, pos=300, cache_len=1024)
+    del engine, model
+    return out
+
+
+def fill_caches(full, part, L: int) -> None:
+    """Copy a batch-1 prefill's caches into ``full`` (batch 1): the L
+    positions of the attention leaves, the state leaves whole."""
+    for dst, src in zip(full, part):
+        for key in dst:
+            if dst[key].shape[2] != src[key].shape[2]:
+                dst[key][:, :, :L].copy_(src[key])
+            else:
+                dst[key].copy_(src[key])
+
+
+@contextlib.contextmanager
+def routing(record: list | None = None, replay: list | None = None):
+    """Record every MoE layer's top-k expert choices in ``record``, or route
+    by the recorded choices of ``replay`` instead of the layer's own; yields
+    a one-element list that counts the (token, slot) choices replaced."""
+    from repro_torch.models import moe
+
+    saved, pinned, replaced = moe.route, iter(replay or ()), [0]
+
+    def route(p, xt, cfg):
+        probs, idx = saved(p, xt, cfg)
+        if record is not None:
+            record.append(idx)
+        if replay is not None:
+            fixed = next(pinned)
+            replaced[0] += int((fixed != idx).sum())
+            idx = fixed
+        return probs, idx
+
+    moe.route = route
+    try:
+        yield replaced
+    finally:
+        moe.route = saved
+
+
+def kernel_vs_plain(torch, model, refs, limit: float, *, cache_len: int) -> dict:
+    """The served model, kernel path vs plain path: a ragged 241-token prompt,
+    then one decode step from each path's own caches; rel-L2 of the logits.
+    The plain path routes each MoE token to the experts the kernel path chose
+    (a top-k is discontinuous: one bf16 step in a hidden state can swap a
+    near-tie, which is not the kernels' error); how many choices that
+    replaced, and the rel-L2 with the plain path's own routing, are reported
+    beside it, not gated."""
+    cfg = model.cfg
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     L = 241
     prompt = torch.randint(0, cfg.vocab_size, (1, L), generator=gen, device="cuda")
-    logits_k, caches_k = model.prefill(prompt)
-    with plain_path(refs):
+    chosen: dict[str, list] = {"prefill": [], "decode": []}
+    with routing(record=chosen["prefill"]):
+        logits_k, caches_k = model.prefill(prompt)
+    with plain_path(refs), routing(replay=chosen["prefill"]) as replaced_prefill:
         logits_p, caches_p = model.prefill(prompt)
+    with plain_path(refs):
+        logits_free = model.prefill(prompt)[0]
     nxt = logits_p[:, -1].argmax(-1, keepdim=True)
-    steps = {}
-    for name, caches, ctx in (("kernel", caches_k, contextlib.nullcontext()),
-                              ("plain", caches_p, plain_path(refs))):
-        full = model.init_caches(1, 1024)
-        for dst, src in zip(full, caches):
-            for key in dst:
-                dst[key][:, :, :L].copy_(src[key])
-        with ctx:
-            steps[name] = model.decode_step(nxt, L, full)[0]
-    for what, got, want in (("prefill logits", logits_k, logits_p),
-                            ("decode-step logits", steps["kernel"], steps["plain"])):
+    steps, replaced = {}, {"prefill": replaced_prefill[0]}
+    for name, caches in (("kernel", caches_k), ("plain", caches_p)):
+        full = model.init_caches(1, cache_len)
+        fill_caches(full, caches, L)
+        if name == "kernel":
+            with routing(record=chosen["decode"]):
+                steps[name] = model.decode_step(nxt, L, full)[0]
+        else:
+            with plain_path(refs), routing(replay=chosen["decode"]) as r:
+                steps[name] = model.decode_step(nxt, L, full)[0]
+            replaced["decode"] = r[0]
+    out = {}
+    n_routed = {k: sum(int(i.numel()) for i in v) for k, v in chosen.items()}
+    for what, key, got, want in (("prefill logits", "prefill", logits_k, logits_p),
+                                 ("decode-step logits", "decode", steps["kernel"],
+                                  steps["plain"])):
         g, w = got.float(), want.float()
         rel = float((g - w).norm() / w.norm())
         same = float((g.argmax(-1) == w.argmax(-1)).float().mean())
         ok = bool(torch.isfinite(g).all()) and g.shape == (1, 1, cfg.padded_vocab) \
-            and rel <= LOGITS_REL_L2
-        log(f"[serve] {what} ({L}-token prompt), kernel vs plain path: rel_l2 {rel:.3e} "
-            f"(limit {LOGITS_REL_L2:g}), max_abs {float((g - w).abs().max()):.3e}, "
-            f"|logits|max {float(w.abs().max()):.3f}, argmax agree {same:.0%} "
+            and rel <= limit
+        routed = ""
+        if n_routed[key]:
+            routed = (f"; plain path routed as the kernel path: {replaced[key]} of "
+                      f"{n_routed[key]} expert choices replaced")
+        log(f"[serve] {cfg.name}: {what} ({L}-token prompt), kernel vs plain path: rel_l2 "
+            f"{rel:.3e} (limit {limit:g}), max_abs {float((g - w).abs().max()):.3e}, "
+            f"|logits|max {float(w.abs().max()):.3f}, argmax agree {same:.0%}{routed} "
             f"{'ok' if ok else 'FAIL'}")
-        out[f"{what.replace(' ', '_')}_rel_l2"] = rel
+        tag = what.replace(" ", "_").replace("-", "_")
+        out[f"{tag}_rel_l2"] = rel
+        if n_routed[key]:
+            out[f"{tag}_routing_replaced"] = replaced[key]
+            out[f"{tag}_routing_choices"] = n_routed[key]
         if not ok:
-            FAILURES.append(f"{what}: rel_l2 {rel:.3e}")
-    del caches_k, caches_p, logits_k, logits_p
-
-    out["profile"] = profile_decode(torch, engine, model)
+            FAILURES.append(f"{cfg.name} {what}: rel_l2 {rel:.3e}")
+    if n_routed["prefill"]:
+        free = float((logits_k.float() - logits_free.float()).norm() / logits_free.float().norm())
+        out["prefill_logits_rel_l2_own_routing"] = free
+        log(f"[serve] {cfg.name}: prefill logits with the plain path's own routing: rel_l2 "
+            f"{free:.3e} (reported, not gated)")
     return out
 
 
-def profile_decode(torch, engine, model) -> dict | None:
-    """Device busy share and time by kernel over 5 decode steps at 4 slots."""
+def profile_decode(torch, model, *, slots: int, pos: int, cache_len: int) -> dict | None:
+    """Device busy share and time by kernel over 5 decode steps."""
     try:
         from torch.profiler import ProfilerActivity, profile
     except ImportError:
         return None
-    tok = torch.zeros((4, 1), dtype=torch.long, device="cuda")
-    caches = model.init_caches(4, 1024)
+    tok = torch.zeros((slots, 1), dtype=torch.long, device="cuda")
+    caches = model.init_caches(slots, cache_len)
     for _ in range(2):
-        model.decode_step(tok, 300, caches)
+        model.decode_step(tok, pos, caches)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(5):
-            model.decode_step(tok, 300, caches)
+            model.decode_step(tok, pos, caches)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / 5
     kernels, dev_total = [], 0.0
@@ -513,12 +618,188 @@ def profile_decode(torch, engine, model) -> dict | None:
     if not kernels:
         log("[profile] no device time in the trace: device busy share not measured")
         return None
-    log(f"[profile] decode step at pos 300, 4 slots: {wall_ms:.3f} ms wall, device busy "
+    log(f"[profile] {model.cfg.name} decode step at pos {pos}, {slots} slots: {wall_ms:.3f} ms "
+        f"wall, device busy "
         f"{dev_total:.3f} ms ({dev_total / wall_ms:.0%}); top kernels by device time:")
     for ms, key, count in kernels[:8]:
         log(f"[profile]   {ms:8.4f} ms  x{count:<4d} {key[:90]}")
     return {"wall_ms": wall_ms, "device_ms": dev_total,
             "top": [dict(ms=ms, name=key, per_step=count) for ms, key, count in kernels[:12]]}
+
+
+# ---------------------------------------------------------------------------
+# the hybrid serving path: the selective scan and jamba at full width
+
+
+def scan_inputs(torch, gen, B, T, D, N, dtype, *, h0=False, fused=False):
+    """dt = softplus(N(0,1)) * 0.1, u, B, C ~ N(0,1), A = -exp(N(0,1) / 2) as
+    the mixer makes them, on the card; ``fused`` gives B and C as column
+    slices of one (B, T, dtr + 2N) tensor, the mixer's x_proj output at
+    jamba's width (dtr 256)."""
+    dt = (torch.nn.functional.softplus(torch.randn(B, T, D, generator=gen, device="cuda"))
+          * 0.1).to(dtype)
+    u = torch.randn(B, T, D, generator=gen, device="cuda").to(dtype)
+    A = -torch.exp(torch.randn(D, N, generator=gen, device="cuda") * 0.5)
+    if fused:
+        dbc = torch.randn(B, T, 256 + 2 * N, generator=gen, device="cuda").to(dtype)
+        Bc, Cc = dbc[..., 256:256 + N], dbc[..., 256 + N:]
+    else:
+        Bc = torch.randn(B, T, N, generator=gen, device="cuda").to(dtype)
+        Cc = torch.randn(B, T, N, generator=gen, device="cuda").to(dtype)
+    h = torch.randn(B, D, N, generator=gen, device="cuda") if h0 else None
+    return dt, Bc, Cc, u, A, h
+
+
+def phase_check_ssm(torch, ck: Checker, ssm_scan, scan_ref) -> None:
+    """The selective scan against its plain loop at the hybrid path's shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    cases = [
+        ((1, 241, 8192, 16), torch.bfloat16, False, False, "jamba prefill, ragged T, h0 zeros"),
+        ((4, 1, 8192, 16), torch.bfloat16, True, False, "jamba decode step, random h0"),
+        ((2, 37, 200, 16), torch.bfloat16, True, False, "ragged T and D"),
+        ((3, 64, 256, 4), torch.float32, True, False, "N = 4 (the reduced config), fp32"),
+        ((2, 96, 8192, 16), torch.bfloat16, True, True, "B, C strided slices of x_proj"),
+    ]
+    for shape, dtype, h0, fused, note in cases:
+        what = f"{shape} {str(dtype)[6:]}: {note}"
+
+        def case(shape=shape, dtype=dtype, h0=h0, fused=fused, what=what):
+            args = scan_inputs(torch, gen, *shape, dtype, h0=h0, fused=fused)
+            y, h = ssm_scan(*args)
+            ry, rh = scan_ref(*args)
+            ck.compare("ssm_scan", f"y {what}", y, ry,
+                       SCAN_Y_BF16_TOL if dtype == torch.bfloat16 else FP32_TOL)
+            ck.compare("ssm_scan", f"h_final {what}", h, rh, SCAN_H_TOL)
+            if y.dtype != dtype or h.dtype != torch.float32:
+                FAILURES.append(f"ssm_scan {what}: dtypes {y.dtype}/{h.dtype}")
+        ck.run("ssm_scan", what, case)
+
+    def refuses():
+        dt, Bc, Cc, u, A, h0 = scan_inputs(torch, gen, 2, 8, 64, 16, torch.bfloat16, h0=True)
+        wrong = {
+            "float16 inputs": (TypeError, (dt.half(), Bc.half(), Cc.half(), u.half(), A, h0)),
+            "a wrong shape": (ValueError, (dt, Bc, Cc, u[:, :4], A, h0)),
+            "a CPU h0 with CUDA inputs": (ValueError, (dt, Bc, Cc, u, A, h0.cpu())),
+        }
+        for what, (exc, args) in wrong.items():
+            try:
+                ssm_scan(*args)
+            except exc:
+                log(f"[check] {'ssm_scan':16s} {what + ' raises ' + exc.__name__:52s} ok")
+                continue
+            FAILURES.append(f"ssm_scan accepted {what}")
+    ck.run("ssm_scan", "wrong inputs refused", refuses)
+    torch.cuda.synchronize()
+
+
+def scan_bound(B, T, D, N, elt: int, h0: bool) -> tuple[float, str, dict]:
+    """max(bytes / HBM rate, exps / MUFU rate, flops / fp32 peak) for one
+    scan: dt, u read and y written at their dtype, B and C read, A read, h0
+    read when given and h_final written, in fp32; one exponential and 6 fp32
+    operations per (t, d, n) (dt*A, decay*h, (dt u)*B, +, h*C, +) and one per
+    (t, d) (dt*u)."""
+    nbytes = 3 * B * T * D * elt + 2 * B * T * N * elt + D * N * 4 + (1 + h0) * B * D * N * 4
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_exp = B * T * D * N / MUFU_OPS * 1e3
+    t_flop = (6 * B * T * D * N + B * T * D) / FP32_OPS * 1e3
+    b_ms, b_by = max((t_bytes, "bytes"), (t_exp, "operations"), (t_flop, "operations"))
+    return b_ms, b_by, dict(bytes_ms=t_bytes, exp_ms=t_exp, flop_ms=t_flop)
+
+
+def phase_time_ssm(torch, ssm_scan, scan_ref) -> list[dict]:
+    """Device time per call by CUDA-graph replay at jamba's decode step and
+    full-width prefill, beside the plain loop's, the eager time from Python
+    and the bound. No single PyTorch call computes a selective scan."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(55)
+    rows = []
+    for shape, h0, what in (((4, 1, 8192, 16), True, "decode step"),
+                            ((1, 241, 8192, 16), False, "prefill")):
+        args = scan_inputs(torch, gen, *shape, torch.bfloat16, h0=h0)
+        b_ms, b_by, parts = scan_bound(*shape, 2, h0)
+        T = shape[1]
+        r = dict(shape=f"dt, u ({shape[0]},{T},{shape[2]}) bf16, N {shape[3]} ({what})",
+                 ms=device_ms(torch, lambda: ssm_scan(*args)),
+                 plain_ms=device_ms(torch, lambda: scan_ref(*args), calls=2 if T > 1 else 20,
+                                    replays=3 if T > 1 else 10),
+                 library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_parts=parts,
+                 eager_ms=eager_ms(torch, lambda: ssm_scan(*args)))
+        rows.append(r)
+        log(f"[time] {'ssm_scan':16s} {r['shape']:44s} kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library none (no single call)  bound {b_ms:.5f} ms "
+            f"({b_by}: bytes {parts['bytes_ms']:.5f}, exps {parts['exp_ms']:.5f}, fp32 "
+            f"{parts['flop_ms']:.5f});  eager from Python: kernel {r['eager_ms']:.4f} ms")
+    return rows
+
+
+def phase_serve_hybrid(torch, refs) -> dict:
+    """Jamba at full width, 2 of 4 superblocks, through the serving CLI's path."""
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import num_params
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    engine = serve.run(HYBRID_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    cfg, model = engine.cfg, engine.model
+    n_params = model.num_params()
+    if cfg.name != "jamba_v0_1_52b" or cfg.num_superblocks != 2 or n_params != num_params(cfg):
+        FAILURES.append(f"served {cfg.name} x {cfg.num_superblocks} superblocks holds "
+                        f"{n_params} params, template says {num_params(cfg)}")
+    out: dict = {"params": n_params, "argv": HYBRID_ARGV, "layers": cfg.num_layers,
+                 "superblocks": f"{cfg.num_superblocks} of 4"}
+    n_requests, max_new = 8, 16
+    lengths = sorted({len(r.prompt) for r in engine.completed})
+    s = serve.summarize(engine)
+    s.update(wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    floor_ms = 2 * n_params / HBM_BPS * 1e3
+    log(f"[serve_hybrid] {cfg.name}, superblocks {cfg.num_superblocks} of 4 ({cfg.num_layers} "
+        f"layers, {n_params:,} params): {s['requests_done']} requests done in {wall:.2f} s wall "
+        f"(model set-up and warmup of {len(lengths)} prompt lengths included)")
+    log(f"[serve_hybrid] latency p50 {s['latency_p50_ms']:.2f} ms, p99 "
+        f"{s['latency_p99_ms']:.2f} ms (Poisson 4 rps replayed on the engine clock)")
+    log(f"[serve_hybrid] prefill {s['prefill_ms_mean']:.3f} ms mean over {s['prefills']}; "
+        f"decode step {s['decode_step_ms_mean']:.3f} ms mean over {s['decode_steps']} "
+        f"(weight-read floor 2 x {n_params:,} B / 3.35 TB/s = {floor_ms:.3f} ms: the dense "
+        f"dispatch runs every expert over a capacity buffer of at least 4)")
+    log(f"[serve_hybrid] {s['tokens_out']} tokens, {s['tokens_per_s_busy']:.1f} tokens/s of "
+        f"busy time; peak memory {s['peak_mem_gib']:.2f} GiB (limit 80 GB)")
+    s["decode_floor_ms"] = floor_ms
+    out["serve"] = s
+    if s["requests_done"] != n_requests:
+        FAILURES.append(f"hybrid: {s['requests_done']} of {n_requests} requests done")
+    for r in engine.completed:
+        if len(r.tokens_out) != max_new or not all(
+                0 <= t < cfg.padded_vocab for t in r.tokens_out):
+            FAILURES.append(f"hybrid request {r.rid}: {len(r.tokens_out)} tokens "
+                            f"{r.tokens_out[:4]}...")
+    if torch.cuda.max_memory_allocated() >= 80e9:
+        FAILURES.append(f"hybrid peak memory {s['peak_mem_gib']:.2f} GiB")
+
+    n_prefill = len(lengths) + sum(ev.phase == "prefill" for ev in engine.service_log)
+    n_decode = 1 + sum(ev.phase == "decode" for ev in engine.service_log)
+    n_mamba = sum(spec.mixer == "mamba" for spec in cfg.superblock) * cfg.num_superblocks
+    n_attn = cfg.num_layers - n_mamba
+    n_norm = 2 * cfg.num_layers + 1
+    expect = {"rmsnorm": n_norm * (n_prefill + n_decode),
+              "flash_attention": n_attn * n_prefill, "decode_attention": n_attn * n_decode,
+              "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0,
+              "ssm_scan": n_mamba * (n_prefill + n_decode)}
+    log(f"[serve_hybrid] launches {launches}; expected {expect} for {n_prefill} prefills "
+        f"({n_norm} rmsnorm + {n_attn} flash + {n_mamba} ssm_scan each) and {n_decode} decode "
+        f"steps ({n_norm} rmsnorm + {n_attn} decode + {n_mamba} ssm_scan each)")
+    if launches != expect:
+        FAILURES.append(f"hybrid launch counts {launches} != {expect}")
+    out["launches"] = launches
+
+    out.update(kernel_vs_plain(torch, model, refs, HYBRID_LOGITS_REL_L2, cache_len=512))
+    out["profile"] = profile_decode(torch, model, slots=4, pos=300, cache_len=512)
+    del engine, model
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1193,7 +1474,8 @@ def phase_cluster(torch, scan_ref) -> dict:
     del res, res_a, res_p
     out["city_profile"] = profile_cluster(torch, simulate_cluster, city, trace, n_req)
 
-    serving = {k: launches[k] for k in ("rmsnorm", "flash_attention", "decode_attention")}
+    serving = {k: launches[k] for k in ("rmsnorm", "flash_attention", "decode_attention",
+                                        "ssm_scan")}
     if any(serving.values()):
         FAILURES.append(f"serving kernels ran in the cluster phase: {serving}")
     log(f"[cluster] launches over the cluster path: {launches}")
@@ -1231,12 +1513,15 @@ def main() -> int:
     )
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_reference
 
     ops = (rmsnorm, flash_attention, decode_attention)
     refs = (rmsnorm_reference, flash_attention_reference, decode_attention_reference)
+    model_refs = refs + (ssm_scan_reference,)  # every kernel a served model can launch
     lindley = (lindley_scan, lindley_kserver)
     lindley_refs = (lindley_scan_reference, lindley_kserver_reference)
-    COUNTED.extend(ops + lindley + (decision_scan,))
+    COUNTED.extend(ops + lindley + (decision_scan, ssm_scan))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     card = smi[0].strip() if smi else "nvidia-smi gave nothing"
@@ -1251,16 +1536,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_check_decision(torch, ck, decision_scan, decision_scan_reference)
     torch.cuda.empty_cache()
+    phase_check_ssm(torch, ck, ssm_scan, ssm_scan_reference)
+    torch.cuda.empty_cache()
     end_phase("check")
     timing = phase_time(torch, F, ops, refs)
     timing["lindley_scan"] = [phase_time_lindley(torch, lindley, lindley_refs)]
     torch.cuda.empty_cache()
     timing["decision_scan"] = [phase_time_decision(torch, decision_scan, decision_scan_reference)]
     torch.cuda.empty_cache()
+    timing["ssm_scan"] = phase_time_ssm(torch, ssm_scan, ssm_scan_reference)
+    torch.cuda.empty_cache()
     end_phase("time")
-    serve = phase_serve(torch, ops, refs)
+    serve = phase_serve(torch, ops, model_refs)
+    gc.collect()  # the StarCoder engine goes before jamba's 52 GB of weights come
     torch.cuda.empty_cache()
     end_phase("serve")
+    hybrid = phase_serve_hybrid(torch, model_refs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    end_phase("serve_hybrid")
     fleet = phase_fleet(torch)
     torch.cuda.empty_cache()
     end_phase("fleet")
@@ -1277,11 +1571,13 @@ def main() -> int:
                          "src/repro/kernels/lindley_scan/lindley_scan.py:58"),
         "decision_scan": ("src/repro_torch/csrc/decision_scan.cu",
                           "src/repro/kernels/decision_scan/decision_scan.py:87"),
+        "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan/ssm_scan.py:64"),
     }
     kernels = []
     for name, path_launches in (("rmsnorm", serve), ("flash_attention", serve),
                                 ("decode_attention", serve), ("lindley_scan", fleet),
-                                ("decision_scan", cluster)):
+                                ("decision_scan", cluster), ("ssm_scan", hybrid)):
         t = timing[name][0]  # the shape the main path launches most
         row = {
             "name": name, "route": "cuda", "source": where[name][0], "replaces": where[name][1],
@@ -1296,8 +1592,14 @@ def main() -> int:
         if name == "decision_scan":  # the closed loop launches it one epoch at a time
             row.update(epoch_ms=t["epoch_device_ms"], epoch_eager_ms=t["epoch_eager_ms"],
                        ms_stagger8_h015=t["ms_stagger8_h015"])
+        if name == "ssm_scan":  # launched per decode step (the row) and per prefill
+            p = timing[name][1]
+            row.update(prefill_shape=p["shape"], prefill_ms=p["ms"], prefill_plain_ms=p["plain_ms"],
+                       prefill_bound_ms=p["bound_ms"], prefill_bound_by=p["bound_by"],
+                       prefill_eager_ms=p["eager_ms"])
         kernels.append(row)
-    RESULT.update(kernels=kernels, timing=timing, serve=serve, fleet=fleet, cluster=cluster)
+    RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid, fleet=fleet,
+                  cluster=cluster)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(RESULT, indent=1, default=str))

@@ -125,6 +125,14 @@ GAMMA_DET_CV2 = 1e-12
 # asymptotically EXACT in precisely that q -> 1 regime.
 EULER_Q_MAX = 1.0 - 1e-6
 
+# the single-pole asymptote needs its dominant pole to stand alone: a second
+# pole at (1 + gap) * eta adds a term of opposite sign whose residue grows as
+# 1/gap, and the two cancel over t ~ 1/(gap * eta). Stations that share their
+# dominant pole (identical tandem stations: a double pole, where the residue
+# formula divides by zero) or sit within this relative gap of it have their
+# quantile resolved on the Euler path instead.
+POLE_GAP_REL = 1e-2
+
 
 def resolve_tail_method(q: float, method: str) -> str:
     """The method actually used for quantile q (euler -> asymptote beyond
@@ -507,6 +515,13 @@ def _station_lst_real(st: Station, eta: float) -> float:
     return _wait_mgf(st, eta) * _service_mgf(st.fkind, st.fmean, st.fvar, eta)
 
 
+def shares_dominant_pole(cands: Sequence[tuple[float, int, bool]]) -> bool:
+    """Whether the smallest decay rate among the (eta, station, is_wait)
+    candidates has another candidate within ``POLE_GAP_REL`` of it."""
+    etas = sorted(c[0] for c in cands)
+    return len(etas) > 1 and etas[1] <= etas[0] * (1.0 + POLE_GAP_REL)
+
+
 def _quantile_asymptote(stations: Sequence[Station], q: float) -> float:
     """Quantile from ``P(T > t) ~ (r/eta) e^{-eta t}``.
 
@@ -517,9 +532,11 @@ def _quantile_asymptote(stations: Sequence[Station], q: float) -> float:
     factor evaluated at ``-eta``. Exact for a single M/M/1 station;
     increasingly accurate as q -> 1 elsewhere. Known limits: gamma service
     branch points are not simple poles (their tails are lighter than the
-    matching wait pole whenever the station queues, so they are excluded),
-    and near-coincident poles inflate ``r`` — the numeric Euler method is the
-    accuracy-first default.
+    matching wait pole whenever the station queues, so they are excluded).
+    A dominant pole shared with another factor, or within ``POLE_GAP_REL``
+    of one, is no simple pole either: that quantile is resolved on the Euler
+    path (also beyond ``EULER_Q_MAX``, where its noise floor makes it an
+    estimate rather than the inversion's 1e-8) instead of dividing by zero.
     """
     # candidate order (all wait poles, then all exp-service poles) matches the
     # vectorized twin's stacking so exact ties break identically
@@ -533,6 +550,8 @@ def _quantile_asymptote(stations: Sequence[Station], q: float) -> float:
     eta, j, is_wait = min(cands, key=lambda c: c[0])
     if not math.isfinite(eta):  # no queueing anywhere and no exp service
         return sum(st.fmean for st in stations)
+    if shares_dominant_pole(cands):
+        return _quantile_euler(stations, q)
     st_j = stations[j]
     if is_wait:
         rho = st_j.lam * st_j.wmean

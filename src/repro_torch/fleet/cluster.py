@@ -340,6 +340,11 @@ def _closed_loop(cst, cohort, bw_true, lam_true, exo_true, n_req_all, *, window:
     est_endo = torch.zeros((n, e_n), dtype=FLOAT, device=dev)
     est_exo = torch.zeros(e_n, dtype=FLOAT, device=dev)
     prev = torch.full((n,), ON_DEVICE, dtype=torch.int32, device=dev)
+    # the rate window's span as a 0-d tensor on the loop's device: CUDA divides
+    # a tensor by a Python scalar as a multiply by its reciprocal, which can
+    # round one ulp away from the CPU's true division; by a device tensor it
+    # divides, so the card's estimates equal the CPU's bit for bit
+    span = torch.tensor(window * dt, dtype=FLOAT, device=dev)
 
     choices = torch.empty((t_n, n), dtype=torch.int32, device=dev)
     endo_totals = torch.empty((t_n, e_n), dtype=FLOAT, device=dev)
@@ -356,7 +361,7 @@ def _closed_loop(cst, cohort, bw_true, lam_true, exo_true, n_req_all, *, window:
         est_bw = bw_t if first else bw_alpha * bw_t + (1 - bw_alpha) * est_bw
         est_exo = exo_t if first else bg_alpha * exo_t + (1 - bg_alpha) * est_exo
         counts[:, idx % window] = n_req_all[idx]
-        rate = counts.sum(dim=1) / (window * dt)
+        rate = counts.sum(dim=1) / span
         lam_hat = torch.where(rate > 0, rate, cst["lam_spec"])
 
         # -- Algorithm 1 on the estimated state, then one decision launch --

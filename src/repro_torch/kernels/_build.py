@@ -33,7 +33,8 @@ __all__ = [
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("rmsnorm", "flash_attention", "decode_attention", "lindley_scan", "decision_scan")
+SOURCES = ("rmsnorm", "flash_attention", "decode_attention", "lindley_scan", "decision_scan",
+           "ssm_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -3,9 +3,12 @@
 The engine half of ``repro.launch.serve``: a model at full width (random
 weights from seed 0) serves ``--requests`` requests arriving at ``--rps``
 on the CUDA card, through the port's RMSNorm, flash-attention and
-decode-attention kernels. ``--reduced`` swaps in the tiny same-family config
-the CPU tests use. The gateway half (Algorithm 1 over the profiled service)
-is not ported yet (ROADMAP A2).
+decode-attention kernels, and for a hybrid model (jamba) its selective-scan
+kernel. ``--reduced`` swaps in the tiny same-family config the CPU tests use.
+``--superblocks N`` keeps the first N superblocks at full width, a depth cut
+for a model that one card cannot hold (the override of the reference's
+``launch/perf_probe.py``). The gateway half (Algorithm 1 over the profiled
+service) is not ported yet (ROADMAP A2).
 
 Arrivals are replayed on the engine clock: a request is admitted once the
 clock passes its arrival, the clock advances by each measured service time,
@@ -18,12 +21,16 @@ new tokens, rounded up to a multiple of 64, unless ``--max-seq`` sets it.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \
       --requests 16 --rps 20 --prompt-len 256 --prompt-jitter 64 --max-new 32 --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v0_1_52b --superblocks 2 \
+      --requests 8 --rps 4 --prompt-len 256 --prompt-jitter 64 --max-new 16 --slots 4
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v0_1_52b --reduced --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -102,6 +109,8 @@ def run(argv=None) -> Engine:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (CPU tests) instead of full width")
+    ap.add_argument("--superblocks", type=int, default=None,
+                    help="serve only the first N superblocks (a depth cut; widths unchanged)")
     args = ap.parse_args(argv)
     # the furthest shared decode position is the longest prompt plus its new tokens
     need = args.prompt_len + args.prompt_jitter + args.max_new + 1
@@ -113,6 +122,11 @@ def run(argv=None) -> Engine:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(seq_chunk=8)
+    n_sb = cfg.num_superblocks
+    if args.superblocks is not None:
+        if not 1 <= args.superblocks <= n_sb:
+            ap.error(f"--superblocks {args.superblocks} outside 1..{n_sb} for {cfg.name}")
+        cfg = dataclasses.replace(cfg, num_superblocks=args.superblocks)
     device = resolve_device(args.device)
     model = LM(cfg, device=device)
     engine = Engine(cfg, model, ServeConfig(slots=args.slots, max_seq=max_seq), device=device)
@@ -125,8 +139,8 @@ def run(argv=None) -> Engine:
     replay(engine, requests)
     s = summarize(engine)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"[serve] {cfg.name} ({model.num_params():,} params, {cfg.dtype}) on {name}, "
-          f"{args.slots} slots of {max_seq} positions")
+    print(f"[serve] {cfg.name} ({model.num_params():,} params, {cfg.dtype}; superblocks: "
+          f"{cfg.num_superblocks} of {n_sb}) on {name}, {args.slots} slots of {max_seq} positions")
     print(f"[serve] {s['requests_done']} requests done; latency p50 {_fmt(s['latency_p50_ms'])} "
           f"ms, p99 {_fmt(s['latency_p99_ms'])} ms")
     print(f"[serve] prefill {_fmt(s['prefill_ms_mean'])} ms mean over {s['prefills']}; "

@@ -1,10 +1,11 @@
 """Decoder-only LM over a superblock stack, as an ``nn.Module``.
 
-The port's counterpart of ``repro.models.lm`` for dense global-attention
-configurations: every superblock layer is ``attn`` followed by ``mlp``
-(gated or plain). That covers ``starcoder2_3b``, ``starcoder2_15b``,
-``deepseek_7b`` and ``internvl2_1b`` (token path). The reference scans its
-stacked layers; the port holds one module per layer (``layers.{n}``, with
+The port's counterpart of ``repro.models.lm`` for decoder-only models whose
+layers mix with global attention or mamba and follow with an MLP, a routed
+MoE or a MoE beside a dense MLP: ``starcoder2_3b``, ``starcoder2_15b``,
+``deepseek_7b``, ``internvl2_1b`` (token path), ``jamba_v0_1_52b``,
+``dbrx_132b`` and ``arctic_480b``. The reference scans its stacked layers;
+the port holds one module per layer (``layers.{n}``, with
 n = superblock * len(superblock) + position) and loops over them.
 
 Modes:
@@ -12,7 +13,9 @@ Modes:
   decode_step  — one token per sequence, reads and updates the caches in place
 
 Caches keep the reference's layout: a tuple over superblock positions of
-{"k", "v"} tensors stacked (num_superblocks, B, S, K, hd).
+dicts stacked over num_superblocks — {"k", "v"} (n_sb, B, S, K, hd) for an
+attention position, {"conv" (n_sb, B, d_conv - 1, d_inner), "h" (n_sb, B,
+d_inner, d_state) float32} for a mamba position.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 
 from . import attention as A
+from . import moe as M
+from . import ssm as SSM
 from .layers import (embed_template, mlp_apply, mlp_template, norm_template, rms_norm,
                      rope_tables, softcap)
 from .params import ParamTree, count_params, init_tensor, stack, torch_dtype, tree_map
@@ -39,21 +44,20 @@ __all__ = [
     "num_params",
 ]
 
-# Mixers and FFNs outside this slice, with the ROADMAP item that ports each.
+# Mixers and FFNs not ported yet, with the ROADMAP item that ports each.
 _NOT_PORTED = {
     "attn_local": "sliding-window attention decode (gemma2): ROADMAP A5",
-    "mamba": "the mamba mixer and the ssm_scan kernel (jamba): ROADMAP A6",
-    "moe": "mixture-of-experts FFNs (dbrx, arctic, jamba): ROADMAP A7",
-    "moe_dense": "mixture-of-experts FFNs (dbrx, arctic, jamba): ROADMAP A7",
     "mlstm": "xLSTM cells: ROADMAP A8",
     "slstm": "xLSTM cells: ROADMAP A8",
     "none": "xLSTM cells: ROADMAP A8",
 }
+_MIXERS = ("attn", "mamba")
+_FFNS = ("mlp", "moe", "moe_dense")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a config this
-    slice does not serve."""
+    """Raise ``NotImplementedError`` naming the ROADMAP item for a config the
+    port does not serve yet."""
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not ported yet "
                                   "(ROADMAP A9)")
@@ -62,25 +66,32 @@ def check_supported(cfg: ModelConfig) -> None:
             if kind in _NOT_PORTED:
                 raise NotImplementedError(
                     f"{cfg.name}: {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
-        if spec.mixer != "attn" or spec.ffn != "mlp":
+        if spec.mixer not in _MIXERS or spec.ffn not in _FFNS:
             raise ValueError(f"{cfg.name}: unknown layer {spec}")
 
 
-def _block_template(cfg: ModelConfig) -> dict:
+def _block_template(cfg: ModelConfig, spec: LayerSpec) -> dict:
     d = cfg.d_model
-    return {
-        "norm1": norm_template(d),
-        "attn": A.attn_template(cfg),
-        "norm2": norm_template(d),
-        "mlp": mlp_template(cfg),
-    }
+    t: dict[str, Any] = {"norm1": norm_template(d)}
+    if spec.mixer == "attn":
+        t["attn"] = A.attn_template(cfg)
+    else:
+        t["mamba"] = SSM.mamba_template(cfg)
+    t["norm2"] = norm_template(d)
+    if spec.ffn == "mlp":
+        t["mlp"] = mlp_template(cfg)
+    else:
+        t["moe"] = M.moe_template(cfg)
+        if spec.ffn == "moe_dense":
+            t["dense_mlp"] = mlp_template(cfg)
+    return t
 
 
 def model_template(cfg: ModelConfig) -> dict:
     """The reference's parameter tree: embed, blocks stacked over superblocks,
     final norm."""
     check_supported(cfg)
-    blocks = tuple(_block_template(cfg) for _ in cfg.superblock)
+    blocks = tuple(_block_template(cfg, spec) for spec in cfg.superblock)
     return {
         "embed": embed_template(cfg),
         "blocks": stack(blocks, cfg.num_superblocks),
@@ -98,7 +109,8 @@ def cache_template(cfg: ModelConfig, batch: int, cache_len: int) -> tuple:
     over num_superblocks."""
     check_supported(cfg)
     per_pos = tuple(A.kv_cache_template(cfg, batch, cache_len, local=False)
-                    for _ in cfg.superblock)
+                    if spec.mixer == "attn" else SSM.mamba_cache_template(cfg, batch)
+                    for spec in cfg.superblock)
     return stack(per_pos, cfg.num_superblocks)
 
 
@@ -120,8 +132,8 @@ class LM(nn.Module):
         kw = dict(seed=seed, dtype=dtype, device=dev)
         self.embed = ParamTree(embed_template(cfg), path="embed", **kw)
         self.layers = nn.ModuleList(
-            ParamTree(_block_template(cfg), path=f"layers.{n}", **kw)
-            for n in range(len(self.layer_specs)))
+            ParamTree(_block_template(cfg, spec), path=f"layers.{n}", **kw)
+            for n, spec in enumerate(self.layer_specs))
         self.final_norm = nn.Parameter(
             init_tensor(norm_template(cfg.d_model), "final_norm", **kw), requires_grad=False)
 
@@ -136,10 +148,12 @@ class LM(nn.Module):
         return cache_template(self.cfg, batch, cache_len)
 
     def init_caches(self, batch: int, cache_len: int) -> tuple:
-        """Zeroed decode caches on the model's device, in the model's dtype."""
+        """Zeroed decode caches on the model's device, each leaf in its
+        template's dtype (the model's dtype unless the leaf names one)."""
         dtype = torch_dtype(self.cfg.dtype)
-        return tree_map(lambda _, leaf: torch.zeros(leaf.shape, dtype=dtype, device=self.device),
-                        self.cache_template(batch, cache_len))
+        return tree_map(lambda _, leaf: torch.zeros(
+            leaf.shape, dtype=torch_dtype(leaf.dtype) if leaf.dtype else dtype,
+            device=self.device), self.cache_template(batch, cache_len))
 
     # ------------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -156,9 +170,14 @@ class LM(nn.Module):
             logits = x @ self.embed["unembed"]
         return softcap(logits, self.cfg.final_softcap)
 
-    def _ffn(self, p: Any, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, spec: LayerSpec, p: Any, x: torch.Tensor) -> torch.Tensor:
         h = rms_norm(x, p["norm2"], self.cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], h, self.cfg)
+        if spec.ffn == "mlp":
+            return x + mlp_apply(p["mlp"], h, self.cfg)
+        x = x + M.moe_apply(p["moe"], h, self.cfg)
+        if spec.ffn == "moe_dense":  # arctic: routed experts + parallel dense MLP
+            x = x + mlp_apply(p["dense_mlp"], h, self.cfg)
+        return x
 
     def _rope(self, positions: torch.Tensor):
         cfg = self.cfg
@@ -168,39 +187,47 @@ class LM(nn.Module):
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor):
         """tokens: (B, S) ids. Returns (last-position logits (B, 1, V), caches
-        holding the S positions)."""
+        holding the S positions and the mamba layers' states)."""
         cfg = self.cfg
         S = tokens.shape[1]
         x = self._embed(tokens)
         rope_cs = self._rope(torch.arange(S, device=x.device))
         P = len(cfg.superblock)
-        ks: list[list[torch.Tensor]] = [[] for _ in range(P)]
-        vs: list[list[torch.Tensor]] = [[] for _ in range(P)]
-        for n, p in enumerate(self.layers):
+        parts: list[dict[str, list[torch.Tensor]]] = [{} for _ in range(P)]
+        for n, (spec, p) in enumerate(zip(self.layer_specs, self.layers)):
             h = rms_norm(x, p["norm1"], cfg.norm_eps)
-            y, (k, v) = A.attn_forward(p["attn"], h, cfg, causal=True, return_kv=True,
-                                       rope_cs=rope_cs)
-            c = A.prefill_cache_from_kv(k, v, cfg, local=False)
-            ks[n % P].append(c["k"])
-            vs[n % P].append(c["v"])
-            x = self._ffn(p, x + y)
-        caches = tuple({"k": torch.stack(ks[i]), "v": torch.stack(vs[i])} for i in range(P))
+            if spec.mixer == "attn":
+                y, (k, v) = A.attn_forward(p["attn"], h, cfg, causal=True, return_kv=True,
+                                           rope_cs=rope_cs)
+                c = A.prefill_cache_from_kv(k, v, cfg, local=False)
+            else:
+                y, c = SSM.mamba_forward(p["mamba"], h, cfg, return_cache=True)
+            for name, leaf in c.items():
+                parts[n % P].setdefault(name, []).append(leaf)
+            x = self._ffn(spec, p, x + y)
+        caches = tuple({name: torch.stack(leaves) for name, leaves in part.items()}
+                       for part in parts)
         return self._head(x[:, -1:, :]), caches
 
     @torch.inference_mode()
     def decode_step(self, token: torch.Tensor, pos: int, caches: tuple):
         """token: (B, 1) ids; pos: the absolute position shared by the batch.
-        Writes position ``pos`` of ``caches`` in place and returns
-        (logits (B, 1, V), caches)."""
+        Writes position ``pos`` of the attention caches and the new mamba
+        states into ``caches`` in place and returns (logits (B, 1, V), caches)."""
         cfg = self.cfg
         pos = int(pos)
         x = self._embed(token)
         rope_cs = self._rope(torch.full((1,), pos, device=x.device))
         P = len(cfg.superblock)
-        for n, p in enumerate(self.layers):
-            c = caches[n % P]
-            layer_cache = {"k": c["k"][n // P], "v": c["v"][n // P]}
+        for n, (spec, p) in enumerate(zip(self.layer_specs, self.layers)):
+            c, sb = caches[n % P], n // P
+            layer_cache = {name: leaf[sb] for name, leaf in c.items()}
             h = rms_norm(x, p["norm1"], cfg.norm_eps)
-            y, _ = A.attn_decode(p["attn"], h, layer_cache, pos, cfg, rope_cs=rope_cs)
-            x = self._ffn(p, x + y)
+            if spec.mixer == "attn":
+                y, _ = A.attn_decode(p["attn"], h, layer_cache, pos, cfg, rope_cs=rope_cs)
+            else:
+                y, new = SSM.mamba_decode(p["mamba"], h, layer_cache, cfg)
+                for name, leaf in new.items():
+                    layer_cache[name].copy_(leaf)
+            x = self._ffn(spec, p, x + y)
         return self._head(x), caches

@@ -201,13 +201,19 @@ class Engine:
         return now
 
     def _write_slot(self, one: tuple, slot: int) -> None:
-        """Copy a single-request cache (batch 1, the prompt's positions) into
-        slot ``slot`` of the engine's caches, in place."""
+        """Copy a single-request cache (leading batch 1) into slot ``slot`` of
+        the engine's caches, in place, by the reference's rule:
+        sequence-bearing leaves (dim 2 is the cache capacity, which differs
+        from the prompt's length) copy the prompt's prefix; state leaves
+        (mamba ``conv`` and ``h``) copy wholesale."""
         for full_pos, one_pos in zip(self.caches, one):
             for name, full in full_pos.items():
                 part = one_pos[name]
-                s = min(part.shape[2], full.shape[2])
-                full[:, slot, :s].copy_(part[:, 0, :s])
+                if full.dim() >= 3 and part.dim() == full.dim() and full.shape[2] != part.shape[2]:
+                    s = min(part.shape[2], full.shape[2])
+                    full[:, slot, :s].copy_(part[:, 0, :s])
+                else:
+                    full[:, slot].copy_(part[:, 0])
 
     # ------------------------------------------------------------------
     def tick(self, now: float | None = None) -> int:

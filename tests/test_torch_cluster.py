@@ -399,6 +399,29 @@ def test_simulate_cluster_draws_its_own_counts():
         assert p.edge_loads[t].sum() == pytest.approx(tr.arrival_rate[t] * (p.choices[t] >= 0).sum())
 
 
+def test_rate_estimates_are_true_divisions_of_window_sums():
+    """The sliding-window arrival estimate divides each window's count sum by
+    window * dt (a device tensor, so CUDA divides too, where a Python scalar
+    would make it multiply by the reciprocal); the CPU result equals numpy's
+    division bit for bit, and the reciprocal product differs, so the check
+    can tell the two apart."""
+    spec, _ = _default_pair(16)
+    tr, _ = _trace_pair(30.0)
+    window = 3
+    n_req = np.random.default_rng(11).poisson(2.0, (tr.n_epochs, 16)).astype(np.float64)
+    got = simulate_cluster(spec, tr, policies=("adaptive",), n_req=n_req,
+                           rate_window_epochs=window, device="cpu").est_arrival_rate
+    ring = np.zeros((16, window))
+    want = np.empty_like(n_req)
+    for t in range(tr.n_epochs):
+        ring[:, t % window] = n_req[t]
+        want[t] = ring.sum(axis=1) / (window * tr.epoch_s)
+    want = np.where(want > 0, want, 2.0)  # the spec rate where a window saw nothing
+    np.testing.assert_array_equal(got, want)
+    reciprocal = np.where(want > 0, ring.sum(axis=1) * (1.0 / (window * tr.epoch_s)), 2.0)
+    assert not np.array_equal(want[-1], reciprocal)
+
+
 def test_solve_equilibrium_and_induced_scenarios_equal_the_reference(x64):
     spec, jspec = _default_pair(64)
     got, want = solve_equilibrium(spec, device="cpu"), jc.solve_equilibrium(jspec)

@@ -14,7 +14,8 @@ fleet path on the card against the CPU 1e-12 relative on departure clocks
 (the card's cumsum associates differently) and 1e-9 on the closed forms (the
 card's pow/log/exp may round an ulp apart); the cluster on the card against
 the CPU on the same counts: choices exact, floats 1e-12 relative (client-axis
-sums associate differently).
+sums associate differently), the rate estimators exact; the selective scan's
+bf16 y to one bf16 step plus the fp32 sum order, its fp32 state to 1e-5.
 """
 
 import numpy as np
@@ -43,6 +44,8 @@ from repro_torch.kernels.lindley_scan.ref import (
 )
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_reference
 from repro_torch.launch.cluster_sim import default_cluster
 from repro_torch.launch.fleet_sweep import default_scenario
 
@@ -273,5 +276,100 @@ def test_simulate_cluster_on_the_card_matches_cpu(gen):
         np.testing.assert_array_equal(a.choices, b.choices)
         np.testing.assert_allclose(a.latencies_s, b.latencies_s, rtol=1e-12, atol=0)
         np.testing.assert_allclose(a.edge_loads, b.edge_loads, rtol=1e-12, atol=0)
-    np.testing.assert_allclose(got.est_endo_rate, want.est_endo_rate, rtol=1e-12, atol=1e-15)
-    np.testing.assert_allclose(got.est_arrival_rate, want.est_arrival_rate, rtol=1e-12, atol=0)
+    # the estimators are exact on both: window sums of integer counts divided
+    # by a device tensor (not multiplied by a reciprocal), EWMAs of sums of
+    # equal rates
+    np.testing.assert_array_equal(got.est_endo_rate, want.est_endo_rate)
+    np.testing.assert_array_equal(got.est_arrival_rate, want.est_arrival_rate)
+
+
+# ---------------------------------------------------------------------------
+# selective scan (mamba S6)
+
+# y is rounded once to bf16 by both: one bf16 step (at most 2^-7 of |y|) where
+# fp32 sums over N in another order land on either side of a rounding
+# boundary, plus that fp32 order difference itself (16 terms of |h C| up to
+# ~10 at 2^-24 each, with margin); the fp32 state to 1e-5 (exp and
+# multiply-adds, contracted into FMAs on the card)
+SCAN_Y_BF16 = dict(atol=1e-4, rtol=2**-7)
+SCAN_H = dict(atol=1e-5, rtol=1e-5)
+
+
+def scan_inputs(gen, B, T, D, N, dtype=torch.bfloat16, h0=False, fused=False):
+    dt = (torch.nn.functional.softplus(torch.randn(B, T, D, generator=gen, device="cuda"))
+          * 0.1).to(dtype)
+    u = randn(gen, B, T, D, dtype=dtype)
+    A = -torch.exp(torch.randn(D, N, generator=gen, device="cuda") * 0.5)
+    if fused:  # B and C as column slices of the mixer's (B, T, dtr + 2N) x_proj output
+        dbc = randn(gen, B, T, 256 + 2 * N, dtype=dtype)
+        Bc, Cc = dbc[..., 256:256 + N], dbc[..., 256 + N:]
+    else:
+        Bc, Cc = randn(gen, B, T, N, dtype=dtype), randn(gen, B, T, N, dtype=dtype)
+    h = torch.randn(B, D, N, generator=gen, device="cuda") if h0 else None
+    return dt, Bc, Cc, u, A, h
+
+
+@pytest.mark.parametrize("B,T,D,N,dtype,h0,fused", [
+    (1, 241, 8192, 16, torch.bfloat16, False, False),  # full-width prefill, ragged T
+    (4, 1, 8192, 16, torch.bfloat16, True, False),  # decode step from the cache's state
+    (2, 37, 200, 16, torch.bfloat16, True, False),  # ragged T and D
+    (3, 50, 128, 4, torch.float32, True, False),  # the reduced config's N, fp32
+    (2, 70, 8192, 16, torch.bfloat16, True, True),  # strided B and C
+])
+def test_ssm_scan(gen, B, T, D, N, dtype, h0, fused):
+    args = scan_inputs(gen, B, T, D, N, dtype, h0, fused)
+    before = ssm_scan.launches
+    y, h = ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    ry, rh = ssm_scan_reference(*args)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), ry.float(),
+                               **(SCAN_Y_BF16 if dtype == torch.bfloat16 else FP32))
+    torch.testing.assert_close(h, rh, **SCAN_H)
+
+
+def test_ssm_scan_wrong_inputs_raise(gen):
+    dt, Bc, Cc, u, A, h0 = scan_inputs(gen, 2, 8, 64, 16, h0=True)
+    with pytest.raises(TypeError):
+        ssm_scan(dt.half(), Bc.half(), Cc.half(), u.half(), A, h0)
+    with pytest.raises(TypeError):
+        ssm_scan(dt, Bc, Cc, u, A.to(torch.bfloat16), h0)
+    with pytest.raises(ValueError):
+        ssm_scan(dt, Bc, Cc, u[:, :4], A, h0)  # shapes disagree
+    with pytest.raises(ValueError):
+        ssm_scan(dt, Bc, Cc, u, A, h0.cpu())  # a CPU h0 with CUDA inputs
+    with pytest.raises(ValueError):
+        ssm_scan(dt[:, ::2], Bc[:, ::2], Cc[:, ::2], u[:, ::2], A, h0)  # not contiguous
+    with pytest.raises(ValueError):
+        ssm_scan(dt, Bc[..., ::2], Cc[..., ::2], u, A[:, :8], h0[..., :8].contiguous())
+    with pytest.raises(ValueError):  # more states than the kernel keeps in registers
+        ssm_scan(dt, *(torch.cat([x, x], -1) for x in (Bc, Cc)), u, torch.cat([A, A], -1))
+
+
+def test_mamba_layer_on_the_card_matches_its_plain_path(gen):
+    """Reduced jamba's mixer in bf16 on the card, kernel vs plain scan: prefill
+    then a decode step from the prefill's cache."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.params import ParamTree
+
+    cfg = dataclasses.replace(get_config("jamba_v0_1_52b").reduced(), dtype="bfloat16",
+                              mamba_d_state=16)
+    p = ParamTree(SSM.mamba_template(cfg), path="m", seed=0, dtype=torch.bfloat16,
+                  device=torch.device("cuda"))
+    x, xt = randn(gen, 2, 29, cfg.d_model), randn(gen, 2, 1, cfg.d_model)
+    y, cache = SSM.mamba_forward(p, x, cfg, return_cache=True)
+    y1, cache1 = SSM.mamba_decode(p, xt, cache, cfg)
+    saved = SSM.ssm_scan
+    SSM.ssm_scan = ssm_scan_reference
+    try:
+        ry, rcache = SSM.mamba_forward(p, x, cfg, return_cache=True)
+        ry1, rcache1 = SSM.mamba_decode(p, xt, rcache, cfg)
+    finally:
+        SSM.ssm_scan = saved
+    torch.testing.assert_close(y.float(), ry.float(), **BF16)
+    torch.testing.assert_close(y1.float(), ry1.float(), **BF16)
+    torch.testing.assert_close(cache1["h"], rcache1["h"], **SCAN_H)

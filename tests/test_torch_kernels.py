@@ -5,7 +5,9 @@ JAX package's kernels: ``impl="xla"`` (the reference oracle) everywhere and
 Inputs are drawn from a seed with numpy and handed to both packages.
 Tolerances: float32 1e-5 (same arithmetic, other summation order), bfloat16
 2e-2 (outputs round to bf16 at different points; tests/test_kernels.py uses
-the same bf16 budget for the Pallas kernels).
+the same bf16 budget for the Pallas kernels). The selective scan's fp32
+state is held to 1e-5 as well (exp, multiply-adds and a sum over N in fp32;
+the two packages sum over N in their own order).
 """
 
 import jax.numpy as jnp
@@ -16,9 +18,12 @@ import torch
 from repro.kernels.decode_attention.ops import decode_attention as jax_decode_attention
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
 from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
+from repro.kernels.ssm_scan.ops import ssm_scan as jax_ssm_scan
+from repro.kernels.ssm_scan.ref import ssm_scan_reference as jax_ssm_scan_reference
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.ssm_scan.ops import ssm_scan
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -184,12 +189,85 @@ class TestDecodeAttention:
 
 
 # ---------------------------------------------------------------------------
+# Selective scan (mamba S6)
+# ---------------------------------------------------------------------------
+
+
+def _scan_inputs(B, T, D, N, seed=13, with_h0=False, fused=False):
+    """dt > 0, B, C, u ~ N(0, 1), A < 0 as the mixer makes them. ``fused``
+    gives B and C as column slices of one (B, T, 8 + 2N) array, the layout
+    of the mixer's x_proj output."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, T, D)))).astype(np.float32) * 0.1
+    u = rng.standard_normal((B, T, D)).astype(np.float32)
+    A = -np.exp(rng.standard_normal((D, N)) * 0.5).astype(np.float32)
+    h0 = rng.standard_normal((B, D, N)).astype(np.float32) if with_h0 else None
+    if fused:
+        dbc = rng.standard_normal((B, T, 8 + 2 * N)).astype(np.float32)
+        return dt, dbc, u, A, h0
+    Bc = rng.standard_normal((B, T, N)).astype(np.float32)
+    Cc = rng.standard_normal((B, T, N)).astype(np.float32)
+    return dt, Bc, Cc, u, A, h0
+
+
+class TestSsmScan:
+    @pytest.mark.parametrize("B,T,D,N,with_h0", [
+        (2, 64, 128, 8, False),  # tests/test_kernels.py's shapes
+        (1, 128, 256, 16, False),
+        (2, 37, 200, 16, True),  # ragged T and D, decode-style h0
+        (4, 1, 96, 16, True),  # one decode step
+        (3, 19, 40, 4, True),  # the reduced config's N
+    ])
+    def test_matches_jax_reference_with_final_state(self, B, T, D, N, with_h0):
+        dt, Bc, Cc, u, A, h0 = _scan_inputs(B, T, D, N, with_h0=with_h0)
+        y, h = ssm_scan(*(torch.from_numpy(a) for a in (dt, Bc, Cc, u, A)),
+                        None if h0 is None else torch.from_numpy(h0))
+        jy, jh = jax_ssm_scan_reference(*(jnp.asarray(a) for a in (dt, Bc, Cc, u, A)),
+                                        None if h0 is None else jnp.asarray(h0))
+        assert y.shape == (B, T, D) and h.shape == (B, D, N) and h.dtype == torch.float32
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-5, atol=1e-5)
+
+    def test_strided_b_and_c_slices(self):
+        dt, dbc, u, A, h0 = _scan_inputs(2, 33, 64, 16, seed=5, with_h0=True, fused=True)
+        tdbc = torch.from_numpy(dbc)
+        _, tB, tC = tdbc.split([8, 16, 16], dim=-1)
+        assert not tB.is_contiguous() and tB.stride() == (33 * 40, 40, 1)
+        y, h = ssm_scan(torch.from_numpy(dt), tB, tC, torch.from_numpy(u), torch.from_numpy(A),
+                        torch.from_numpy(h0))
+        jy, jh = jax_ssm_scan_reference(jnp.asarray(dt), jnp.asarray(dbc[..., 8:24]),
+                                        jnp.asarray(dbc[..., 24:]), jnp.asarray(u),
+                                        jnp.asarray(A), jnp.asarray(h0))
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("B,T,D,N,bt,bd", [(2, 64, 128, 8, 16, 64),
+                                               (1, 128, 256, 16, 32, 128)])
+    def test_matches_pallas_interpret(self, B, T, D, N, bt, bd):
+        dt, Bc, Cc, u, A, _ = _scan_inputs(B, T, D, N, seed=21)
+        ref = jax_ssm_scan(*(jnp.asarray(a) for a in (dt, Bc, Cc, u, A)), impl="interpret",
+                           blk_t=bt, blk_d=bd)
+        y, _ = ssm_scan(*(torch.from_numpy(a) for a in (dt, Bc, Cc, u, A)))
+        np.testing.assert_allclose(y.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+    def test_bfloat16_rounds_y_once(self):
+        dt, Bc, Cc, u, A, h0 = _scan_inputs(2, 24, 64, 16, seed=3, with_h0=True)
+        pairs = [pair(a, "bfloat16") for a in (dt, Bc, Cc, u)]
+        y, h = ssm_scan(*(t for _, t in pairs), torch.from_numpy(A), torch.from_numpy(h0))
+        jy, jh = jax_ssm_scan_reference(*(j for j, _ in pairs), jnp.asarray(A), jnp.asarray(h0))
+        assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+        np.testing.assert_allclose(as_np(y), as_np(jy), **tol("bfloat16"))
+        np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch: CPU tensors take the plain version and never count a launch
 # ---------------------------------------------------------------------------
 
 
 def _launch_counts():
-    return (rmsnorm.launches, flash_attention.launches, decode_attention.launches)
+    return (rmsnorm.launches, flash_attention.launches, decode_attention.launches,
+            ssm_scan.launches)
 
 
 def test_cpu_calls_never_touch_the_launch_counters():
@@ -199,6 +277,7 @@ def test_cpu_calls_never_touch_the_launch_counters():
     flash_attention(q, k, v)
     q, kc, vc = (torch.from_numpy(a) for a in _cache(1, 32, 4, 2, 32))
     decode_attention(q, kc, vc, 5)
+    ssm_scan(*(torch.from_numpy(a) for a in _scan_inputs(1, 5, 8, 4)[:5]))
     assert _launch_counts() == before
 
 
@@ -212,6 +291,9 @@ def test_other_devices_are_refused():
         flash_attention(q, kv, kv)
     with pytest.raises(ValueError, match="CPU or a CUDA card"):
         decode_attention(q[:, :1], kv, kv, 3)
+    x, bc = torch.empty(1, 4, 8, device="meta"), torch.empty(1, 4, 2, device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA card"):
+        ssm_scan(x, bc, bc, x, torch.empty(8, 2, device="meta"))
 
 
 def test_building_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):

@@ -38,7 +38,16 @@ WL = dict(arrival_rate=400.0, prompt_len=12, prompt_len_jitter=4, max_new_tokens
 
 
 def test_engine_matches_jax_engine_token_for_token():
-    name = "starcoder2_3b"
+    _engines_agree("starcoder2_3b")
+
+
+def test_hybrid_engine_matches_jax_engine_token_for_token():
+    """Reduced jamba: mamba state leaves copied into their slot wholesale,
+    attention leaves by the prompt's prefix, MoE FFNs on the odd layers."""
+    _engines_agree("jamba_v0_1_52b")
+
+
+def _engines_agree(name):
     jcfg = jax_get_config(name).reduced(seq_chunk=8)
     cfg = get_config(name).reduced(seq_chunk=8)
     jparams = jlm.init_model(jcfg, jax.random.PRNGKey(0))
@@ -64,6 +73,44 @@ def test_engine_matches_jax_engine_token_for_token():
     assert t_end == jt_end
     # more than one slot was busy at once, so the shared decode position was exercised
     assert max(e.occupancy for e in eng.service_log if e.phase == "decode") == 2
+
+
+def test_engine_slot_write_keeps_other_slots_and_copies_states_wholesale():
+    cfg = get_config("jamba_v0_1_52b").reduced(seq_chunk=8)
+    model = LM(cfg, device="cpu")
+    eng = Engine(cfg, model, ServeConfig(slots=3, max_seq=32), device="cpu")
+    for c in eng.caches:
+        for leaf in c.values():
+            leaf.fill_(7.0)
+    _, one = model.prefill(torch.arange(5)[None])
+    eng._write_slot(one, 1)
+    for full, part in zip(eng.caches, one):
+        for name, leaf in full.items():
+            if name in ("k", "v"):  # the prompt's 5 positions, the rest untouched
+                assert torch.equal(leaf[:, 1, :5], part[name][:, 0])
+                assert bool((leaf[:, 1, 5:] == 7.0).all())
+            else:
+                assert torch.equal(leaf[:, 1], part[name][:, 0])
+            assert bool((leaf[:, 0] == 7.0).all()) and bool((leaf[:, 2] == 7.0).all())
+
+
+def test_serve_cli_runs_reduced_jamba_on_cpu(capsys):
+    engine = serve.run(["--arch", "jamba_v0_1_52b", "--reduced", "--device", "cpu",
+                        "--requests", "4", "--slots", "2", "--max-new", "4"])
+    assert len(engine.completed) == 4
+    assert all(len(r.tokens_out) == 4 for r in engine.completed)
+    out = capsys.readouterr().out
+    assert "jamba_v0_1_52b-smoke" in out and "superblocks: 2 of 2" in out
+
+
+def test_serve_cli_cuts_depth_by_superblocks(capsys):
+    engine = serve.run(["--arch", "jamba_v0_1_52b", "--reduced", "--device", "cpu",
+                        "--superblocks", "1", "--requests", "2", "--max-new", "2"])
+    assert engine.cfg.num_superblocks == 1 and len(engine.model.layers) == 8
+    assert len(engine.completed) == 2
+    assert "superblocks: 1 of 2" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        serve.run(["--reduced", "--device", "cpu", "--superblocks", "3"])
 
 
 def test_wall_clock_engine_flags_unwarmed_shapes_and_keeps_state():
