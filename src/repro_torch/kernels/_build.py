@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles on its own into ``_build/<name>-<hash>.so``
 (``_build/`` sits beside ``csrc/`` and is listed in ``.gitignore``), with a
 plain C interface and no PyTorch headers, so a build takes seconds. The hash
-covers the source, the shared header and the flags: an edited source builds
-anew, an unchanged one loads from the earlier build. Nothing builds at import:
+covers the source, every shared header (``csrc/*.cuh``) and the flags: an
+edited source or header builds anew, an unchanged one loads from the earlier
+build. Nothing builds at import:
 the first call of a kernel's wrapper builds its library (``build`` builds
 several at once, one nvcc process each, all started together).
 
@@ -61,7 +62,7 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):  # every shared header
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -3,40 +3,68 @@ hand-written Hopper kernel (``csrc/decode_attention.cu``) for a CUDA tensor.
 
 Takes the model layout: q (B, 1, H, hd) and the (B, S, K, hd) caches, which
 the kernel reads through strides (the cache is never copied). Keys at
-positions <= pos are attended. ``decode_attention.launches`` counts the
-wrapper's kernel launches, one per call (a call runs the split pass and its
-combine pass); CPU calls never touch it.
+positions <= pos are attended. ``split_plan`` cuts the visible keys into runs
+for the kernel's CTAs; a second pass of the same C entry merges the runs.
+``decode_attention.launches`` counts the wrapper's calls of that entry, one
+per call; CPU calls never touch it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from .ref import decode_attention_reference
 
-__all__ = ["decode_attention", "HEAD_DIMS", "SMEM_LIMIT"]
+__all__ = ["decode_attention", "split_plan", "scratch_floats", "SplitPlan", "HEAD_DIMS",
+           "MIN_SPLIT"]
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # instantiated in csrc/decode_attention.cu
-SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+MIN_SPLIT = 32  # keys per run at least (all but a run that holds every key)
 _ARGTYPES = (
-    (ctypes.c_int,) + (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_longlong,) * 8
+    (ctypes.c_int,) + (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (ctypes.c_longlong,) * 8
     + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p)
 )
 
 
-@functools.cache
-def _chunk() -> int:
-    return _build.function("decode_attention", "decode_attention_chunk", (), ctypes.c_int)()
+class SplitPlan(NamedTuple):
+    chunk: int  # keys per run; the last run holds the rest
+    nsplit: int  # runs per (b, kv head)
+
+
+def split_plan(B: int, K: int, n_valid: int, n_sm: int) -> SplitPlan:
+    """Runs of keys for the kernel's CTAs: enough runs that B * K * nsplit
+    covers ``n_sm`` SMs, each run a multiple of 16 keys (the tensor-core
+    tile) and at least ``MIN_SPLIT`` of them, so that every key in
+    [0, n_valid) falls in exactly one run."""
+    if min(B, K, n_valid, n_sm) < 1:
+        raise ValueError(f"split_plan needs positive sizes, got B={B} K={K} "
+                         f"n_valid={n_valid} n_sm={n_sm}")
+    want = -(-n_sm // (B * K))  # runs per (b, kv head) that fill the card
+    if want == 1:  # the (b, kv head) pairs alone fill it: one run each
+        return SplitPlan(-(-n_valid // 16) * 16, 1)
+    chunk = max(MIN_SPLIT, n_valid // want // 16 * 16)
+    return SplitPlan(chunk, -(-n_valid // chunk))
+
+
+def scratch_floats(B: int, H: int, hd: int, nsplit: int) -> int:
+    """float32s of scratch a call needs: each run's unnormalised output, max
+    and sum per query head (none when one run holds every key)."""
+    return 0 if nsplit == 1 else B * H * nsplit * (hd + 2)
 
 
 @functools.cache
-def _smem_bytes(G: int, hd: int) -> int:
-    return _build.function("decode_attention", "decode_attention_smem",
-                           (ctypes.c_int, ctypes.c_int), ctypes.c_longlong)(G, hd)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def _launcher():
+    return _build.function("decode_attention", "decode_attention_launch", _ARGTYPES)
 
 
 def decode_attention(
@@ -67,20 +95,20 @@ def decode_attention(
     if hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     _build.check_cuda_tensors(q=q, k_cache=k_cache, v_cache=v_cache)
-    smem = _smem_bytes(H // K, hd)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{H // K} query heads per kv head at head_dim {hd} need {smem} bytes "
-                         f"of shared memory, over the {SMEM_LIMIT} a block has")
     n_valid = min(pos + 1, S)
-    nsplit = -(-n_valid // _chunk())
+    device = q.device.index
+    chunk, nsplit = split_plan(B, K, n_valid, _sm_count(device))
     out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
-    # partial outputs, maxima and sums of the split pass (layout in the .cu file)
-    scratch = torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32, device=q.device)
-    fn = _build.function("decode_attention", "decode_attention_launch", _ARGTYPES)
-    code = fn(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-              out.data_ptr(), scratch.data_ptr(), B, H, K, n_valid, hd,
-              q.stride(0), q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
-              hd**-0.5, float(softcap), _build.stream_handle())
+    scratch = None
+    if nsplit > 1:  # the runs' partials (layout in the .cu file), merged by pass 2
+        scratch = torch.empty(scratch_floats(B, H, hd, nsplit), dtype=torch.float32,
+                              device=q.device)
+    code = _launcher()(
+        _build.DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        B, H, K, n_valid, chunk, nsplit, hd,
+        q.stride(0), q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
+        hd**-0.5, float(softcap), _build.stream_handle())
     _build.check(code, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -103,6 +103,49 @@ def test_decode_attention(gen, pos, dtype, tol):
                                **tol)
 
 
+DECODE_BF16 = dict(atol=8e-3, rtol=1e-2)  # p rounds to bf16 where the plain version rounds it
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("Sq", [130, 700])  # a ragged second tile; many tiles past the window
+def test_flash_attention_every_head_dim(gen, hd, Sq):
+    q, k, v = randn(gen, 2, Sq, 8, hd), randn(gen, 2, Sq, 2, hd), randn(gen, 2, Sq, 2, hd)
+    out = flash_attention(q, k, v, window=200, softcap=30.0)
+    torch.testing.assert_close(
+        out.float(), flash_attention_reference(q, k, v, window=200, softcap=30.0).float(), **BF16)
+
+
+def test_flash_attention_jamba_prompt(gen):  # 32 query heads on 8 kv heads (G = 4)
+    q, k, v = randn(gen, 1, 256, 32, 128), randn(gen, 1, 256, 8, 128), randn(gen, 1, 256, 8, 128)
+    torch.testing.assert_close(flash_attention(q, k, v).float(),
+                               flash_attention_reference(q, k, v).float(), **BF16)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,pos", [
+    (4, 512, 32, 8, 128, 300),  # jamba: 4 slots of 512, G = 4
+    (1, 300, 32, 2, 256, 299),  # G = 16 at the widest head
+    (1, 700, 64, 2, 64, 650),  # G = 32: two 16-row tiles
+])
+def test_decode_attention_shapes(gen, B, S, H, K, hd, pos):
+    q, kc, vc = randn(gen, B, 1, H, hd), randn(gen, B, S, K, hd), randn(gen, B, S, K, hd)
+    torch.testing.assert_close(decode_attention(q, kc, vc, pos).float(),
+                               decode_attention_reference(q, kc, vc, pos).float(), **DECODE_BF16)
+
+
+def test_decode_attention_graph_replay_equals_eager(gen):
+    """The split pass and its merge, captured and replayed, equal the eager call."""
+    q, kc, vc = randn(gen, 4, 1, 24, 128), randn(gen, 4, 1024, 2, 128), randn(gen, 4, 1024, 2, 128)
+    eager = decode_attention(q, kc, vc, 1023)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, kc, vc, 1023)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
 def test_wrong_layouts_raise(gen):
     q = randn(gen, 1, 64, 4, 64)
     k = randn(gen, 1, 64, 2, 64)

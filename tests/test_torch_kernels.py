@@ -20,7 +20,12 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash_atten
 from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
 from repro.kernels.ssm_scan.ops import ssm_scan as jax_ssm_scan
 from repro.kernels.ssm_scan.ref import ssm_scan_reference as jax_ssm_scan_reference
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (
+    MIN_SPLIT,
+    decode_attention,
+    scratch_floats,
+    split_plan,
+)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
@@ -188,6 +193,56 @@ class TestDecodeAttention:
         np.testing.assert_allclose(as_np(out), as_np(ref), **tol("bfloat16"))
 
 
+class TestSplitPlan:
+    """The decode kernel's runs of keys (one CTA each), planned on the host."""
+
+    @pytest.mark.parametrize("n_sm", [132, 114, 16])
+    def test_every_key_in_exactly_one_run(self, n_sm):
+        for bk in range(1, 65):
+            for n_valid in range(1, 1025):
+                chunk, nsplit = split_plan(bk, 1, n_valid, n_sm)
+                # runs [s * chunk, min((s + 1) * chunk, n_valid)) for s < nsplit
+                assert (nsplit - 1) * chunk < n_valid <= nsplit * chunk, (bk, n_valid)
+
+    @pytest.mark.parametrize("n_sm", [132, 114, 16])
+    def test_runs_are_multiples_of_16_keys_but_the_last(self, n_sm):
+        for bk in range(1, 65):
+            for n_valid in range(1, 1025):
+                chunk, nsplit = split_plan(bk, 1, n_valid, n_sm)
+                if nsplit > 1:
+                    assert chunk % 16 == 0 and chunk >= MIN_SPLIT, (bk, n_valid, chunk)
+
+    @pytest.mark.parametrize("n_sm", [132, 114, 16])
+    def test_runs_cover_the_card_where_the_keys_allow(self, n_sm):
+        for bk in range(1, 65):
+            for n_valid in range(1, 1025):
+                _, nsplit = split_plan(bk, 1, n_valid, n_sm)
+                most = bk * -(-n_valid // MIN_SPLIT)  # runs of MIN_SPLIT keys, the most allowed
+                assert bk * nsplit >= min(n_sm, most), (bk, n_valid, nsplit)
+
+    @pytest.mark.parametrize("B,K", [(4, 2), (2, 4), (8, 8)])
+    def test_batch_and_kv_heads_enter_only_as_their_product(self, B, K):
+        for n_valid in (1, 33, 301, 1024):
+            assert split_plan(B, K, n_valid, 132) == split_plan(B * K, 1, n_valid, 132)
+
+    def test_starcoder2_and_jamba_serving_plans(self):
+        assert split_plan(4, 2, 301, 132) == (32, 10)  # StarCoder2, 4 slots, pos 300
+        assert split_plan(4, 2, 1024, 132) == (48, 22)  # pos 1023: 176 CTAs
+        assert split_plan(4, 8, 301, 132) == (48, 7)  # jamba, 4 slots, pos 300
+        assert split_plan(70, 2, 51, 132) == (64, 1)  # the pairs alone fill the card
+
+    def test_scratch_holds_every_runs_partials(self):
+        for B, H, hd, nsplit in ((4, 24, 128, 10), (4, 32, 128, 7), (1, 32, 256, 17)):
+            rows = B * H * nsplit
+            # partial outputs, then maxima, then sums (csrc/decode_attention.cu)
+            assert scratch_floats(B, H, hd, nsplit) == rows * hd + rows + rows
+        assert scratch_floats(4, 24, 128, 1) == 0  # one run writes the output itself
+
+    def test_refuses_empty_sizes(self):
+        with pytest.raises(ValueError):
+            split_plan(4, 2, 0, 132)
+
+
 # ---------------------------------------------------------------------------
 # Selective scan (mamba S6)
 # ---------------------------------------------------------------------------
@@ -305,3 +360,23 @@ def test_building_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(("rmsnorm",))
+
+
+@pytest.mark.parametrize("header", ["common.cuh", "hopper.cuh"])
+def test_editing_a_shared_header_rebuilds_every_library(monkeypatch, tmp_path, header):
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build._library_path(name) for name in _build.SOURCES}
+    with open(csrc / header, "a") as f:
+        f.write("\n// edited\n")
+    after = {name: _build._library_path(name) for name in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+    with open(csrc / "rmsnorm.cu", "a") as f:  # a kernel's own source rebuilds only it
+        f.write("\n// edited\n")
+    again = {name: _build._library_path(name) for name in _build.SOURCES}
+    assert [n for n in _build.SOURCES if again[n] != after[n]] == ["rmsnorm"]
