@@ -13,11 +13,15 @@ Phases; any failure exits non-zero before the result lines are printed:
      at pos 700 of 1024, garbage past pos, G = 32, more (b, kv head) pairs
      than SMs, a CUDA-graph replay of decode equal to the eager call;
      Lindley scans bit for bit in float64 and float32 at B = 1, ragged B and T,
-     zero services, arrival ties, k-server rows of mixed k, and the fleet
-     path's (4096, 120000) float64; the decision scan bit for bit at the
-     cluster's (120, 64, 5) and (600, 2048, 129), float64 and float32, every
-     stagger in {1, 3, 8} with every hysteresis in {0, 0.15, 0.3}, ragged N,
-     NaN / +inf / tied columns, and the closed loop's one-epoch entry; the
+     zero services, arrival ties, the ring's edges (T of 1, TILE - 1, TILE,
+     TILE + 1, STAGES * TILE + 1 at B of 1, 31, 33), k-server rows of mixed
+     k at every instantiation (k_max 1, 4, 9, 64), a CUDA-graph replay, and
+     the fleet path's (4096, 120000) float64; the decision scan bit for bit
+     at the cluster's (120, 64, 5) and (600, 2048, 129), float64 and float32,
+     every stagger in {1, 3, 8} with every hysteresis in {0, 0.15, 0.3},
+     ragged N, NaN / +inf / tied columns, the ring's edges (T around its
+     stages with odd N * (E+1), E+1 from 1 to 300 at N = 2047), a CUDA-graph
+     replay, and the closed loop's one-epoch entry; the
      selective scan at jamba's full-width prefill (1, 241, 8192, 16) from
      zeros and decode step (4, 1, 8192, 16) from a random state, ragged T and
      D, N = 4 in fp32, and B and C as strided slices of one x_proj output);
@@ -27,9 +31,12 @@ Phases; any failure exits non-zero before the result lines are printed:
      function (a yardstick the port never calls; for the Lindley scan, which
      no single call computes, the cumsum/cummax identity instead; for the
      decision scan ``torch.argmin(costs, -1) - 1``, the same function at
-     h = 0 and stagger 1; for the selective scan none) and its
-     bound max(bytes / 3.35 TB/s, operations / peak rate); and its eager time
-     per call from Python, host overhead included;
+     h = 0 and stagger 1, also at one epoch; for the selective scan none) and
+     its bound max(bytes / 3.35 TB/s, operations / peak rate); and its eager
+     time per call from Python, host overhead included; besides, the Lindley
+     recursion alone from shared memory (its chain floor), the k-server
+     entry beside its own bound, and the decision scan's launch plan beside
+     its neighbours (epochs per step, lanes per client, clients per CTA);
   4. serve: StarCoder2-3B at full width (bf16, random weights from seed 0)
      serving 16 Poisson requests through the serving CLI's own path
      (``repro_torch.launch.serve.run``), with the launch counters reset just
@@ -67,8 +74,10 @@ Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -167,10 +176,14 @@ def phase_build(_build) -> None:
     RESULT["build_s"] = secs
     log(f"[build] {len(paths)} libraries in {secs:.1f} s (built in parallel, one nvcc each)")
     for name in paths:
+        entry = ""
         for line in _build.build_log(name).splitlines():
+            found = re.search(r"[a-z_]*kernel\w*?E(?=v)", line)
+            if "Compiling entry function" in line and found:
+                entry = found.group(0) + ": "  # the kernel and its template arguments, mangled
             if ("Used" in line or "warning" in line.lower()
                     or "spill" in line.lower() and "0 bytes spill" not in line):
-                log(f"[build] {name}: {line.strip()}")
+                log(f"[build] {name}: {entry}{line.strip()}")
 
 
 class Checker:
@@ -907,6 +920,55 @@ def phase_check_lindley(torch, ck: Checker, lindley, refs) -> None:
                 FAILURES.append(f"lindley_kserver {what}: not bit-equal to the plain version")
         ck.run("lindley_scan", what, kcase)
 
+    # the ring's edges (TILE columns per stage, STAGES stages): a ragged last
+    # tile, fewer tiles than stages, a wrap, odd T, ragged last CTAs
+    from repro_torch.kernels.lindley_scan.ops import STAGES as stages
+    from repro_torch.kernels.lindley_scan.ops import TILE as tile
+
+    for B in (1, 31, 33):
+        for T in (1, tile - 1, tile, tile + 1, stages * tile + 1):
+            for dtype in (torch.float64, torch.float32):
+                what = f"ring edge ({B},{T}) {str(dtype)[6:]}"
+
+                def edge(B=B, T=T, dtype=dtype, what=what):
+                    arr, svc = lindley_inputs(torch, gen, B, T, dtype)
+                    got, want = lindley_scan(arr, svc), scan_ref(arr, svc)
+                    ck.compare("lindley_scan", what, got, want, exact)
+                    if not torch.equal(got, want):
+                        FAILURES.append(f"lindley_scan {what}: not bit-equal to the plain version")
+                ck.run("lindley_scan", what, edge)
+
+    for k_max in (1, 4, 9, 64):  # registers for k_max <= 8, local memory above
+        for dtype in (torch.float64, torch.float32):
+            what = f"k-server (33,{stages * tile + 1}) k_max {k_max} {str(dtype)[6:]}"
+
+            def kinst(k_max=k_max, dtype=dtype, what=what):
+                arr, svc = lindley_inputs(torch, gen, 33, stages * tile + 1, dtype)
+                svc.mul_(k_max)
+                k = torch.randint(1, k_max + 1, (33,), generator=gen, device="cuda",
+                                  dtype=torch.int32)
+                k[0] = k_max
+                got, want = lindley_kserver(arr, svc, k, k_max), kserver_ref(arr, svc, k, k_max)
+                ck.compare("lindley_scan", what, got, want, exact)
+                if not torch.equal(got, want):
+                    FAILURES.append(f"lindley_kserver {what}: not bit-equal to the plain version")
+            ck.run("lindley_scan", what, kinst)
+
+    def graph_replay():
+        arr, svc = lindley_inputs(torch, gen, 45, 3 * stages * tile + 7, torch.float64)
+        eager = lindley_scan(arr, svc)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = lindley_scan(arr, svc)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        ck.compare("lindley_scan", "graph replay (45, 775) equals the eager call", out, eager,
+                   exact)
+        if not torch.equal(out, eager):
+            FAILURES.append("lindley_scan graph replay: not equal to the eager call")
+    ck.run("lindley_scan", "graph replay", graph_replay)
+
     def full():
         arr, svc = lindley_inputs(torch, gen, SIM_ROWS, SIM_JOBS, torch.float64)
         got = lindley_scan(arr, svc)
@@ -978,18 +1040,35 @@ def phase_time_lindley(torch, lindley, refs) -> dict:
     nbytes = 3 * SIM_ROWS * SIM_JOBS * 8
     b_ms, b_by = bound(nbytes, 2 * SIM_ROWS * SIM_JOBS, FP64_OPS)
     k, svc4 = torch.full((SIM_ROWS,), 4, dtype=torch.int32, device="cuda"), 4.0 * svc
+    from repro_torch.kernels import _build
+
+    chain_out = torch.empty_like(arr)
+    chain_fn = _build.function("lindley_scan", "lindley_chain_floor_launch",
+                               (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p))
+
+    def chain_floor():  # the recursion alone, one tile resident in shared memory
+        _build.check(chain_fn(_build.DTYPE_CODES[arr.dtype], arr.data_ptr(), svc.data_ptr(),
+                              chain_out.data_ptr(), SIM_ROWS, SIM_JOBS, _build.stream_handle()),
+                     "lindley_scan")
+
     r = dict(shape=f"arrivals, services ({SIM_ROWS},{SIM_JOBS}) float64",
              ms=device_ms(torch, lambda: lindley_scan(arr, svc), calls=5, replays=4),
              plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
              yardstick_ms=device_ms(torch, identity, calls=5, replays=4),
+             chain_floor_ms=device_ms(torch, chain_floor, calls=5, replays=4),
              eager_ms=eager_ms(torch, lambda: lindley_scan(arr, svc), iters=5, warmup=1),
              kserver_k4_ms=eager_ms(torch, lambda: lindley_kserver(arr, svc4, k, 4),
-                                    iters=3, warmup=1))
+                                    iters=3, warmup=1),
+             # arrivals, services, k read once, departures written once
+             kserver_k4_bound_ms=bound(nbytes + SIM_ROWS * 4, 2 * SIM_ROWS * SIM_JOBS,
+                                       FP64_OPS)[0])
     log(f"[time] {'lindley_scan':16s} {r['shape']:44s} kernel {r['ms']:.4f} ms  plain "
         f"{plain_ms:.1f} ms (eager loop)  yardstick cumsum/cummax {r['yardstick_ms']:.4f} ms  "
-        f"bound {b_ms:.5f} ms ({b_by});  k-server at k=4 {r['kserver_k4_ms']:.4f} ms (from "
-        f"Python: its wrapper reads k's range on the host, which a graph cannot capture); "
-        f"eager from Python: kernel {r['eager_ms']:.4f} ms")
+        f"bound {b_ms:.5f} ms ({b_by});  chain floor (the recursion alone from shared memory) "
+        f"{r['chain_floor_ms']:.4f} ms;  k-server at k=4 {r['kserver_k4_ms']:.4f} ms (bound "
+        f"{r['kserver_k4_bound_ms']:.5f} ms; from Python: its wrapper reads k's range on the "
+        f"host, which a graph cannot capture); eager from Python: kernel {r['eager_ms']:.4f} ms")
     return r
 
 
@@ -1210,6 +1289,40 @@ def phase_check_decision(torch, ck: Checker, decision_scan, scan_ref) -> None:
                         check(what, costs, cohort, hysteresis=h, stagger=stagger)
                     ck.run("decision_scan", what, case)
 
+    # the ring's edges (STAGES epochs in shared memory): T around STAGES with
+    # N * (E+1) odd (every epoch's span at another offset mod 16); every E+1
+    # from 1 to one above 256 at N = 2047, not a multiple of the plan's
+    # clients per CTA
+    from repro_torch.kernels.decision_scan.ops import STAGES
+
+    edges = [(T, 77, 33) for T in (1, 2, STAGES - 1, STAGES, STAGES + 1)]
+    edges += [(9, N, E1) for N in (2047, 13) for E1 in (1, 5, 33, 129, 300)]
+    for T, N, E1 in edges:
+        for dtype in (torch.float64, torch.float32):
+            what = f"ring edge ({T},{N},{E1}) {str(dtype)[6:]} stagger 3 h 0.15"
+
+            def edge(T=T, N=N, E1=E1, dtype=dtype, what=what):
+                costs = decision_costs(torch, gen, T, N, E1, dtype, specials=T > 6)
+                cohort = (torch.arange(N, device="cuda") % 3).to(torch.int32)
+                check(what, costs, cohort, hysteresis=0.15, stagger=3)
+            ck.run("decision_scan", what, edge)
+
+    def graph_replay():
+        costs = decision_costs(torch, gen, 3 * STAGES + 1, 2047, 129, torch.float64)
+        cohort = (torch.arange(2047, device="cuda") % 3).to(torch.int32)
+        eager = decision_scan(costs, cohort, hysteresis=0.15, stagger=3)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = decision_scan(costs, cohort, hysteresis=0.15, stagger=3)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        ck.compare("decision_scan", "graph replay (13, 2047, 129) equals the eager call", out,
+                   eager, dict(atol=0.0, rtol=0.0))
+        if not torch.equal(out, eager):
+            FAILURES.append("decision_scan graph replay: not equal to the eager call")
+    ck.run("decision_scan", "graph replay", graph_replay)
+
     for t0 in (0, 1, 7, 8, 599):  # the closed loop's one-epoch entry
         what = f"(1,{CITY_CLIENTS},129) with prev, t0 {t0}, stagger 8, h 0.15"
 
@@ -1279,13 +1392,61 @@ def phase_time_decision(torch, decision_scan, scan_ref) -> dict:
              epoch_eager_ms=eager_ms(torch, lambda: decision_scan(
                  one, cohort8, stagger=CITY_STAGGER, prev=prev, t0=9), iters=200, warmup=20),
              epoch_device_ms=device_ms(torch, lambda: decision_scan(
-                 one, cohort8, stagger=CITY_STAGGER, t0=9), calls=50, replays=10))
+                 one, cohort8, stagger=CITY_STAGGER, t0=9), calls=50, replays=10),
+             epoch_library_ms=device_ms(torch, lambda: torch.argmin(one, -1) - 1, calls=50,
+                                        replays=10),
+             epoch_bound_ms=bound(N * E1 * 8 + 2 * N * 4, N * E1, FP64_OPS)[0])
+    r["plan_variants"] = decision_plan_variants(torch, decision_scan, costs, cohort1, one,
+                                                cohort8)
     log(f"[time] {'decision_scan':16s} {r['shape']:44s} kernel {r['ms']:.4f} ms (stagger 8, "
         f"h 0.15: {r['ms_stagger8_h015']:.4f} ms)  plain {plain_ms:.1f} ms (eager loop)  "
         f"library argmin-1 {r['library_ms']:.4f} ms  bound {b_ms:.5f} ms ({b_by});  one epoch "
-        f"(1,{N},{E1}): {r['epoch_device_ms']:.4f} ms device, {r['epoch_eager_ms']:.4f} ms eager "
-        f"from Python with prev (its range read on the host)")
+        f"(1,{N},{E1}): {r['epoch_device_ms']:.5f} ms device (argmin-1 "
+        f"{r['epoch_library_ms']:.5f} ms, bound {r['epoch_bound_ms']:.5f} ms), "
+        f"{r['epoch_eager_ms']:.4f} ms eager from Python with prev (its range read on the host)")
     return r
+
+
+def decision_plan_variants(torch, decision_scan, costs, cohort1, one, cohort8) -> list[dict]:
+    """The plan's neighbours, each timed beside the plan in this call and held
+    equal to the wrapper's result: epochs per step, lanes per client and
+    clients per CTA at the city shape (stagger 1, h 0) and at its one-epoch
+    shape (stagger 8, t0 9)."""
+    from repro_torch.kernels.decision_scan import ops
+
+    T, N, E1 = costs.shape
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {"city": ops.scan_plan(T, N, E1, 8, n_sm), "epoch": ops.scan_plan(1, N, E1, 8, n_sm)}
+    want = {"city": decision_scan(costs, cohort1),
+            "epoch": decision_scan(one, cohort8, stagger=CITY_STAGGER, t0=9)}
+    calls = {"city": lambda p: ops._launch(costs, cohort1, None, 0.0, 1, 0, p),
+             "epoch": lambda p: ops._launch(one, cohort8, None, 0.0, CITY_STAGGER, 9, p)}
+    rows = []
+    for step in ops.STEPS:
+        for group in (8, 16, 32):
+            for clients in (4, 8, 16):
+                row = dict(step=step, group=group, clients=clients)
+                for shape, plan in plans.items():
+                    if step > plan.step:  # a step past the epochs there are
+                        continue
+                    p = plan._replace(step=step, group=group, clients=clients,
+                                      threads=-(-clients * group // 32) * 32)
+                    if not torch.equal(calls[shape](p), want[shape]):
+                        FAILURES.append(f"decision_scan plan {row} at the {shape} shape: not "
+                                        "equal to the planned launch")
+                    row[f"{shape}_ms"] = device_ms(torch, lambda: calls[shape](p),
+                                                   calls=5 if shape == "city" else 50,
+                                                   replays=4 if shape == "city" else 10)
+                    row[f"{shape}_planned"] = (step, group, clients) == (
+                        plan.step, plan.group, plan.clients)
+                rows.append(row)
+                times = [f"{row[f'{shape}_ms']:.5f} ms at {label}"
+                         + (" (the plan)" if row[f"{shape}_planned"] else "")
+                         for shape, label in (("city", f"({T},{N},{E1})"), ("epoch", "one epoch"))
+                         if f"{shape}_ms" in row]
+                log(f"[time] {'decision_scan':16s} plan step {step} group {group:2d} clients "
+                    f"{clients:2d}: " + ", ".join(times))
+    return rows
 
 
 def city_cluster():
@@ -1616,11 +1777,14 @@ def main() -> int:
             "eager_ms": t["eager_ms"],
         }
         if name == "lindley_scan":  # no one library call; the k-server entry of the same .cu
-            row.update(yardstick_ms=t["yardstick_ms"], kserver_k4_ms=t["kserver_k4_ms"],
+            row.update(yardstick_ms=t["yardstick_ms"], chain_floor_ms=t["chain_floor_ms"],
+                       kserver_k4_ms=t["kserver_k4_ms"],
+                       kserver_k4_bound_ms=t["kserver_k4_bound_ms"],
                        kserver_launches=fleet["launches"]["lindley_kserver"])
         if name == "decision_scan":  # the closed loop launches it one epoch at a time
             row.update(epoch_ms=t["epoch_device_ms"], epoch_eager_ms=t["epoch_eager_ms"],
-                       ms_stagger8_h015=t["ms_stagger8_h015"])
+                       epoch_library_ms=t["epoch_library_ms"],
+                       epoch_bound_ms=t["epoch_bound_ms"], ms_stagger8_h015=t["ms_stagger8_h015"])
         if name == "ssm_scan":  # launched per decode step (the row) and per prefill
             p = timing[name][1]
             row.update(prefill_shape=p["shape"], prefill_ms=p["ms"], prefill_plain_ms=p["plain_ms"],

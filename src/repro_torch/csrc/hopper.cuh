@@ -1,6 +1,8 @@
-// Hopper building blocks shared by the attention kernels, in inline PTX:
-// cp.async 16-byte copies, ldmatrix and mma.sync (m16n8k16 bf16), mbarriers,
-// TMA tensor copies (cp.async.bulk.tensor, 4-D) with the host-side encoding
+// Hopper building blocks shared by the hand-written kernels, in inline PTX:
+// cp.async copies (16 bytes, or 4 and 8 for ragged ends) and their mbarrier
+// arrivals, ldmatrix and mma.sync (m16n8k16 bf16), mbarriers,
+// 1-D bulk copies (cp.async.bulk) and TMA tensor copies (cp.async.bulk.tensor,
+// 4-D) with the host-side encoding
 // of their tensor maps, wgmma (warpgroup MMA with shared-memory descriptors)
 // and setmaxnreg. Everything here needs sm_90a.
 //
@@ -35,6 +37,19 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// BYTES (4 or 8) global -> shared, both aligned to BYTES: the copies that
+// 16-byte chunks cannot make (ragged ends, rows that start off 16 bytes)
+template <int BYTES>
+__device__ __forceinline__ void cp_async_small(uint32_t dst, const void* src) {
+  static_assert(BYTES == 4 || BYTES == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src), "n"(BYTES)
+               : "memory");
+}
+// one arrival on the mbarrier once every cp.async this thread issued so far
+// has landed (.noinc: the arrival counts toward the barrier's expected count)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -116,6 +131,16 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
           "l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// `bytes` (a multiple of 16) global -> shared in one bulk copy, both ends
+// 16-byte aligned; it completes `bytes` of transactions on the mbarrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 __device__ __forceinline__ void tma_store_commit_and_wait() {

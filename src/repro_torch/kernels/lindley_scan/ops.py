@@ -18,7 +18,11 @@ import torch
 from .. import _build
 from .ref import lindley_kserver_reference, lindley_scan_reference
 
-__all__ = ["lindley_scan", "lindley_kserver", "k_limit"]
+__all__ = ["lindley_scan", "lindley_kserver", "k_limit", "TILE", "STAGES"]
+
+# the kernels' ring (csrc/lindley_scan.cu): STAGES stages of (32, TILE) tiles,
+# for the card tests that probe its edges
+TILE, STAGES = 64, 4
 
 _DTYPES = (torch.float64, torch.float32)
 _PTR, _LL = ctypes.c_void_p, ctypes.c_longlong

@@ -31,12 +31,14 @@ from repro_torch.fleet import (
     simulate_fleet,
     step_signal,
 )
-from repro_torch.kernels.decision_scan.ops import decision_scan
+from repro_torch.kernels.decision_scan.ops import STAGES, decision_scan, scan_plan
 from repro_torch.kernels.decision_scan.ref import decision_scan_reference
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_reference
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+from repro_torch.kernels.lindley_scan.ops import STAGES as LINDLEY_STAGES
+from repro_torch.kernels.lindley_scan.ops import TILE as LINDLEY_TILE
 from repro_torch.kernels.lindley_scan.ops import lindley_kserver, lindley_scan
 from repro_torch.kernels.lindley_scan.ref import (
     lindley_kserver_reference,
@@ -190,6 +192,45 @@ def test_lindley_kserver_mixed_k(gen):
     assert torch.equal(out, lindley_kserver_reference(arr, svc, k, 8))
 
 
+@pytest.mark.parametrize("T", [1, LINDLEY_TILE - 1, LINDLEY_TILE, LINDLEY_TILE + 1,
+                               LINDLEY_STAGES * LINDLEY_TILE + 1,
+                               2 * LINDLEY_STAGES * LINDLEY_TILE + 3])
+@pytest.mark.parametrize("B", [1, 31, 33])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lindley_scan_ring_edges(gen, B, T, dtype):
+    """The ring's edges: a ragged last tile, fewer tiles than stages, a ring
+    that wraps, odd T (rows that start off 16 bytes), a ragged last CTA."""
+    arr, svc = lindley_inputs(gen, B, T, dtype)
+    assert torch.equal(lindley_scan(arr, svc), lindley_scan_reference(arr, svc))
+
+
+@pytest.mark.parametrize("k_max", [1, 4, 9, 64])  # registers for k_max <= 8, local memory above
+@pytest.mark.parametrize("B,T", [(33, LINDLEY_TILE + 1), (70, LINDLEY_STAGES * LINDLEY_TILE + 1)])
+def test_lindley_kserver_every_instantiation(gen, k_max, B, T):
+    arr, svc = lindley_inputs(gen, B, T)
+    svc *= k_max  # keep the servers busy
+    k = torch.randint(1, k_max + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    k[0] = k_max  # every row count from 1 to k_max, mixed
+    before = lindley_kserver.launches
+    out = lindley_kserver(arr, svc, k, k_max)
+    torch.cuda.synchronize()
+    assert lindley_kserver.launches == before + 1
+    assert torch.equal(out, lindley_kserver_reference(arr, svc, k, k_max))
+
+
+def test_lindley_scan_graph_replay_equals_eager(gen):
+    arr, svc = lindley_inputs(gen, 45, 3 * LINDLEY_STAGES * LINDLEY_TILE + 7)
+    eager = lindley_scan(arr, svc)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lindley_scan(arr, svc)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
 def test_lindley_wrong_inputs_raise(gen):
     arr, svc = lindley_inputs(gen, 8, 64)
     with pytest.raises(TypeError):
@@ -272,6 +313,52 @@ def test_decision_scan(gen, T, N, E1, dtype, stagger, h):
     torch.cuda.synchronize()
     assert decision_scan.launches == before + 1
     assert torch.equal(out, decision_scan_reference(costs, cohort, hysteresis=h, stagger=stagger))
+
+
+@pytest.mark.parametrize("T", [1, 2, STAGES - 1, STAGES, STAGES + 1])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_decision_scan_ring_edges_in_t(gen, T, dtype):
+    """Fewer epochs than the ring holds, exactly as many, one more; N * (E+1)
+    odd, so that every epoch's span starts at another offset mod 16."""
+    N, E1 = 77, 33
+    costs = decision_costs(gen, T, N, E1, dtype, specials=False)
+    costs[:, ::4] = costs[:, ::4, :1]  # ties with on-device
+    cohort = (torch.arange(N, device="cuda") % 3).to(torch.int32)
+    kw = dict(hysteresis=0.15, stagger=3)
+    assert torch.equal(decision_scan(costs, cohort, **kw),
+                       decision_scan_reference(costs, cohort, **kw))
+
+
+@pytest.mark.parametrize("E1", [1, 5, 33, 129, 300])
+@pytest.mark.parametrize("N", [2047, 13])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_decision_scan_ring_edges_in_n_and_e(gen, E1, N, dtype):
+    """Every E+1 up to one above 256, odd N, and N not a multiple of the
+    plan's clients per CTA (a ragged last CTA)."""
+    costs = decision_costs(gen, 9, N, E1, dtype)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = scan_plan(9, N, E1, costs.element_size(), n_sm)
+    assert N % plan.clients or plan.clients == 1
+    cohort = (torch.arange(N, device="cuda") % 4).to(torch.int32)
+    for h in (0.0, 0.3):
+        kw = dict(hysteresis=h, stagger=4)
+        assert torch.equal(decision_scan(costs, cohort, **kw),
+                           decision_scan_reference(costs, cohort, **kw))
+
+
+def test_decision_scan_graph_replay_equals_eager(gen):
+    costs = decision_costs(gen, 3 * STAGES + 1, 2047, 129)
+    cohort = (torch.arange(2047, device="cuda") % 3).to(torch.int32)
+    kw = dict(hysteresis=0.15, stagger=3)
+    eager = decision_scan(costs, cohort, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decision_scan(costs, cohort, **kw)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.parametrize("t0", [0, 1, 5, 7])

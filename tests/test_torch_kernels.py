@@ -20,6 +20,9 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash_atten
 from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
 from repro.kernels.ssm_scan.ops import ssm_scan as jax_ssm_scan
 from repro.kernels.ssm_scan.ref import ssm_scan_reference as jax_ssm_scan_reference
+from repro_torch.kernels.decision_scan.ops import LANE_COLUMNS, MAX_THREADS, SMEM_LIMIT, scan_plan
+from repro_torch.kernels.decision_scan.ops import STAGES as DS_STAGES
+from repro_torch.kernels.decision_scan.ops import STEPS as DS_STEPS
 from repro_torch.kernels.decode_attention.ops import (
     MIN_SPLIT,
     decode_attention,
@@ -241,6 +244,83 @@ class TestSplitPlan:
     def test_refuses_empty_sizes(self):
         with pytest.raises(ValueError):
             split_plan(4, 2, 0, 132)
+
+
+class TestDecisionScanPlan:
+    """The decision-scan kernel's CTAs (blocks of clients, each with a ring of
+    STAGES epochs in shared memory), planned on the host."""
+
+    E1S = (1, 2, 5, 16, 17, 33, 129, 257, 1000, 3628)
+
+    @pytest.mark.parametrize("n_sm", [132, 114, 16])
+    def test_every_client_in_exactly_one_cta(self, n_sm):
+        for e1 in self.E1S:
+            for elt in (4, 8):
+                for n in range(1, 3000, 7):
+                    p = scan_plan(600, n, e1, elt, n_sm)
+                    # CTA i takes clients [i * clients, min((i + 1) * clients, n))
+                    assert p.ctas == -(-n // p.clients), (n, e1, elt, p)
+                    assert (p.ctas - 1) * p.clients < n <= p.ctas * p.clients, (n, e1, elt, p)
+
+    @pytest.mark.parametrize("n_sm", [132, 114, 16])
+    def test_the_ring_fits_and_every_client_has_its_lanes(self, n_sm):
+        for e1 in self.E1S:
+            for elt in (4, 8):
+                for n in (1, 13, 64, 2047, 2048, 100_000):
+                    p = scan_plan(600, n, e1, elt, n_sm)
+                    # one 8-byte mbarrier per stage (rounded to 16 bytes), then
+                    # STAGES stages: the span rounded up to 16 bytes, plus 16
+                    # for its shift
+                    stage = -(-p.clients * e1 * elt // 16) * 16 + 16
+                    assert p.smem == -(-8 * DS_STAGES // 16) * 16 + DS_STAGES * stage, (n, e1, p)
+                    assert p.smem <= SMEM_LIMIT == 232_448, (n, e1, p)
+                    assert p.threads % 32 == 0 and p.clients * p.group <= p.threads
+                    assert p.threads <= MAX_THREADS and p.threads - p.clients * p.group < 32
+
+    def test_a_lane_scans_at_most_lane_columns_unless_its_client_has_32_lanes(self):
+        for e1 in range(1, 3000):
+            g = scan_plan(600, 64, e1, 8, 132).group
+            assert g & (g - 1) == 0 and 1 <= g <= 32 and g <= e1, e1
+            assert -(-e1 // g) <= LANE_COLUMNS or g == 32, e1
+            assert g == 1 or -(-e1 // (g // 2)) > LANE_COLUMNS, e1  # and no more lanes
+
+    @pytest.mark.parametrize("n_sm", [132, 114, 16])
+    def test_the_grid_covers_the_card_where_clients_allow(self, n_sm):
+        for e1 in self.E1S:
+            for n in range(1, 5000, 11):
+                assert scan_plan(600, n, e1, 8, n_sm).ctas >= min(n, n_sm), (n, e1)
+
+    def test_a_step_takes_whole_stages_and_leaves_some_ahead(self):
+        assert DS_STAGES >= 3 and DS_STAGES & (DS_STAGES - 1) == 0
+        for step in DS_STEPS:
+            assert DS_STAGES % step == 0 and DS_STAGES - step >= 3  # epochs in flight
+        for t in range(1, 20):
+            step = scan_plan(t, 2048, 129, 8, 132).step
+            assert step in DS_STEPS and step <= t  # no step reduces epochs that are not there
+        assert scan_plan(600, 2048, 129, 8, 132).step == max(DS_STEPS)
+
+    def test_city_and_acceptance_plans(self):
+        # the city pool (2,048 clients, 128 edges) over 600 epochs and the
+        # closed loop's one-epoch launch: 8 clients of 16 lanes per CTA
+        ring = 64 + 8 * (8 * 129 * 8 + 16)
+        assert scan_plan(600, 2048, 129, 8, 132) == (4, 8, 128, 16, ring, 256)
+        assert scan_plan(1, 2048, 129, 8, 132) == (1, 8, 128, 16, ring, 256)
+        assert scan_plan(120, 64, 5, 8, 132) == (4, 1, 32, 1, 64 + 8 * 64, 64)  # the 64 x 4 cluster
+        assert scan_plan(600, 2047, 129, 8, 132).ctas == 256  # ragged: the last CTA holds 7
+
+    def test_sizes_that_fit_nothing_raise(self):
+        # one client's 8 epochs of 3,628 float64 costs fit 232,448 bytes, 3,629 do not
+        assert scan_plan(600, 1, 3628, 8, 132).smem == 232_384
+        with pytest.raises(ValueError, match="shared memory"):
+            scan_plan(600, 1, 3629, 8, 132)
+        with pytest.raises(ValueError, match="shared memory"):
+            scan_plan(1, 2048, 20_000, 4, 132)
+        with pytest.raises(ValueError):
+            scan_plan(600, 0, 5, 8, 132)
+        with pytest.raises(ValueError):
+            scan_plan(0, 16, 5, 8, 132)
+        with pytest.raises(ValueError):
+            scan_plan(600, 16, 5, 2, 132)  # neither float32 nor float64
 
 
 # ---------------------------------------------------------------------------
