@@ -8,7 +8,9 @@ Phases; any failure exits non-zero before the result lines are printed:
   1. build: compile ``src/repro_torch/csrc/*.cu`` (one nvcc per source, all
      started together) and print ptxas' register / shared-memory report;
   2. check: every kernel against its plain PyTorch version on the card, on the
-     same inputs, at the slice's shapes and edge cases (ragged prompts,
+     same inputs, at the slice's shapes and edge cases (RMSNorm and the fused
+     add + RMSNorm at StarCoder2's and jamba's widths, whose s is torch's add
+     and whose y is bit-equal to the RMSNorm kernel on that s; ragged prompts,
      Sq < Skv, window + softcap, every head dim, jamba's G = 4 shapes, decode
      at pos 700 of 1024, garbage past pos, G = 32, more (b, kv head) pairs
      than SMs, a CUDA-graph replay of decode equal to the eager call;
@@ -24,7 +26,11 @@ Phases; any failure exits non-zero before the result lines are printed:
      replay, and the closed loop's one-epoch entry; the
      selective scan at jamba's full-width prefill (1, 241, 8192, 16) from
      zeros and decode step (4, 1, 8192, 16) from a random state, ragged T and
-     D, N = 4 in fp32, and B and C as strided slices of one x_proj output);
+     D, N of 1, 4, 7 and 16 (N / G ragged, N < G), rows off 16 bytes, T of 1,
+     33 and 241, B and C as strided slices of one x_proj output, each case
+     also through every neighbour of its plan: G of 4, 8, 16 lanes per
+     channel, y reduced by shuffles each step or reduce-scattered G steps
+     at a time);
   3. time: each kernel's device time per call (CUDA-graph replay between CUDA
      events; StarCoder2's and jamba's attention shapes) beside its plain
      version, one PyTorch library call for the same
@@ -36,12 +42,18 @@ Phases; any failure exits non-zero before the result lines are printed:
      time per call from Python, host overhead included; besides, the Lindley
      recursion alone from shared memory (its chain floor), the k-server
      entry beside its own bound, and the decision scan's launch plan beside
-     its neighbours (epochs per step, lanes per client, clients per CTA);
+     its neighbours (epochs per step, lanes per client, clients per CTA), the
+     RMSNorm plan's (threads per row, rows per CTA) and the selective scan's
+     (lanes per channel, the y reduction, steps per tile), the host time of
+     the RMSNorm and scan planners per call, and the
+     card's per-launch floor (a one-element elementwise op);
   4. serve: StarCoder2-3B at full width (bf16, random weights from seed 0)
      serving 16 Poisson requests through the serving CLI's own path
      (``repro_torch.launch.serve.run``), with the launch counters reset just
-     before and read just after; then the served model's kernel-path logits
-     held against its plain path, and a profiler trace of decode steps;
+     before and read just after (2 rmsnorm and 2L - 1 fused add + rmsnorm
+     launches per prefill, 1 and 2L per decode step); then the served model's
+     kernel-path logits held against its plain path, and profiler traces of
+     decode steps and prefills (device time, device operations per call);
   4b. serve_hybrid: the StarCoder engine freed, then jamba (mamba + MoE) at
      full width with 2 of its 4 superblocks (16 of 32 layers: 103 GB of bf16
      weights do not fit 80 GB) serving 8 Poisson requests through the same
@@ -66,7 +78,8 @@ Phases; any failure exits non-zero before the result lines are printed:
      tiers x 32 = 128 edges, 2,048 clients, 600 one-second epochs, exactly 600
      launches) whose choices are held against the same run through the plain
      decision function, and a profile of that call;
-  7. report: one ``kernels`` JSON line (all six kernels), the card's name and power limit as
+  7. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
+     entry), the card's name and power limit as
      nvidia-smi gives them, and the final ``{"ok": true, ...}`` line.
 Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -76,6 +89,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import gc
+import itertools
 import json
 import re
 import subprocess
@@ -213,8 +227,8 @@ class Checker:
 
 
 def phase_check(torch, ops, refs) -> Checker:
-    rmsnorm, flash_attention, decode_attention = ops
-    rmsnorm_ref, flash_ref, decode_ref = refs
+    rmsnorm, rmsnorm_add, flash_attention, decode_attention = ops
+    rmsnorm_ref, rmsnorm_add_ref, flash_ref, decode_ref = refs
     ck = Checker(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
@@ -222,8 +236,13 @@ def phase_check(torch, ops, refs) -> Checker:
     def randn(*shape, dtype=torch.bfloat16, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
-    # rmsnorm: prefill and decode rows of StarCoder2-3B, odd widths, fp32
+    # rmsnorm and the fused add + rmsnorm: prefill and decode rows of
+    # StarCoder2-3B (d 3072: 3 of a thread's 4 vectors live) and of jamba (d
+    # 4096: all 4 live), odd widths, fp32; the fused entry's s equal to
+    # torch's add and its y bit-equal to the rmsnorm kernel applied to that s
+    exact = dict(atol=0.0, rtol=0.0)
     for shape, dtype in [((256, 3072), torch.bfloat16), ((4, 1, 3072), torch.bfloat16),
+                         ((256, 4096), torch.bfloat16), ((4, 1, 4096), torch.bfloat16),
                          ((3, 97, 256), torch.bfloat16), ((64, 3072), torch.float32),
                          ((5, 16), torch.float32)]:
         def case(shape=shape, dtype=dtype):
@@ -232,6 +251,14 @@ def phase_check(torch, ops, refs) -> Checker:
             tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
             ck.compare("rmsnorm", f"x {tuple(shape)} {str(dtype)[6:]}", rmsnorm(x, sc, 1e-6),
                        rmsnorm_ref(x, sc, 1e-6), tol)
+            r = randn(*shape, dtype=dtype)
+            s, y = rmsnorm_add(x, r, sc, 1e-6)
+            rs, ry = rmsnorm_add_ref(x, r, sc, 1e-6)
+            what = f"{tuple(shape)} {str(dtype)[6:]}"
+            ck.compare("rmsnorm_add", f"y {what}", y, ry, tol)
+            ck.compare("rmsnorm_add", f"s = x + r {what}, exact", s, rs, exact)
+            ck.compare("rmsnorm_add", f"y = rmsnorm kernel of s {what}, exact", y,
+                       rmsnorm(s, sc, 1e-6), exact)
         ck.run("rmsnorm", f"x {tuple(shape)}", case)
 
     # flash attention: (B, Sq, Skv, H, K, hd, causal, window, softcap)
@@ -354,6 +381,15 @@ def eager_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def host_us(fn, calls: int = 20_000) -> float:
+    """Host time per call of a function that launches nothing (a planner), in
+    microseconds on the host's clock."""
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
 def device_ms(torch, fn, calls: int = 20, replays: int = 10) -> float:
     """Device time per call: ``calls`` calls captured in one CUDA graph and
     replayed between CUDA events, so no host overhead is counted."""
@@ -384,8 +420,8 @@ def phase_time(torch, F, ops, refs) -> dict:
     """Kernel, plain and library times at the main path's shapes: device time
     per call (CUDA-graph replay) and, for the kernel, the eager time per call
     from Python. L2 is warm: every call reads the same inputs."""
-    rmsnorm, flash_attention, decode_attention = ops
-    rmsnorm_ref, flash_ref, decode_ref = refs
+    rmsnorm, rmsnorm_add, flash_attention, decode_attention = ops
+    rmsnorm_ref, rmsnorm_add_ref, flash_ref, decode_ref = refs
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
 
@@ -406,11 +442,31 @@ def phase_time(torch, F, ops, refs) -> dict:
 
     d = 3072
     for n in (4, 256):  # decode rows (4 slots), prefill rows (a 256-token prompt)
-        x, sc = randn(n, d), randn(d) * 0.2
+        x, r, sc = randn(n, d), randn(n, d), randn(d) * 0.2
         w = (1.0 + sc.float()).to(torch.bfloat16)
         record("rmsnorm", f"x ({n},{d}) bf16", lambda: rmsnorm(x, sc, 1e-6),
                lambda: rmsnorm_ref(x, sc, 1e-6), lambda: F.rms_norm(x, (d,), w, 1e-6),
                nbytes=2 * (2 * n * d + d), nops=4 * n * d, peak=FP32_OPS)
+        # x and r read, s and y written; library: torch.add, then F.rms_norm
+        record("rmsnorm_add", f"x, r ({n},{d}) bf16", lambda: rmsnorm_add(x, r, sc, 1e-6),
+               lambda: rmsnorm_add_ref(x, r, sc, 1e-6),
+               lambda: F.rms_norm(torch.add(x, r), (d,), w, 1e-6),
+               nbytes=2 * (4 * n * d + d), nops=5 * n * d, peak=FP32_OPS)
+        rows["rmsnorm"][-1]["plan_variants"] = norm_plan_variants(torch, x, r, sc)
+    # the planner each RMSNorm call runs: a cached lookup, beside planning anew
+    from repro_torch.kernels.rmsnorm.ops import norm_plan
+    plan_host = dict(cached_us=host_us(lambda: norm_plan(4, d, 2)),
+                     uncached_us=host_us(lambda: norm_plan.__wrapped__(4, d, 2)))
+    rows["rmsnorm"][0]["plan_host"] = plan_host
+    log(f"[time] {'rmsnorm':16s} host time of the plan per call: {plan_host['cached_us']:.3f} us "
+        f"(planned anew: {plan_host['uncached_us']:.3f} us)")
+    # the card's per-launch floor: a one-element elementwise op, timed the same way
+    one = torch.zeros(1, device="cuda")
+    floor = dict(shape="one-element add_ (float32)", ms=device_ms(torch, lambda: one.add_(1.0)),
+                 eager_ms=eager_ms(torch, lambda: one.add_(1.0)))
+    rows["launch_floor"] = [floor]
+    log(f"[time] {'launch floor':16s} {floor['shape']:44s} {floor['ms']:.5f} ms device, "
+        f"{floor['eager_ms']:.4f} ms eager from Python")
 
     # StarCoder2 (24 heads / 2 kv) at L 256 and 1024, then jamba (32 / 8) at L 256
     for L, H, K in ((256, 24, 2), (1024, 24, 2), (256, 32, 8)):
@@ -438,25 +494,65 @@ def phase_time(torch, F, ops, refs) -> dict:
     return rows
 
 
+def norm_plan_variants(torch, x, r, sc) -> list[dict]:
+    """The RMSNorm plan's neighbours at x's shape: a warp per row up to a CTA
+    per row, one to four rows per CTA, each entry held to the plain version
+    (the fused one's y bit-equal to the plain entry's on its s) and timed
+    beside the plan in this call."""
+    from repro_torch.kernels.rmsnorm import ops
+
+    rows, d = x.shape
+    elt = x.element_size()
+    plan = ops.norm_plan(rows, d, elt)
+    want = ops.rmsnorm_reference(x, sc, 1e-6)
+    out = []
+    for tpr, per_cta in ((32, 1), (32, 4), (64, 1), (64, 2), (128, 1), (128, 2), (256, 1)):
+        try:
+            p = ops.norm_plan(rows, d, elt, threads_per_row=tpr, rows_per_cta=per_cta)
+        except ValueError:
+            continue
+        y = ops._launch(x, None, sc, 1e-6, p)
+        s, ys = ops._launch(x, r, sc, 1e-6, p)
+        err = float((y.float() - want.float()).abs().max())
+        if not (torch.isfinite(y).all() and bool(((y.float() - want.float()).abs() <= BF16_TOL[
+                "atol"] + BF16_TOL["rtol"] * want.float().abs()).all())
+                and torch.equal(ys, ops._launch(s, None, sc, 1e-6, p))):
+            FAILURES.append(f"rmsnorm plan {p} at ({rows},{d}): not within tolerance or the "
+                            "fused y differs from rmsnorm(s)")
+        row = dict(threads_per_row=tpr, rows_per_cta=per_cta, vectors=p.vectors,
+                   planned=(tpr, per_cta) == (plan.threads_per_row, plan.rows_per_cta),
+                   max_abs_err=err, ms=device_ms(torch, lambda: ops._launch(x, None, sc, 1e-6, p)),
+                   add_ms=device_ms(torch, lambda: ops._launch(x, r, sc, 1e-6, p)))
+        out.append(row)
+        log(f"[time] {'rmsnorm':16s} plan ({rows},{d}) {tpr:3d} threads a row, {per_cta} rows a "
+            f"CTA, {p.vectors:2d} vectors a thread: {row['ms']:.5f} ms, fused add "
+            f"{row['add_ms']:.5f} ms" + (" (the plan)" if row["planned"] else ""))
+    return out
+
+
 # ---------------------------------------------------------------------------
+
+# where the model layers call each kernel wrapper (plain_path swaps them)
+KERNEL_SITES = {"rmsnorm": "layers", "rmsnorm_add": "layers", "flash_attention": "attention",
+                "decode_attention": "attention", "ssm_scan": "ssm"}
 
 
 @contextlib.contextmanager
-def plain_path(refs):
+def plain_path(refs: dict):
     """Route the model through the plain versions (for the logits check only):
-    ``refs`` are RMSNorm's, flash and decode attention's and the selective
-    scan's."""
-    from repro_torch.models import attention, layers, ssm
+    ``refs`` maps each name of ``KERNEL_SITES`` to its plain version."""
+    import importlib
 
-    saved = (layers.rmsnorm, attention.flash_attention, attention.decode_attention,
-             ssm.ssm_scan)
-    (layers.rmsnorm, attention.flash_attention, attention.decode_attention,
-     ssm.ssm_scan) = refs
+    mods = {name: importlib.import_module(f"repro_torch.models.{mod}")
+            for name, mod in KERNEL_SITES.items()}
+    saved = {name: getattr(mod, name) for name, mod in mods.items()}
+    for name, mod in mods.items():
+        setattr(mod, name, refs[name])
     try:
         yield
     finally:
-        (layers.rmsnorm, attention.flash_attention, attention.decode_attention,
-         ssm.ssm_scan) = saved
+        for name, mod in mods.items():
+            setattr(mod, name, saved[name])
 
 
 # the slice's cell: 16 Poisson requests at 20 rps, prompts 256 +/- 64, 32 new
@@ -509,14 +605,14 @@ def phase_serve(torch, ops, refs) -> dict:
     # launch counts: every prefill and decode call (warmup included) went through the kernels
     n_prefill = len(lengths) + sum(ev.phase == "prefill" for ev in engine.service_log)
     n_decode = 1 + sum(ev.phase == "decode" for ev in engine.service_log)
-    n_norm = 2 * cfg.num_layers + 1
-    expect = {"rmsnorm": n_norm * (n_prefill + n_decode),
-              "flash_attention": cfg.num_layers * n_prefill,
-              "decode_attention": cfg.num_layers * n_decode,
+    L = cfg.num_layers
+    expect = {"rmsnorm": 2 * n_prefill + n_decode,
+              "rmsnorm_add": (2 * L - 1) * n_prefill + 2 * L * n_decode,
+              "flash_attention": L * n_prefill, "decode_attention": L * n_decode,
               "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0}
     log(f"[serve] launches {launches}; expected {expect} for {n_prefill} prefills "
-        f"({n_norm} rmsnorm + {cfg.num_layers} flash each) and {n_decode} decode steps "
-        f"({n_norm} rmsnorm + {cfg.num_layers} decode each)")
+        f"(2 rmsnorm + {2 * L - 1} rmsnorm_add + {L} flash each) and {n_decode} decode steps "
+        f"(1 rmsnorm + {2 * L} rmsnorm_add + {L} decode each)")
     if launches != expect:
         FAILURES.append(f"launch counts {launches} != {expect}")
     out["launches"] = launches
@@ -629,24 +725,23 @@ def kernel_vs_plain(torch, model, refs, limit: float, *, cache_len: int) -> dict
     return out
 
 
-def profile_decode(torch, model, *, slots: int, pos: int, cache_len: int) -> dict | None:
-    """Device busy share and time by kernel over 5 decode steps."""
+def profile_calls(torch, label: str, fn, n: int = 5) -> dict | None:
+    """Device busy share, device operations (kernels, copies) per call and
+    time by kernel over ``n`` calls of ``fn``, after two warm calls."""
     try:
         from torch.profiler import ProfilerActivity, profile
     except ImportError:
         return None
-    tok = torch.zeros((slots, 1), dtype=torch.long, device="cuda")
-    caches = model.init_caches(slots, cache_len)
     for _ in range(2):
-        model.decode_step(tok, pos, caches)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(5):
-            model.decode_step(tok, pos, caches)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 5
-    kernels, dev_total = [], 0.0
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels, dev_total, ops = [], 0.0, 0
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "")):
             continue  # host-side ops; their device time is their kernels'
@@ -654,19 +749,37 @@ def profile_decode(torch, model, *, slots: int, pos: int, cache_len: int) -> dic
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0:
-            kernels.append((us / 5e3, e.key, e.count // 5))
-            dev_total += us / 5e3
+            kernels.append((us / (n * 1e3), e.key, e.count // n))
+            dev_total += us / (n * 1e3)
+            ops += e.count
     kernels.sort(reverse=True)
     if not kernels:
-        log("[profile] no device time in the trace: device busy share not measured")
+        log(f"[profile] {label}: no device time in the trace: device busy share not measured")
         return None
-    log(f"[profile] {model.cfg.name} decode step at pos {pos}, {slots} slots: {wall_ms:.3f} ms "
-        f"wall, device busy "
-        f"{dev_total:.3f} ms ({dev_total / wall_ms:.0%}); top kernels by device time:")
+    log(f"[profile] {label}: {wall_ms:.3f} ms wall, device busy {dev_total:.3f} ms "
+        f"({dev_total / wall_ms:.0%}), {ops / n:.0f} device operations a call; top kernels by "
+        "device time:")
     for ms, key, count in kernels[:8]:
         log(f"[profile]   {ms:8.4f} ms  x{count:<4d} {key[:90]}")
-    return {"wall_ms": wall_ms, "device_ms": dev_total,
-            "top": [dict(ms=ms, name=key, per_step=count) for ms, key, count in kernels[:12]]}
+    return {"wall_ms": wall_ms, "device_ms": dev_total, "device_ops": ops / n,
+            "top": [dict(ms=ms, name=key, per_call=count) for ms, key, count in kernels[:12]]}
+
+
+def profile_decode(torch, model, *, slots: int, pos: int, cache_len: int) -> dict | None:
+    """``profile_calls`` over 5 decode steps at ``pos``, and over 3 prefills
+    of a 256-token prompt (under "prefill")."""
+    name = model.cfg.name
+    tok = torch.zeros((slots, 1), dtype=torch.long, device="cuda")
+    caches = model.init_caches(slots, cache_len)
+    out = profile_calls(torch, f"{name} decode step at pos {pos}, {slots} slots",
+                        lambda: model.decode_step(tok, pos, caches))
+    del caches
+    prompt = torch.zeros((1, 256), dtype=torch.long, device="cuda")
+    prefill = profile_calls(torch, f"{name} prefill of 256 tokens", lambda: model.prefill(prompt),
+                            n=3)
+    if out is not None:
+        out["prefill"] = prefill
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -693,28 +806,50 @@ def scan_inputs(torch, gen, B, T, D, N, dtype, *, h0=False, fused=False):
 
 
 def phase_check_ssm(torch, ck: Checker, ssm_scan, scan_ref) -> None:
-    """The selective scan against its plain loop at the hybrid path's shapes."""
+    """The selective scan against its plain loop at the hybrid path's shapes
+    and the lane groups' edges (N / G ragged or N < G, D not a multiple of a
+    CTA's channels, rows off 16 bytes, T of 1, 33 and 241), through the
+    wrapper and through every neighbour of its plan (G in {4, 8, 16}, y
+    reduced by shuffles each step or reduce-scattered)."""
+    from repro_torch.kernels.ssm_scan import ops
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2468)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        ((1, 241, 8192, 16), torch.bfloat16, False, False, "jamba prefill, ragged T, h0 zeros"),
-        ((4, 1, 8192, 16), torch.bfloat16, True, False, "jamba decode step, random h0"),
-        ((2, 37, 200, 16), torch.bfloat16, True, False, "ragged T and D"),
-        ((3, 64, 256, 4), torch.float32, True, False, "N = 4 (the reduced config), fp32"),
-        ((2, 96, 8192, 16), torch.bfloat16, True, True, "B, C strided slices of x_proj"),
+        ((1, 241, 8192, 16), bf16, False, False, "jamba prefill, ragged T, h0 zeros"),
+        ((4, 1, 8192, 16), bf16, True, False, "jamba decode step, random h0"),
+        ((2, 37, 200, 16), bf16, True, False, "ragged T and D"),
+        ((3, 64, 256, 4), f32, True, False, "N = 4 (the reduced config), fp32"),
+        ((2, 96, 8192, 16), bf16, True, True, "B, C strided slices of x_proj"),
+        ((2, 33, 200, 16), bf16, False, True, "D ragged in a CTA, strided B/C, no h0"),
+        ((2, 33, 203, 7), bf16, True, False, "odd D, N = 7: plain loads"),
+        ((4, 241, 1000, 7), bf16, False, True, "N = 7 strided, T = 241"),
+        ((3, 241, 96, 1), f32, False, False, "N = 1, below every group"),
+        ((2, 1, 128, 4), f32, True, True, "N = 4, T = 1, fp32 B/C by cp.async"),
+        ((1, 33, 8192, 4), bf16, True, True, "N = 4 bf16: 8-byte rows, plain loads"),
     ]
     for shape, dtype, h0, fused, note in cases:
         what = f"{shape} {str(dtype)[6:]}: {note}"
 
         def case(shape=shape, dtype=dtype, h0=h0, fused=fused, what=what):
             args = scan_inputs(torch, gen, *shape, dtype, h0=h0, fused=fused)
-            y, h = ssm_scan(*args)
             ry, rh = scan_ref(*args)
-            ck.compare("ssm_scan", f"y {what}", y, ry,
-                       SCAN_Y_BF16_TOL if dtype == torch.bfloat16 else FP32_TOL)
+            ytol = SCAN_Y_BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+            y, h = ssm_scan(*args)
+            ck.compare("ssm_scan", f"y {what}", y, ry, ytol)
             ck.compare("ssm_scan", f"h_final {what}", h, rh, SCAN_H_TOL)
             if y.dtype != dtype or h.dtype != torch.float32:
                 FAILURES.append(f"ssm_scan {what}: dtypes {y.dtype}/{h.dtype}")
+            for group in ops.GROUPS:
+                for reduce in ops.REDUCTIONS:
+                    p = ops.scan_plan(*shape, args[3].element_size(), n_sm, group=group,
+                                      reduce=reduce)
+                    y, h = ops._launch(*args, p)
+                    tag = f"G {group} {reduce} {shape}"
+                    ck.compare("ssm_scan", f"y {tag}", y, ry, ytol)
+                    ck.compare("ssm_scan", f"h_final {tag}", h, rh, SCAN_H_TOL)
         ck.run("ssm_scan", what, case)
 
     def refuses():
@@ -752,7 +887,8 @@ def scan_bound(B, T, D, N, elt: int, h0: bool) -> tuple[float, str, dict]:
 def phase_time_ssm(torch, ssm_scan, scan_ref) -> list[dict]:
     """Device time per call by CUDA-graph replay at jamba's decode step and
     full-width prefill, beside the plain loop's, the eager time from Python
-    and the bound. No single PyTorch call computes a selective scan."""
+    and the bound, and the plan's neighbours timed beside it. No single
+    PyTorch call computes a selective scan."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(55)
     rows = []
@@ -772,7 +908,67 @@ def phase_time_ssm(torch, ssm_scan, scan_ref) -> list[dict]:
             f"{r['plain_ms']:.4f} ms  library none (no single call)  bound {b_ms:.5f} ms "
             f"({b_by}: bytes {parts['bytes_ms']:.5f}, exps {parts['exp_ms']:.5f}, fp32 "
             f"{parts['flop_ms']:.5f});  eager from Python: kernel {r['eager_ms']:.4f} ms")
+        r["plan_variants"] = scan_plan_variants(torch, args, scan_ref)
+        r["plan_host"] = scan_plan_host(torch, args)
     return rows
+
+
+def scan_plan_host(torch, args) -> dict:
+    """Host time per call of what the wrapper decides before it launches: the
+    plan (a cached lookup, beside planning anew) and the cp.async row test."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    dt, Bc, Cc, u, A, h0 = args
+    key = (*u.shape, A.shape[1], u.element_size(),
+           torch.cuda.get_device_properties(0).multi_processor_count)
+    plan = ops.scan_plan(*key)
+    out = dict(cached_us=host_us(lambda: ops.scan_plan(*key)),
+               uncached_us=host_us(lambda: ops.scan_plan.__wrapped__(*key)),
+               async_rows_us=host_us(lambda: ops._async_rows(dt, Bc, Cc, u, plan)))
+    log(f"[time] {'ssm_scan':16s} host time per call at {tuple(u.shape)}: plan "
+        f"{out['cached_us']:.3f} us (planned anew: {out['uncached_us']:.3f} us), cp.async row "
+        f"test {out['async_rows_us']:.3f} us")
+    return out
+
+
+def scan_plan_variants(torch, args, scan_ref) -> list[dict]:
+    """The selective scan's plan and its neighbours at one shape: G in {4, 8,
+    16} lanes per channel, each reduction of y, and reduce-scattered tiles of
+    half as many steps; each held to the plain loop and timed in this call.
+    A neighbour that misses the tolerances fails the run."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    dt, Bc, Cc, u, A, h0 = args
+    B, T, D = u.shape
+    N = A.shape[1]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ops.scan_plan(B, T, D, N, u.element_size(), n_sm)
+    ry, rh = scan_ref(*args)
+    out = []
+    combos = list(itertools.product(ops.GROUPS, ops.REDUCTIONS, (None,)))
+    combos += [(g, "scatter", ops.TILE_T // 2) for g in ops.GROUPS if T > ops.TILE_T // 2]
+    for group, reduce, tile in combos:
+        p = ops.scan_plan(B, T, D, N, u.element_size(), n_sm, group=group, reduce=reduce,
+                          tile_t=tile)
+        y, h = ops._launch(*args, p)
+        y_err, h_err = (y.float() - ry.float()).abs(), (h - rh).abs()
+        ytol, htol = SCAN_Y_BF16_TOL, SCAN_H_TOL
+        held = bool((y_err <= ytol["atol"] + ytol["rtol"] * ry.float().abs()).all()) and bool(
+            (h_err <= htol["atol"] + htol["rtol"] * rh.abs()).all())
+        row = dict(group=group, reduce=reduce, tile_t=p.tile_t, held=held,
+                   planned=(group, reduce, p.tile_t) == (plan.group, plan.reduce, plan.tile_t),
+                   y_max_abs_err=float(y_err.max()), h_max_abs_err=float(h_err.max()),
+                   ms=device_ms(torch, lambda: ops._launch(*args, p)))
+        out.append(row)
+        if not held:
+            FAILURES.append(f"ssm_scan plan G {group} {reduce} at ({B},{T},{D},{N}): outside "
+                            "the tolerances")
+        log(f"[time] {'ssm_scan':16s} plan ({B},{T},{D},{N}) G {group:2d} {reduce:7s} "
+            f"tile {p.tile_t:2d}: {row['ms']:.5f} ms, y err "
+            f"{row['y_max_abs_err']:.2e}, h err {row['h_max_abs_err']:.2e}, "
+            f"{'within' if held else 'OUTSIDE'} the tolerances"
+            + (" (the plan)" if row["planned"] else ""))
+    return out
 
 
 def phase_serve_hybrid(torch, refs) -> dict:
@@ -826,14 +1022,16 @@ def phase_serve_hybrid(torch, refs) -> dict:
     n_decode = 1 + sum(ev.phase == "decode" for ev in engine.service_log)
     n_mamba = sum(spec.mixer == "mamba" for spec in cfg.superblock) * cfg.num_superblocks
     n_attn = cfg.num_layers - n_mamba
-    n_norm = 2 * cfg.num_layers + 1
-    expect = {"rmsnorm": n_norm * (n_prefill + n_decode),
+    L = cfg.num_layers
+    expect = {"rmsnorm": 2 * n_prefill + n_decode,
+              "rmsnorm_add": (2 * L - 1) * n_prefill + 2 * L * n_decode,
               "flash_attention": n_attn * n_prefill, "decode_attention": n_attn * n_decode,
               "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0,
               "ssm_scan": n_mamba * (n_prefill + n_decode)}
     log(f"[serve_hybrid] launches {launches}; expected {expect} for {n_prefill} prefills "
-        f"({n_norm} rmsnorm + {n_attn} flash + {n_mamba} ssm_scan each) and {n_decode} decode "
-        f"steps ({n_norm} rmsnorm + {n_attn} decode + {n_mamba} ssm_scan each)")
+        f"(2 rmsnorm + {2 * L - 1} rmsnorm_add + {n_attn} flash + {n_mamba} ssm_scan each) and "
+        f"{n_decode} decode steps (1 rmsnorm + {2 * L} rmsnorm_add + {n_attn} decode + "
+        f"{n_mamba} ssm_scan each)")
     if launches != expect:
         FAILURES.append(f"hybrid launch counts {launches} != {expect}")
     out["launches"] = launches
@@ -1701,14 +1899,17 @@ def main() -> int:
         lindley_kserver_reference,
         lindley_scan_reference,
     )
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_reference, rmsnorm_reference
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_reference
 
-    ops = (rmsnorm, flash_attention, decode_attention)
-    refs = (rmsnorm_reference, flash_attention_reference, decode_attention_reference)
-    model_refs = refs + (ssm_scan_reference,)  # every kernel a served model can launch
+    ops = (rmsnorm, rmsnorm_add, flash_attention, decode_attention)
+    refs = (rmsnorm_reference, rmsnorm_add_reference, flash_attention_reference,
+            decode_attention_reference)
+    # every kernel a served model can launch, by the name plain_path swaps
+    model_refs = dict(zip(("rmsnorm", "rmsnorm_add", "flash_attention", "decode_attention",
+                           "ssm_scan"), refs + (ssm_scan_reference,)))
     lindley = (lindley_scan, lindley_kserver)
     lindley_refs = (lindley_scan_reference, lindley_kserver_reference)
     COUNTED.extend(ops + lindley + (decision_scan, ssm_scan))
@@ -1753,6 +1954,8 @@ def main() -> int:
 
     where = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:32"),
+        "rmsnorm_add": ("src/repro_torch/csrc/rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm/rmsnorm.py:32"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/flash_attention.py:112"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
@@ -1765,7 +1968,8 @@ def main() -> int:
                      "src/repro/kernels/ssm_scan/ssm_scan.py:64"),
     }
     kernels = []
-    for name, path_launches in (("rmsnorm", serve), ("flash_attention", serve),
+    for name, path_launches in (("rmsnorm", serve), ("rmsnorm_add", serve),
+                                ("flash_attention", serve),
                                 ("decode_attention", serve), ("lindley_scan", fleet),
                                 ("decision_scan", cluster), ("ssm_scan", hybrid)):
         t = timing[name][0]  # the shape the main path launches most
@@ -1776,6 +1980,14 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
             "eager_ms": t["eager_ms"],
         }
+        if name in ("rmsnorm", "rmsnorm_add"):  # decode rows; beside them the per-launch floor
+            p = timing[name][1]
+            row.update(prefill_shape=p["shape"], prefill_ms=p["ms"], prefill_plain_ms=p["plain_ms"],
+                       prefill_bound_ms=p["bound_ms"], prefill_library_ms=p["library_ms"],
+                       launch_floor_ms=timing["launch_floor"][0]["ms"])
+        if name == "rmsnorm_add":  # no one library call: torch.add, then F.rms_norm
+            row.update(library_ms=None, yardstick_ms=t["library_ms"],
+                       prefill_library_ms=None, prefill_yardstick_ms=p["library_ms"])
         if name == "lindley_scan":  # no one library call; the k-server entry of the same .cu
             row.update(yardstick_ms=t["yardstick_ms"], chain_floor_ms=t["chain_floor_ms"],
                        kserver_k4_ms=t["kserver_k4_ms"],

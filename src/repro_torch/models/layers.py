@@ -1,8 +1,9 @@
 """Shared layer primitives: RMSNorm, RoPE, MLP, embeddings.
 
-The port's counterpart of ``repro.models.layers``. ``rms_norm`` goes through
-the RMSNorm kernel wrapper: the Hopper kernel for a CUDA tensor, its plain
-version for a CPU tensor.
+The port's counterpart of ``repro.models.layers``. ``rms_norm`` and
+``rms_norm_add`` (the residual add and the norm after it, one launch) go
+through the RMSNorm kernel wrappers: the Hopper kernel for a CUDA tensor,
+its plain version for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -11,12 +12,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
 
 from .params import TSpec
 
 __all__ = [
     "rms_norm",
+    "rms_norm_add",
     "rope_tables",
     "rope_rotate",
     "rope_apply",
@@ -32,6 +34,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm in fp32 ([arXiv:1910.07467]); (1+scale) parameterisation
     (gemma-style, zero-init-friendly)."""
     return rmsnorm(x, scale, eps)
+
+
+def rms_norm_add(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
+                 eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the norm after it: (x + r, rms_norm(x + r)), the
+    sum rounded to x's dtype before the norm reads it."""
+    return rmsnorm_add(x, r, scale, eps)
 
 
 def norm_template(d: int) -> TSpec:

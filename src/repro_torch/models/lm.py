@@ -12,6 +12,11 @@ Modes:
   prefill      — full sequence, returns last-position logits + decode caches
   decode_step  — one token per sequence, reads and updates the caches in place
 
+Each residual add that feeds a norm is fused into it (``rms_norm_add``):
+the mixer's add into ``norm2``, the FFN's add into the next layer's
+``norm1`` and, at decode, into the final norm. The arithmetic is the
+reference's add-then-norm, one launch fewer per add.
+
 Caches keep the reference's layout: a tuple over superblock positions of
 dicts stacked over num_superblocks — {"k", "v"} (n_sb, B, S, K, hd) for an
 attention position, {"conv" (n_sb, B, d_conv - 1, d_inner), "h" (n_sb, B,
@@ -33,7 +38,7 @@ from . import attention as A
 from . import moe as M
 from . import ssm as SSM
 from .layers import (embed_template, mlp_apply, mlp_template, norm_template, rms_norm,
-                     rope_tables, softcap)
+                     rms_norm_add, rope_tables, softcap)
 from .params import ParamTree, count_params, init_tensor, stack, torch_dtype, tree_map
 
 __all__ = [
@@ -162,22 +167,30 @@ class LM(nn.Module):
             x = x * torch.tensor(self.cfg.d_model**0.5, dtype=x.dtype)
         return x
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Logits from the final norm's output."""
         if self.cfg.tie_embeddings:
-            logits = x @ self.embed["embedding"].T
+            logits = h @ self.embed["embedding"].T
         else:
-            logits = x @ self.embed["unembed"]
+            logits = h @ self.embed["unembed"]
         return softcap(logits, self.cfg.final_softcap)
 
-    def _ffn(self, spec: LayerSpec, p: Any, x: torch.Tensor) -> torch.Tensor:
-        h = rms_norm(x, p["norm2"], self.cfg.norm_eps)
+    def _norm1(self, p: Any, x: torch.Tensor, f: torch.Tensor | None):
+        """The layer's input x + f (f None in the first layer) and its norm1."""
+        if f is None:
+            return x, rms_norm(x, p["norm1"], self.cfg.norm_eps)
+        return rms_norm_add(x, f, p["norm1"], self.cfg.norm_eps)
+
+    def _ffn(self, spec: LayerSpec, p: Any, x: torch.Tensor, y: torch.Tensor):
+        """The mixer's residual add fused into norm2, then the FFN. Returns
+        (x, f): the layer's output is x + f, left for the next norm to add."""
+        x, h = rms_norm_add(x, y, p["norm2"], self.cfg.norm_eps)
         if spec.ffn == "mlp":
-            return x + mlp_apply(p["mlp"], h, self.cfg)
-        x = x + M.moe_apply(p["moe"], h, self.cfg)
-        if spec.ffn == "moe_dense":  # arctic: routed experts + parallel dense MLP
-            x = x + mlp_apply(p["dense_mlp"], h, self.cfg)
-        return x
+            return x, mlp_apply(p["mlp"], h, self.cfg)
+        f = M.moe_apply(p["moe"], h, self.cfg)
+        if spec.ffn == "moe_dense":  # arctic: routed experts + parallel dense MLP, last add fused
+            return x + f, mlp_apply(p["dense_mlp"], h, self.cfg)
+        return x, f
 
     def _rope(self, positions: torch.Tensor):
         cfg = self.cfg
@@ -190,12 +203,12 @@ class LM(nn.Module):
         holding the S positions and the mamba layers' states)."""
         cfg = self.cfg
         S = tokens.shape[1]
-        x = self._embed(tokens)
+        x, f = self._embed(tokens), None
         rope_cs = self._rope(torch.arange(S, device=x.device))
         P = len(cfg.superblock)
         parts: list[dict[str, list[torch.Tensor]]] = [{} for _ in range(P)]
         for n, (spec, p) in enumerate(zip(self.layer_specs, self.layers)):
-            h = rms_norm(x, p["norm1"], cfg.norm_eps)
+            x, h = self._norm1(p, x, f)
             if spec.mixer == "attn":
                 y, (k, v) = A.attn_forward(p["attn"], h, cfg, causal=True, return_kv=True,
                                            rope_cs=rope_cs)
@@ -204,10 +217,11 @@ class LM(nn.Module):
                 y, c = SSM.mamba_forward(p["mamba"], h, cfg, return_cache=True)
             for name, leaf in c.items():
                 parts[n % P].setdefault(name, []).append(leaf)
-            x = self._ffn(spec, p, x + y)
+            x, f = self._ffn(spec, p, x, y)
         caches = tuple({name: torch.stack(leaves) for name, leaves in part.items()}
                        for part in parts)
-        return self._head(x[:, -1:, :]), caches
+        last = x[:, -1:, :] + f[:, -1:, :]  # the final norm reads only the last position
+        return self._logits(rms_norm(last, self.final_norm, cfg.norm_eps)), caches
 
     @torch.inference_mode()
     def decode_step(self, token: torch.Tensor, pos: int, caches: tuple):
@@ -216,18 +230,19 @@ class LM(nn.Module):
         states into ``caches`` in place and returns (logits (B, 1, V), caches)."""
         cfg = self.cfg
         pos = int(pos)
-        x = self._embed(token)
+        x, f = self._embed(token), None
         rope_cs = self._rope(torch.full((1,), pos, device=x.device))
         P = len(cfg.superblock)
         for n, (spec, p) in enumerate(zip(self.layer_specs, self.layers)):
             c, sb = caches[n % P], n // P
             layer_cache = {name: leaf[sb] for name, leaf in c.items()}
-            h = rms_norm(x, p["norm1"], cfg.norm_eps)
+            x, h = self._norm1(p, x, f)
             if spec.mixer == "attn":
                 y, _ = A.attn_decode(p["attn"], h, layer_cache, pos, cfg, rope_cs=rope_cs)
             else:
                 y, new = SSM.mamba_decode(p["mamba"], h, layer_cache, cfg)
                 for name, leaf in new.items():
                     layer_cache[name].copy_(leaf)
-            x = self._ffn(spec, p, x + y)
-        return self._head(x), caches
+            x, f = self._ffn(spec, p, x, y)
+        _, h = rms_norm_add(x, f, self.final_norm, cfg.norm_eps)
+        return self._logits(h), caches

@@ -7,7 +7,8 @@ elsewhere. On a machine with the card:
 
 (``python3 chip_smoke.py`` runs the same comparisons at more shapes, times
 the kernels, serves the full-width model and runs the fleet and cluster
-paths.) Tolerances: bfloat16 2e-2 (outputs round to bf16 at different
+paths.) The fused add + RMSNorm is held bit for bit to torch's add followed
+by the RMSNorm kernel. Tolerances: bfloat16 2e-2 (outputs round to bf16 at different
 points), float32 1e-5; the Lindley and decision scans exact (one max and one
 add per job; compares and one multiply per decision, no reassociation); the
 fleet path on the card against the CPU 1e-12 relative on departure clocks
@@ -44,8 +45,10 @@ from repro_torch.kernels.lindley_scan.ref import (
     lindley_kserver_reference,
     lindley_scan_reference,
 )
-from repro_torch.kernels.rmsnorm.ops import rmsnorm
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+from repro_torch.kernels.rmsnorm import ops as norm_ops
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_reference, rmsnorm_reference
+from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_reference
 from repro_torch.launch.cluster_sim import default_cluster
@@ -78,6 +81,66 @@ def test_rmsnorm(gen, dtype, tol):
     torch.cuda.synchronize()
     assert rmsnorm.launches == before + 1
     torch.testing.assert_close(out.float(), rmsnorm_reference(x, sc, 1e-6).float(), **tol)
+
+
+NORM_SHAPES = [(4, 1, 3072), (256, 3072), (4, 1, 4096), (256, 4096), (3, 97, 256), (5, 16),
+               (2, 7168)]
+
+
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16), (torch.float32, FP32)])
+def test_rmsnorm_add_is_add_then_rmsnorm(gen, shape, dtype, tol):
+    x, r = randn(gen, *shape, dtype=dtype) * 3, randn(gen, *shape, dtype=dtype)
+    sc = randn(gen, shape[-1], dtype=dtype) * 0.2
+    before = (rmsnorm.launches, rmsnorm_add.launches)
+    s, y = rmsnorm_add(x, r, sc, 1e-6)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches, rmsnorm_add.launches) == (before[0], before[1] + 1)
+    assert s.dtype == y.dtype == dtype and s.shape == y.shape == x.shape
+    assert torch.equal(s, x + r)  # rounded once to x's dtype, as torch's add
+    assert torch.equal(y, rmsnorm(s, sc, 1e-6))  # the same reduction, bit for bit
+    rs, ry = rmsnorm_add_reference(x, r, sc, 1e-6)
+    assert torch.equal(s, rs)
+    torch.testing.assert_close(y.float(), ry.float(), **tol)
+
+
+@pytest.mark.parametrize("tpr,rows_per_cta", [(32, 1), (32, 4), (64, 2), (128, 1), (128, 2),
+                                              (256, 1), (512, 1)])
+@pytest.mark.parametrize("shape,dtype", [((256, 3072), torch.bfloat16),
+                                         ((4, 3072), torch.bfloat16),
+                                         ((33, 1024), torch.float32)])
+def test_rmsnorm_every_plan(gen, tpr, rows_per_cta, shape, dtype):
+    """The plan's neighbours: a warp per row up to a CTA per row, one to four
+    rows per CTA, each held to the plain version; both entries bit-equal."""
+    x, r = randn(gen, *shape, dtype=dtype) * 3, randn(gen, *shape, dtype=dtype)
+    sc = randn(gen, shape[-1], dtype=dtype) * 0.2
+    plan = norm_ops.norm_plan(shape[0], shape[1], x.element_size(), threads_per_row=tpr,
+                              rows_per_cta=rows_per_cta)
+    y = norm_ops._launch(x, None, sc, 1e-6, plan)
+    s, ys = norm_ops._launch(x, r, sc, 1e-6, plan)
+    torch.cuda.synchronize()
+    tol = BF16 if dtype == torch.bfloat16 else FP32
+    torch.testing.assert_close(y.float(), rmsnorm_reference(x, sc, 1e-6).float(), **tol)
+    assert torch.equal(s, x + r)
+    assert torch.equal(ys, norm_ops._launch(s, None, sc, 1e-6, plan))
+
+
+def test_rmsnorm_add_wrong_inputs_raise(gen):
+    x, r, sc = randn(gen, 4, 256), randn(gen, 4, 256), randn(gen, 256)
+    with pytest.raises(TypeError):
+        rmsnorm_add(x.half(), r.half(), sc.half())
+    with pytest.raises(ValueError):
+        rmsnorm_add(x, r.float(), sc)  # r of another dtype
+    with pytest.raises(ValueError):
+        rmsnorm_add(x, r[:2], sc)  # r of another shape
+    with pytest.raises(ValueError):
+        rmsnorm_add(x, r.t().contiguous().t(), sc)  # r not contiguous
+    with pytest.raises(ValueError):
+        rmsnorm_add(x, r.cpu(), sc)  # r on the CPU
+    with pytest.raises(ValueError):
+        rmsnorm_add(x, r, sc.float())  # scale of another dtype
+    with pytest.raises(ValueError):  # rows of 255: not whole 16-byte vectors
+        rmsnorm_add(x[:, :-1].contiguous(), r[:, :-1].contiguous(), sc[:-1].contiguous())
 
 
 @pytest.mark.parametrize("Sq,Skv,window,cap", [(200, 200, 0, 0.0), (37, 300, 0, 0.0),
@@ -454,6 +517,35 @@ def test_ssm_scan(gen, B, T, D, N, dtype, h0, fused):
     assert ssm_scan.launches == before + 1
     ry, rh = ssm_scan_reference(*args)
     assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), ry.float(),
+                               **(SCAN_Y_BF16 if dtype == torch.bfloat16 else FP32))
+    torch.testing.assert_close(h, rh, **SCAN_H)
+
+
+# the kernel's edge cases: N / G ragged or N < G, D not a multiple of a CTA's
+# channels, rows off 16 bytes (plain loads, not cp.async), T of 1, 33, 241
+SSM_EDGES = [
+    (1, 241, 8192, 16, torch.bfloat16, False, False),  # jamba prefill from zeros
+    (4, 1, 8192, 16, torch.bfloat16, True, False),  # jamba decode step
+    (2, 33, 200, 16, torch.bfloat16, True, True),  # D ragged in a CTA's channels, strided B/C
+    (2, 33, 203, 7, torch.bfloat16, True, False),  # odd D and N: plain loads
+    (3, 241, 96, 1, torch.float32, False, False),  # N = 1, below every group
+    (2, 1, 128, 4, torch.float32, True, True),  # N = 4, fp32 strided B/C by cp.async
+    (1, 33, 8192, 4, torch.bfloat16, True, True),  # N = 4 in bf16: 8-byte rows, plain loads
+]
+
+
+@pytest.mark.parametrize("B,T,D,N,dtype,h0,fused", SSM_EDGES)
+@pytest.mark.parametrize("group", scan_ops.GROUPS)
+@pytest.mark.parametrize("reduce", scan_ops.REDUCTIONS)
+def test_ssm_scan_every_plan(gen, B, T, D, N, dtype, h0, fused, group, reduce):
+    args = scan_inputs(gen, B, T, D, N, dtype, h0, fused)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = scan_ops.scan_plan(B, T, D, N, args[3].element_size(), n_sm, group=group,
+                              reduce=reduce)
+    y, h = scan_ops._launch(*args, plan)
+    torch.cuda.synchronize()
+    ry, rh = ssm_scan_reference(*args)
     torch.testing.assert_close(y.float(), ry.float(),
                                **(SCAN_Y_BF16 if dtype == torch.bfloat16 else FP32))
     torch.testing.assert_close(h, rh, **SCAN_H)

@@ -7,8 +7,12 @@ Tolerances: float32 1e-5 (same arithmetic, other summation order), bfloat16
 2e-2 (outputs round to bf16 at different points; tests/test_kernels.py uses
 the same bf16 budget for the Pallas kernels). The selective scan's fp32
 state is held to 1e-5 as well (exp, multiply-adds and a sum over N in fp32;
-the two packages sum over N in their own order).
+the two packages sum over N in their own order). The fused add + RMSNorm's
+sum is held exactly to JAX's bf16 / fp32 add (both round the exact sum once
+to the input's dtype) and its norm to the RMSNorm budgets above.
 """
+
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +22,7 @@ import torch
 from repro.kernels.decode_attention.ops import decode_attention as jax_decode_attention
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
 from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
+from repro.models.layers import rms_norm as jax_rms_norm
 from repro.kernels.ssm_scan.ops import ssm_scan as jax_ssm_scan
 from repro.kernels.ssm_scan.ref import ssm_scan_reference as jax_ssm_scan_reference
 from repro_torch.kernels.decision_scan.ops import LANE_COLUMNS, MAX_THREADS, SMEM_LIMIT, scan_plan
@@ -30,7 +35,9 @@ from repro_torch.kernels.decode_attention.ops import (
     split_plan,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm import ops as norm_ops
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -78,6 +85,95 @@ class TestRmsNorm:
         ref = jax_rmsnorm(jx, js, impl="interpret", blk_rows=32)
         np.testing.assert_allclose(rmsnorm(tx, ts, 1e-6).numpy(), np.asarray(ref),
                                    rtol=1e-5, atol=1e-5)
+
+
+class TestRmsNormAdd:
+    """The fused residual add + RMSNorm's plain version (what the CPU runs)
+    against the JAX package's ``x + y`` followed by its RMSNorm kernel in
+    interpret mode and by ``repro.models.layers.rms_norm``."""
+
+    @pytest.mark.parametrize("shape", [(1, 1, 64), (3, 17, 128), (2, 40, 256), (4, 3072),
+                                       (2, 5, 1024)])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_jax_add_then_norm(self, shape, dtype):
+        rng = np.random.default_rng(sum(shape) + 1)
+        x = (rng.standard_normal(shape) * 3).astype(np.float32)
+        r = rng.standard_normal(shape).astype(np.float32)
+        sc = (rng.standard_normal(shape[-1]) * 0.2).astype(np.float32)
+        (jx, tx), (jr, tr), (js, ts) = pair(x, dtype), pair(r, dtype), pair(sc, dtype)
+        s, y = rmsnorm_add(tx, tr, ts, 1e-6)
+        assert s.dtype == y.dtype == DTYPES[dtype][1] and s.shape == y.shape == tx.shape
+        js_sum = jx + jr  # the reference's `x = x + y`, in the input's dtype
+        np.testing.assert_array_equal(as_np(s), as_np(js_sum))
+        np.testing.assert_allclose(as_np(y), as_np(jax_rms_norm(js_sum, js, 1e-6)), **tol(dtype))
+        rows = int(np.prod(shape[:-1]))
+        interp = jax_rmsnorm(js_sum.reshape(rows, shape[-1]), js, impl="interpret",
+                             blk_rows=min(8, rows))
+        np.testing.assert_allclose(as_np(y).reshape(rows, -1), as_np(interp), **tol(dtype))
+
+    def test_equals_add_then_rmsnorm_on_the_cpu(self):
+        rng = np.random.default_rng(8)
+        x, r = (torch.from_numpy(rng.standard_normal((3, 256)).astype(np.float32))
+                .to(torch.bfloat16) for _ in range(2))
+        sc = torch.from_numpy(rng.standard_normal(256).astype(np.float32)).to(torch.bfloat16)
+        s, y = rmsnorm_add(x, r, sc, 1e-6)
+        assert torch.equal(s, x + r) and torch.equal(y, rmsnorm(x + r, sc, 1e-6))
+
+
+class TestNormPlan:
+    """The RMSNorm kernel's launch (threads per row, rows per CTA, 16-byte
+    vectors per thread), planned on the host."""
+
+    def test_every_vector_of_a_row_on_exactly_one_thread(self):
+        for elt in (2, 4):
+            for d in range(16 // elt, 20_000, 8 // elt * 37):
+                if (d * elt) % 16:
+                    continue
+                p = norm_ops.norm_plan(7, d, elt)
+                nvec = d * elt // 16
+                # thread t of a row holds vectors t, t + tpr, ...: all of them
+                # once, with the fewest vectors a thread the kernel is built for
+                assert p.threads_per_row * p.vectors >= nvec, (d, elt, p)
+                assert p.vectors == 1 or p.threads_per_row * (p.vectors // 2) < nvec, (d, p)
+                assert p.vectors in norm_ops.VECTORS and p.threads_per_row in norm_ops.ROW_THREADS
+                assert p.threads_per_row * p.rows_per_cta <= 512, (d, p)
+
+    @pytest.mark.parametrize("rows", [1, 3, 4, 5, 256, 1000])
+    def test_every_row_in_exactly_one_cta(self, rows):
+        for d, elt in ((16, 4), (64, 2), (3072, 2), (3072, 4), (7168, 2)):
+            p = norm_ops.norm_plan(rows, d, elt)
+            assert (p.ctas - 1) * p.rows_per_cta < rows <= p.ctas * p.rows_per_cta, (d, p)
+
+    def test_the_serving_widths(self):
+        # StarCoder2-3B's rows (d 3072 bf16): a CTA of 128 threads per row, 3
+        # of 4 vectors live; jamba's (4096): 128 threads of 4 vectors each
+        assert norm_ops.norm_plan(4, 3072, 2) == (128, 1, 4, 4)
+        assert norm_ops.norm_plan(256, 3072, 2) == (128, 1, 4, 256)
+        assert norm_ops.norm_plan(4, 4096, 2) == (128, 1, 4, 4)
+        assert norm_ops.norm_plan(6, 64, 2) == (32, 4, 1, 2)  # the reduced configs' width
+
+    def test_the_neighbours_and_rows_that_fit_nothing_raise(self):
+        assert norm_ops.norm_plan(256, 3072, 2, threads_per_row=32) == (32, 4, 16, 64)
+        assert norm_ops.norm_plan(256, 3072, 2, threads_per_row=64, rows_per_cta=2) == (
+            64, 2, 8, 128)
+        with pytest.raises(ValueError):
+            norm_ops.norm_plan(4, 3071, 2)  # not whole 16-byte vectors
+        with pytest.raises(ValueError):
+            norm_ops.norm_plan(4, 65536 + 8, 2)  # wider than 512 threads of 16 vectors
+        with pytest.raises(ValueError):
+            norm_ops.norm_plan(4, 3072, 2, threads_per_row=48)
+        with pytest.raises(ValueError):
+            norm_ops.norm_plan(4, 3072, 2, threads_per_row=256, rows_per_cta=4)
+        with pytest.raises(ValueError):
+            norm_ops.norm_plan(4, 3072, 8)
+
+    def test_a_plan_is_made_once_per_shape(self):
+        # each wrapper plans on every call: a shape seen before costs a lookup
+        p = norm_ops.norm_plan(4, 3072, 2)
+        hits = norm_ops.norm_plan.cache_info().hits
+        assert norm_ops.norm_plan(4, 3072, 2) is p
+        assert norm_ops.norm_plan.cache_info().hits == hits + 1
+        assert norm_ops.norm_plan(4, 3072, 2, threads_per_row=64) != p
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +424,122 @@ class TestDecisionScanPlan:
 # ---------------------------------------------------------------------------
 
 
+class TestSsmScanPlan:
+    """The selective-scan kernel's CTAs (a group of lanes per channel holding
+    its states, a block of channels per CTA, tiles of steps), planned on the
+    host."""
+
+    def test_a_plan_is_made_once_per_shape(self):
+        p = scan_ops.scan_plan(4, 1, 8192, 16, 2, 132)
+        hits = scan_ops.scan_plan.cache_info().hits
+        assert scan_ops.scan_plan(4, 1, 8192, 16, 2, 132) is p
+        assert scan_ops.scan_plan.cache_info().hits == hits + 1
+        assert scan_ops.scan_plan(4, 1, 8192, 16, 2, 132, group=8).group == 8
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_cp_async_only_where_every_staged_row_is_whole_16_byte_chunks(self, dtype):
+        # dt, u (B, T, D) contiguous; B and C column slices of one x_proj
+        # output (B, T, W), as the mixer passes them: the kernel copies by
+        # cp.async only where every row starts on 16 bytes and spans whole
+        # 16-byte chunks, else it takes plain loads
+        elt = torch.tensor([], dtype=dtype).element_size()
+        per = 16 // elt  # elements per 16-byte chunk
+
+        def rows(B, T, D, N, W, lo):
+            dt, u = torch.zeros(B, T, D, dtype=dtype), torch.zeros(B, T, D, dtype=dtype)
+            xp = torch.zeros(B, T, W, dtype=dtype)
+            Bc, Cc = xp[..., lo:lo + N], xp[..., lo + N:lo + 2 * N]
+            p = scan_ops.scan_plan(B, T, D, N, elt, 132)
+            return scan_ops._async_rows(dt, Bc, Cc, u, p)
+
+        assert rows(4, 1, 8192, 16, 8 + 32 + 8192 // 16, per)  # jamba's decode step
+        assert rows(1, 241, 8192, 16, 8 * per + 32, per)  # its prefill
+        assert not rows(1, 241, 8192, 16, 8 * per + 32 + 1, per)  # x_proj rows off 16 bytes
+        assert not rows(2, 5, 8192, 16, 8 * per + 32, 1)  # B's first column off 16 bytes
+        assert not rows(2, 5, 200 + 1, 16, 8 * per + 32, per)  # D off whole chunks
+        assert rows(1, 1, 256, 16, 16 * per + 32 + 1, per)  # one row: no stride steps
+        assert not rows(2, 1, 256, 16, 16 * per + 32 + 1, per)  # two rows off 16 bytes
+        # N = 4: whole chunks in fp32, half a chunk in bf16
+        assert rows(2, 5, 256, 4, 2 * per + 8, per) == (elt == 4)
+
+    @pytest.mark.parametrize("group", scan_ops.GROUPS)
+    def test_every_channel_in_one_cta_and_every_state_on_one_lane(self, group):
+        for n in range(1, scan_ops.N_MAX + 1):
+            for b, d in ((1, 8192), (4, 8192), (2, 200), (3, 203), (1, 1), (5, 97)):
+                p = scan_ops.scan_plan(b, 33, d, n, 2, 132, group=group)
+                # CTA (x, b) takes channels [x * channels, (x + 1) * channels)
+                # of batch row b; thread i of it, channel i // group, lane i % group
+                per_row = -(-d // p.channels)
+                assert p.ctas == b * per_row and (per_row - 1) * p.channels < d
+                assert p.channels * p.group == scan_ops.THREADS
+                assert scan_ops.THREADS % 32 == 0 and 32 % p.group == 0  # groups within a warp
+                owner = {}
+                for lane in range(p.group):  # lane l: states [l * 16/G, (l + 1) * 16/G)
+                    spl = scan_ops.N_MAX // p.group
+                    for s in range(lane * spl, (lane + 1) * spl):
+                        if s < n:
+                            assert s not in owner
+                            owner[s] = lane
+                assert sorted(owner) == list(range(n)), (n, group)
+
+    def test_the_grid_covers_the_card_at_jambas_shapes(self):
+        for n_sm in (132, 114):
+            for b, t in ((1, 241), (4, 1), (1, 256), (8, 1)):
+                p = scan_ops.scan_plan(b, t, 8192, 16, 2, n_sm)
+                assert p.ctas >= n_sm, (b, t, p)
+                assert (b * 8192 * p.group >= n_sm * scan_ops.FILL_THREADS
+                        or p.group == max(scan_ops.GROUPS)), (b, t, p)
+                smaller = [g for g in scan_ops.GROUPS if g < p.group]
+                assert all(b * 8192 * g < n_sm * scan_ops.FILL_THREADS for g in smaller)
+
+    def test_jambas_plans(self):
+        n_sm = 132
+        # prefill (1, 241, 8192, 16): 4 lanes of 4 states a channel, 32
+        # channels a CTA, 256 CTAs, tiles of 64 steps, y reduce-scattered 4
+        # steps at a time
+        p = scan_ops.scan_plan(1, 241, 8192, 16, 2, n_sm)
+        assert (p.group, p.channels, p.tile_t, p.reduce, p.ctas) == (4, 32, 64, "scatter", 256)
+        # a decode step (4, 1, 8192, 16): 4 lanes of 4 states, 32 channels a
+        # CTA, one step reduced by shuffles
+        p = scan_ops.scan_plan(4, 1, 8192, 16, 2, n_sm)
+        assert (p.group, p.channels, p.tile_t, p.reduce, p.ctas) == (4, 32, 1, "shuffle", 1024)
+
+    def test_shared_memory_fits_and_scatter_tiles_hold_whole_groups(self):
+        for group in scan_ops.GROUPS:
+            for reduce in scan_ops.REDUCTIONS:
+                for n in range(1, 17):
+                    for elt in (2, 4):
+                        for t, tile in itertools.product((0, 1, 31, 32, 33, 10_000),
+                                                         (None, 1, 5, 64)):
+                            p = scan_ops.scan_plan(2, t, 100, n, elt, 132, group=group,
+                                                   reduce=reduce, tile_t=tile)
+                            assert p.smem == scan_ops.smem_bytes(p.tile_t, p.channels, n, elt)
+                            assert p.smem % 16 == 0 and p.smem <= scan_ops.SMEM_LIMIT
+                            assert 1 <= p.tile_t <= scan_ops.TILE_T
+                            assert reduce != "scatter" or p.tile_t % group == 0
+                            assert p.tile_t >= min(t, tile or scan_ops.TILE_T)
+        # bf16 jamba prefill: two raw stages of (64 x 32) dt and u and (64 x
+        # 16) B and C, the fp32 tile ((dt, dt u) per channel, (B, C) per
+        # state), and 64 x 32 staged sums of y
+        raw = 2 * (2 * 64 * 32 * 2 + 2 * 64 * 16 * 2)
+        assert scan_ops.scan_plan(1, 241, 8192, 16, 2, 132).smem == (
+            raw + 64 * 32 * 8 + 64 * 16 * 8 + 64 * 32 * 4)
+
+    def test_sizes_that_fit_nothing_raise(self):
+        for bad in ((1, 5, 64, 0, 2), (1, 5, 64, 17, 2), (65536, 5, 64, 16, 2), (1, 5, 64, 16, 8),
+                    (0, 5, 64, 16, 2), (1, 5, 0, 16, 2), (1, -1, 64, 16, 2)):
+            with pytest.raises(ValueError):
+                scan_ops.scan_plan(*bad, 132)
+        with pytest.raises(ValueError):
+            scan_ops.scan_plan(1, 5, 64, 16, 2, 132, group=2)
+        for reduce in ("tree", "smem"):  # "smem" was measured slower and is not built
+            with pytest.raises(ValueError):
+                scan_ops.scan_plan(1, 5, 64, 16, 2, 132, reduce=reduce)
+        with pytest.raises(ValueError):
+            scan_ops.scan_plan(1, 5, 64, 16, 2, 132, tile_t=scan_ops.TILE_T + 1)
+
+
+
 def _scan_inputs(B, T, D, N, seed=13, with_h0=False, fused=False):
     """dt > 0, B, C, u ~ N(0, 1), A < 0 as the mixer makes them. ``fused``
     gives B and C as column slices of one (B, T, 8 + 2N) array, the layout
@@ -401,13 +613,14 @@ class TestSsmScan:
 
 
 def _launch_counts():
-    return (rmsnorm.launches, flash_attention.launches, decode_attention.launches,
-            ssm_scan.launches)
+    return (rmsnorm.launches, rmsnorm_add.launches, flash_attention.launches,
+            decode_attention.launches, ssm_scan.launches)
 
 
 def test_cpu_calls_never_touch_the_launch_counters():
     before = _launch_counts()
     rmsnorm(torch.ones(2, 64), torch.zeros(64), 1e-6)
+    rmsnorm_add(torch.ones(2, 64), torch.ones(2, 64), torch.zeros(64), 1e-6)
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 16, 4, 2, 32))
     flash_attention(q, k, v)
     q, kc, vc = (torch.from_numpy(a) for a in _cache(1, 32, 4, 2, 32))
@@ -420,6 +633,8 @@ def test_other_devices_are_refused():
     meta = torch.empty(2, 64, device="meta")
     with pytest.raises(ValueError, match="CPU or a CUDA card"):
         rmsnorm(meta, torch.empty(64, device="meta"))
+    with pytest.raises(ValueError, match="CPU or a CUDA card"):
+        rmsnorm_add(meta, meta, torch.empty(64, device="meta"))
     q = torch.empty(1, 8, 4, 32, device="meta")
     kv = torch.empty(1, 8, 2, 32, device="meta")
     with pytest.raises(ValueError, match="CPU or a CUDA card"):
