@@ -78,7 +78,27 @@ Phases; any failure exits non-zero before the result lines are printed:
      tiers x 32 = 128 edges, 2,048 clients, 600 one-second epochs, exactly 600
      launches) whose choices are held against the same run through the plain
      decision function, and a profile of that call;
-  7. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
+  7. tails: the batched tails and the SLO cluster, counters reset just before
+     and read just after: ``fleet_tail`` at p99 over the fleet phase's
+     131,072-row grid by Euler and by the asymptote, a seeded sample of 512
+     rows held against the scalar ``analytic_tail`` (1e-8 / 1e-6, the same
+     sample through the CPU beside it); the asymptote on the shared-pole
+     (C2) cases, which take the Euler path (1e-8); differential gates 1-5 on
+     the smoke subset (gate 3's and 4's simulations one Lindley launch per
+     station, gate 5's exact solves one decision-scan launch per synchronous
+     step, both counts exact); the 64 x 4 acceptance cluster in SLO mode
+     (q = 0.99, asymptote: the equilibrium within 20 iterations and its
+     choices equal to the CPU solve's, the 120-epoch closed loop with exactly
+     120 launches and no saturated epoch; ``adaptive_wins`` is reported, not
+     gated: on this trace the reference's SLO loop loses to on-device too,
+     as ``tests/test_torch_cluster.py`` shows on the reference's counts);
+     the city pool in SLO mode (adaptive only, 300 epochs, exactly one launch
+     per epoch); profiles of the sweep's asymptote and of SLO city epochs;
+  8. meanfield_plan: ``cluster_sim --meanfield --clients 1000000`` (converged,
+     adaptive undercuts every static price), ``provision`` at its default
+     space for 48 clients at p99 <= 120 ms by Euler (the plan equal to the
+     same call on the CPU), and ``launch/validate.py --smoke`` (exit 0);
+  9. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
      entry), the card's name and power limit as
      nvidia-smi gives them, and the final ``{"ok": true, ...}`` line.
 Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
@@ -94,6 +114,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -154,6 +175,12 @@ ACCEPT_CLIENTS, ACCEPT_EPOCHS = 64, 120
 CITY_REPEAT, CITY_CLIENTS, CITY_EPOCHS, CITY_STAGGER = 32, 2048, 600, 8
 DECISION_SHAPES = ((ACCEPT_EPOCHS, ACCEPT_CLIENTS, 5),
                    (CITY_EPOCHS, CITY_CLIENTS, 4 * CITY_REPEAT + 1))
+# the tail path's sizes: p99, the fleet sweep's grid, a 512-row sample held
+# against the scalar tail; the SLO city pool cut to 300 of the mean-mode
+# city's 600 epochs (600 took 112 s on the card, past the 90 s this run may
+# take alone), clients and edges whole
+TAIL_Q, TAIL_SAMPLE = 0.99, 512
+CITY_SLO_EPOCHS = 300
 
 
 def log(msg: str) -> None:
@@ -1419,7 +1446,8 @@ def phase_fleet(torch) -> dict:
     sub = smoke_subset(entries)
     t0 = time.perf_counter()
     val = run_differential(sub, expected_totals=meta["expected_totals"], base_n=20_000,
-                           max_n_factor=2.0, bootstrap=100, sim_cross_count=2, device="cuda")
+                           max_n_factor=2.0, bootstrap=100, sim_cross_count=2, meanfield=False,
+                           device="cuda")
     d = val.to_dict()
     log(f"[fleet] differential gates 1-3 on {len(sub)} smoke entries in "
         f"{time.perf_counter() - t0:.2f} s: scalar vs batched max rel err "
@@ -1431,8 +1459,7 @@ def phase_fleet(torch) -> dict:
     if not (val.vec_passed and val.golden_passed and val.gate_passed) or val.gate.n != len(sub):
         FAILURES.append(f"differential gates: {d['scalar_vs_vec']}, {d['golden']}, "
                         f"{d['mape_gate']}")
-    out["gates"] = {k: d[k] for k in ("passed", "covers", "scalar_vs_vec", "golden",
-                                      "mape_gate", "sim_cross")}
+    out["gates"] = {k: d[k] for k in ("scalar_vs_vec", "golden", "mape_gate", "sim_cross")}
 
     launches = read_counts()
     out["launches"] = launches
@@ -1871,6 +1898,352 @@ def phase_cluster(torch, scan_ref) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the tail path: batched quantiles, gates 1-5, the cluster in SLO mode
+
+
+def _sweep_rows(base, axes, rows):
+    """The Scenarios of grid rows ``rows`` (C order, the last axis fastest)."""
+    import numpy as np
+
+    out = []
+    for i in rows:
+        scn = base
+        for (path, vals), j in zip(axes.items(),
+                                   np.unravel_index(i, [len(v) for v in axes.values()])):
+            scn = scn.replaced(path, float(vals[j]))
+        out.append(scn)
+    return out
+
+
+def _c2_cases():
+    """The shared-pole cases of ROADMAP C2 as station tuples, and as offload
+    paths whose request and result NICs are identical and dominant."""
+    from repro_torch.core import tail as T
+    from repro_torch.core.latency import NetworkPath, Tier, Workload
+    from repro_torch.core.scenario import EdgeSpec, Scenario
+
+    stations = {"md1_lam1_mean05_x2": [T.proc_station(1.0, T.KIND_DET, 0.5, 0.0)] * 2,
+                "det_rho04375_x2": [T.proc_station(0.4375, T.KIND_DET, 1.0, 0.0)] * 2}
+    scenarios = [Scenario(
+        workload=Workload(arrival_rate=2.0, req_bytes=80_000, res_bytes=80_000, name="c2"),
+        device=Tier("slow", 0.4), edges=(EdgeSpec(Tier("fast", 0.01)),),
+        network=NetworkPath(bw), name=f"c2-shared-nic-{bw:g}") for bw in (4e5, 6e5)]
+    return stations, scenarios
+
+
+def phase_tails(torch, scan_ref) -> dict:
+    import numpy as np
+
+    from repro_torch.core import tail as T
+    from repro_torch.core.scenario import parse_strategy
+    from repro_torch.fleet import ScenarioBatch, fleet_tail, simulate_cluster, solve_equilibrium
+    from repro_torch.fleet.tail_vec import STATION_KEYS, sojourn_quantile_vec
+    from repro_torch.launch import fleet_sweep
+    from repro_torch.launch.cluster_sim import default_cluster
+    from repro_torch.validate import load_corpus, run_differential, run_meanfield_gate, smoke_subset
+    from repro_torch.validate.differential import _rel_err, _sim_n_for
+
+    out: dict = {}
+    reset_counts()
+
+    # 1. fleet_tail at p99 over the sweep's grid, both methods; a seeded
+    # sample against the scalar tail, the same sample through the CPU beside it
+    base = fleet_sweep.default_scenario()
+    axes = {path: _axis(spec) for path, spec in SWEEP_AXES.items()}
+    full = ScenarioBatch.from_sweep(base, axes)
+    rows = np.sort(np.random.default_rng(1).choice(full.size, TAIL_SAMPLE, replace=False))
+    pick = ScenarioBatch(**{k: v[rows] for k, v in full.arrays().items()})
+    scns = _sweep_rows(base, axes, rows)
+    out["fleet_tail"] = {}
+    for method, limit in (("euler", 1e-8), ("asymptote", 1e-6)):
+        fleet_tail(pick, TAIL_Q, method=method, device="cuda")  # first-call set-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pred = fleet_tail(full, TAIL_Q, method=method, device="cuda")  # results on the host
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cpu = fleet_tail(pick, TAIL_Q, method=method, device="cpu")
+        worst = worst_cpu = 0.0
+        for row, (i, scn) in enumerate(zip(rows, scns)):
+            for k, v in scn.analytic_tail(TAIL_Q, method=method).items():
+                worst = max(worst, _rel_err(pred.totals(int(i))[k], v))
+                worst_cpu = max(worst_cpu, _rel_err(cpu.totals(row)[k], v))
+        finite = float(np.isfinite(np.concatenate([pred.t_dev[:, None], pred.t_edge], 1)).mean())
+        ok = (pred.size == full.size == 131_072 and worst <= limit and worst_cpu <= limit
+              and 0.0 < finite <= 1.0 and not np.isnan(pred.t_edge).any())
+        log(f"[tails] fleet_tail p99 {method}: {pred.size} rows in {wall * 1e3:.1f} ms "
+            f"({pred.size / wall:,.0f} rows/s, results on the host); peak device memory "
+            f"{peak:.3f} GiB; {finite:.1%} of the (row, strategy) quantiles finite; {TAIL_SAMPLE} "
+            f"sampled rows vs the scalar analytic_tail: max rel err {worst:.3e} on the card, "
+            f"{worst_cpu:.3e} on the CPU (limit {limit:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"fleet_tail {method}: card {worst:.3e}, CPU {worst_cpu:.3e}, "
+                            f"{pred.size} rows")
+        out["fleet_tail"][method] = dict(rows=pred.size, wall_s=wall, rows_per_s=pred.size / wall,
+                                         peak_mem_gib=peak, max_rel_err=worst,
+                                         cpu_max_rel_err=worst_cpu, finite_frac=finite)
+    out["fleet_tail_profile"] = profile_calls(
+        torch, f"fleet_tail p99 asymptote over {full.size} rows",
+        lambda: fleet_tail(full, TAIL_Q, method="asymptote", device="cuda"), n=1)
+
+    # 2. the asymptote on the C2 cases: a shared dominant pole takes the
+    # Euler path, as the port's scalar does
+    stations, c2_scns = _c2_cases()
+    worst = 0.0
+    for name, sts in stations.items():
+        st = {k: torch.tensor([[getattr(x, k) for x in sts]], device="cuda",
+                              dtype=torch.int64 if k[1:] == "kind" else torch.float64)
+              for k in STATION_KEYS}
+        for q in (0.9, TAIL_Q, T.EULER_Q_MAX):
+            got = float(sojourn_quantile_vec(st, q, method="asymptote")[0])
+            worst = max(worst, _rel_err(got, T.sojourn_quantile(sts, q, method="asymptote")))
+    pred = fleet_tail(ScenarioBatch.from_scenarios(c2_scns), TAIL_Q, method="asymptote",
+                      device="cuda")
+    for i, scn in enumerate(c2_scns):
+        for k, v in scn.analytic_tail(TAIL_Q, method="asymptote").items():
+            worst = max(worst, _rel_err(pred.totals(i)[k], v))
+    ok = worst <= 1e-8
+    log(f"[tails] asymptote on the C2 shared-pole cases ({len(stations)} station pairs at q "
+        f"0.9 / 0.99 / EULER_Q_MAX, {len(c2_scns)} paths with identical NICs): max rel err vs "
+        f"the scalar {worst:.3e} (limit 1e-8) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"C2 cases: {worst:.3e}")
+    out["c2_max_rel_err"] = worst
+
+    # 3. differential gates 1-5 on the smoke subset: one Lindley launch per
+    # station of each (strategy, run length) group; one decision-scan launch
+    # per synchronous step of gate 5's exact solves (counted on the CPU)
+    entries, meta = load_corpus()
+    sub = smoke_subset(entries)
+    groups = {}
+    for e in sub:
+        j = parse_strategy(e.strategy, len(e.scenario.edges))
+        if j < 0 or not e.scenario.edges[j].background:
+            groups[(e.strategy, _sim_n_for(e.rho, 20_000, 2.0))] = 1 if j < 0 else 3
+    steps = []
+    with route_decisions(lambda *a, **k: steps.append(1) or scan_ref(*a, **k)):
+        run_meanfield_gate(device="cpu")
+    before = read_counts()
+    t0 = time.perf_counter()
+    val = run_differential(sub, expected_totals=meta["expected_totals"], base_n=20_000,
+                           max_n_factor=2.0, bootstrap=100, sim_cross_count=2, device="cuda")
+    gates_s = time.perf_counter() - t0
+    after = read_counts()
+    n_lind = sum(after[k] - before[k] for k in ("lindley_scan", "lindley_kserver"))
+    n_dec = after["decision_scan"] - before["decision_scan"]
+    d = val.to_dict()
+    mf = d["meanfield_gate"]
+    ok = (val.passed and val.gate.n == len(sub) and val.tail.n >= 5
+          and n_lind == sum(groups.values()) and n_dec == len(steps) >= 1)
+    log(f"[tails] differential gates 1-5 on {len(sub)} smoke entries in {gates_s:.2f} s: "
+        f"(1) scalar vs batched {d['scalar_vs_vec']['max_rel_err']:.3e} (limit "
+        f"{val.vec_tol:g}); (2) golden {d['golden']['max_rel_err']:.3e} (limit "
+        f"{val.golden_tol:g}); (3) MAPE {val.gate.mean_pct:.3f}% mean, {val.gate.max_pct:.3f}% "
+        f"max over {val.gate.n} (limit {val.mape_budget_pct:g}%); (4) scalar vs batched tail "
+        f"{d['scalar_vs_vec_tail']['max_rel_err']:.3e} (limit {val.vec_tol:g}), batched vs "
+        f"scalar Euler {d['tail_euler_vec']['max_rel_err']:.3e} over "
+        f"{d['tail_euler_vec']['n_entries']} (limit {val.euler_vec_tol:g}), analytic vs "
+        f"simulated p99 {val.tail.mean_pct:.3f}% mean, {val.tail.max_pct:.3f}% max over "
+        f"{val.tail.n} (limit {val.tail_budget_pct:g}%); (5) mean field vs exact "
+        f"{mf['gated_max_mape_pct']:.3f}% max, {mf['gated_mean_mape_pct']:.3f}% mean over "
+        f"{mf['n_specs']} fleets, converged {mf['converged']} (limit {mf['budget_pct']:g}%); "
+        f"simulators agree to {val.sim_cross.get('max_mape_pct', float('nan')):.3f}%; "
+        f"{n_lind} Lindley launches (expected {sum(groups.values())}), {n_dec} decision_scan "
+        f"launches for {len(steps)} synchronous steps; passed {val.passed} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"gates 1-5: passed {val.passed}, Lindley {n_lind}, decision {n_dec} "
+                        f"of {len(steps)}")
+    out["gates"] = {k: d[k] for k in ("passed", "scalar_vs_vec", "golden", "mape_gate",
+                                      "tail_gate", "scalar_vs_vec_tail", "tail_euler_vec",
+                                      "sim_cross")}
+    out["gates"]["meanfield_gate"] = {k: v for k, v in mf.items() if k != "specs"}
+    out["gates"].update(elapsed_s=gates_s, lindley_launches=n_lind, decision_launches=n_dec)
+
+    # 4. the acceptance cluster in SLO mode: p99 by the asymptote
+    spec = default_cluster(ACCEPT_CLIENTS)
+    bw0 = float(np.asarray(spec.base.network.bandwidth_Bps))
+    slo = dict(slo_quantile=TAIL_Q, tail_method="asymptote")
+    before = read_counts()
+    t0 = time.perf_counter()
+    eq = solve_equilibrium(spec, max_iter=20, device="cuda", **slo)
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    n_eq = read_counts()["decision_scan"] - before["decision_scan"]
+    steps = []
+    with route_decisions(lambda *a, **k: steps.append(1) or scan_ref(*a, **k)):
+        eq_cpu = solve_equilibrium(spec, max_iter=20, device="cpu", **slo)
+    ok = (eq.converged and eq.iterations <= 20 and n_eq == len(steps) >= 1
+          and np.array_equal(eq.choices, eq_cpu.choices) and eq.iterations == eq_cpu.iterations)
+    log(f"[tails] SLO equilibrium {ACCEPT_CLIENTS} x 4, p99 asymptote: converged {eq.converged} "
+        f"in {eq.iterations} iterations (limit 20; damped after oscillation: {eq.oscillation}) "
+        f"in {solve_ms:.1f} ms; {n_eq} decision_scan launches for {len(steps)} synchronous "
+        f"steps; counts {eq.counts()}; worst client p99 {eq.max_latency_s * 1e3:.3f} ms; "
+        f"choices equal to the CPU solve: {np.array_equal(eq.choices, eq_cpu.choices)} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"SLO equilibrium: converged {eq.converged}, {eq.iterations} "
+                        f"iterations, {n_eq} launches for {len(steps)} steps")
+    out["slo_equilibrium"] = dict(iterations=eq.iterations, converged=eq.converged,
+                                  oscillation=eq.oscillation, counts=eq.counts(),
+                                  max_latency_s=eq.max_latency_s, solve_ms=solve_ms,
+                                  launches=n_eq, synchronous_steps=len(steps))
+
+    pols = ("adaptive", "on_device") + tuple(f"edge[{j}]" for j in range(spec.n_edges))
+    trace = walk_trace(float(ACCEPT_EPOCHS), bw0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    lam = torch.full((ACCEPT_EPOCHS, ACCEPT_CLIENTS), 2.0, dtype=torch.float64, device="cuda")
+    n_req = torch.poisson(lam * trace.epoch_s, generator=gen).cpu().numpy()
+    before = read_counts()
+    t0 = time.perf_counter()
+    res = simulate_cluster(spec, trace, policies=pols, stagger=8, n_req=n_req, **slo)
+    wall = time.perf_counter() - t0
+    n_dec = read_counts()["decision_scan"] - before["decision_scan"]
+    a = res.policies["adaptive"]
+    finite = all(np.isfinite(p.latencies_s).all() and p.latencies_s.shape ==
+                 (ACCEPT_EPOCHS, ACCEPT_CLIENTS) for p in res.policies.values())
+    ok = finite and a.saturated_epochs == 0 and n_dec == ACCEPT_EPOCHS
+    log(f"[tails] SLO closed loop {ACCEPT_CLIENTS} x 4 x {ACCEPT_EPOCHS} epochs in {wall:.2f} s: "
+        + ", ".join(f"{n} p99 {p.mean_latency_s * 1e3:.3f} ms (sat {p.saturated_epochs})"
+                    for n, p in res.policies.items())
+        + f"; adaptive <= every static: {res.adaptive_wins} (reported, not gated); {n_dec} "
+          f"decision_scan launches (expected {ACCEPT_EPOCHS}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"SLO acceptance closed loop: saturated {a.saturated_epochs}, launches "
+                        f"{n_dec}, finite {finite}")
+    out["slo_acceptance"] = dict(wall_s=wall, launches=n_dec, adaptive_wins=res.adaptive_wins,
+                                 means_s={n: p.mean_latency_s for n, p in res.policies.items()},
+                                 saturated={n: p.saturated_epochs for n, p in res.policies.items()})
+
+    # 5. the city pool in SLO mode, adaptive only, its counts drawn on the card
+    city = city_cluster()
+    trace = walk_trace(float(CITY_SLO_EPOCHS), bw0)
+    gen.manual_seed(0)
+    lam = torch.full((CITY_SLO_EPOCHS, CITY_CLIENTS), 2.0, dtype=torch.float64, device="cuda")
+    n_req = torch.poisson(lam * trace.epoch_s, generator=gen).cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = read_counts()
+    t0 = time.perf_counter()
+    res = simulate_cluster(city, trace, policies=("adaptive",), stagger=CITY_STAGGER,
+                           n_req=n_req, **slo)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_dec = read_counts()["decision_scan"] - before["decision_scan"]
+    a = res.policies["adaptive"]
+    ce = CITY_SLO_EPOCHS * CITY_CLIENTS
+    finite = bool(np.isfinite(a.latencies_s).all()) and a.latencies_s.shape == (
+        CITY_SLO_EPOCHS, CITY_CLIENTS)
+    ok = finite and n_dec == CITY_SLO_EPOCHS
+    log(f"[tails] SLO city closed loop: {CITY_CLIENTS} clients x {city.n_edges} edges x "
+        f"{CITY_SLO_EPOCHS} epochs, adaptive only, in {wall:.2f} s ({ce / wall:,.0f} "
+        f"client-epochs/s); mean p99 {a.mean_latency_s * 1e3:.3f} ms, saturated "
+        f"{a.saturated_epochs} of {ce}, offload {a.offload_frac:.1%}, switches {a.switches}; "
+        f"peak device memory {peak:.2f} GiB; {n_dec} decision_scan launches (expected "
+        f"{CITY_SLO_EPOCHS}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"SLO city: finite {finite}, launches {n_dec}")
+    out["slo_city"] = dict(clients=CITY_CLIENTS, edges=city.n_edges, epochs=CITY_SLO_EPOCHS,
+                           wall_s=wall, client_epochs_per_s=ce / wall, peak_mem_gib=peak,
+                           launches=n_dec, mean_latency_s=a.mean_latency_s,
+                           saturated=a.saturated_epochs, offload_frac=a.offload_frac,
+                           switches=a.switches)
+    launches = read_counts()
+    out["launches"] = launches
+    log(f"[tails] launches over the tail path: {launches}")
+    if any(launches[k] for k in ("rmsnorm", "flash_attention", "decode_attention", "ssm_scan")):
+        FAILURES.append(f"serving kernels ran in the tails phase: {launches}")
+    short = walk_trace(4.0, bw0)
+    out["slo_city_profile"] = profile_calls(
+        torch, f"SLO city closed loop, 4 epochs of {CITY_CLIENTS} x {city.n_edges}",
+        lambda: simulate_cluster(city, short, policies=("adaptive",), stagger=CITY_STAGGER,
+                                 n_req=n_req[:4], **slo), n=1)
+    return out
+
+
+def phase_meanfield_plan(torch, scan_ref) -> dict:
+    from repro_torch.launch import cluster_sim
+    from repro_torch.launch import provision as provision_cli
+    from repro_torch.launch import validate as validate_cli
+    from repro_torch.plan import provision
+    from repro_torch.validate.differential import _rel_err
+
+    out: dict = {}
+    reports = tempfile.TemporaryDirectory()  # the CLIs' reports, read back into RESULT
+    out_dir = Path(reports.name)
+    reset_counts()
+
+    # 1. the mean-field CLI at a million clients, its other flags at their defaults
+    mf_path = out_dir / "meanfield_1m.json"
+    t0 = time.perf_counter()
+    rc = cluster_sim.main(["--meanfield", "--clients", "1000000", "--out", str(mf_path)])
+    wall = time.perf_counter() - t0
+    rep = json.loads(mf_path.read_text()) if mf_path.exists() else {}
+    eqr, rp = rep.get("equilibrium", {}), rep.get("replay", {})
+    ok = (rc == 0 and eqr.get("converged") is True and rep.get("adaptive_wins") is True
+          and rep.get("device") == "cuda")
+    log(f"[meanfield] cluster_sim --meanfield --clients 1000000: exit {rc} in {wall:.2f} s; "
+        f"equilibrium converged {eqr.get('converged')} in {eqr.get('iterations')} iterations, "
+        f"{eqr.get('solve_s', float('nan')) * 1e3:.1f} ms; adaptive undercuts every static "
+        f"price: {rep.get('adaptive_wins')}; replay {rp.get('client_epochs')} client-epochs at "
+        f"{rp.get('client_epochs_per_sec', float('nan')):.4e} client-epochs/s (warm) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"--meanfield 1M: exit {rc}, converged {eqr.get('converged')}, "
+                        f"wins {rep.get('adaptive_wins')}")
+    out["meanfield_1m"] = dict(exit=rc, wall_s=wall, equilibrium=eqr, replay=rp,
+                               adaptive_wins=rep.get("adaptive_wins"))
+
+    # 2. provision at the CLI's default space, on the card and on the CPU
+    space = provision_cli.default_space()
+    before = read_counts()["decision_scan"]
+    t0 = time.perf_counter()
+    plan = provision(space, 48, 0.120, q=0.99, tail_method="euler", device="cuda")
+    card_s = time.perf_counter() - t0
+    n_dec = read_counts()["decision_scan"] - before
+    t0 = time.perf_counter()
+    plan_cpu = provision(space, 48, 0.120, q=0.99, tail_method="euler", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same = plan is not None and plan_cpu is not None
+    if same:
+        g, w = plan.to_dict(), plan_cpu.to_dict()
+        for k, v in w.items():
+            if k in ("max_latency_s", "mean_latency_s"):
+                same = same and _rel_err(g[k], v) <= 1e-9
+            elif k == "rho_edges":
+                same = same and all(_rel_err(a, b) <= 1e-9 for a, b in zip(g[k], v))
+            else:
+                same = same and g[k] == v
+    ok = same and n_dec >= 1
+    log(f"[meanfield] provision, default space, N = 48, p99 <= 120 ms, Euler: "
+        + (f"{plan.n_edges} x {plan.tier.name} at {plan.bandwidth_Bps * 8 / 1e6:g} Mbit, worst "
+           f"p99 {plan.max_latency_s * 1e3:.3f} ms, {plan.evaluations} equilibrium solves"
+           if plan is not None else "no plan")
+        + f"; {card_s:.2f} s on the card ({n_dec} decision_scan launches), {cpu_s:.2f} s on "
+          f"the CPU; the same plan: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"provision: same plan {same}, launches {n_dec}")
+    out["provision"] = dict(plan=None if plan is None else plan.to_dict(), card_s=card_s,
+                            cpu_s=cpu_s, same_plan_as_cpu=same, launches=n_dec)
+
+    # 3. the validate CLI's smoke gate
+    t0 = time.perf_counter()
+    rc = validate_cli.main(["--smoke", "--out", str(out_dir / "VALIDATION_smoke.json")])
+    wall = time.perf_counter() - t0
+    log(f"[meanfield] launch/validate.py --smoke: exit {rc} in {wall:.2f} s "
+        f"{'ok' if rc == 0 else 'FAIL'}")
+    if rc != 0:
+        FAILURES.append(f"validate --smoke exit {rc}")
+    out["validate_smoke"] = dict(exit=rc, wall_s=wall)
+    reports.cleanup()
+    launches = read_counts()
+    out["launches"] = launches
+    log(f"[meanfield] launches over the mean-field and planning path: {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1951,6 +2324,12 @@ def main() -> int:
     end_phase("fleet")
     cluster = phase_cluster(torch, decision_scan_reference)
     end_phase("cluster")
+    torch.cuda.empty_cache()
+    tails = phase_tails(torch, decision_scan_reference)
+    end_phase("tails")
+    torch.cuda.empty_cache()
+    meanfield_plan = phase_meanfield_plan(torch, decision_scan_reference)
+    end_phase("meanfield_plan")
 
     where = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:32"),
@@ -1988,6 +2367,9 @@ def main() -> int:
         if name == "rmsnorm_add":  # no one library call: torch.add, then F.rms_norm
             row.update(library_ms=None, yardstick_ms=t["library_ms"],
                        prefill_library_ms=None, prefill_yardstick_ms=p["library_ms"])
+        if name in ("lindley_scan", "decision_scan"):  # launched on the new paths too
+            row.update(tails_launches=tails["launches"][name],
+                       meanfield_plan_launches=meanfield_plan["launches"][name])
         if name == "lindley_scan":  # no one library call; the k-server entry of the same .cu
             row.update(yardstick_ms=t["yardstick_ms"], chain_floor_ms=t["chain_floor_ms"],
                        kserver_k4_ms=t["kserver_k4_ms"],
@@ -2004,7 +2386,7 @@ def main() -> int:
                        prefill_eager_ms=p["eager_ms"])
         kernels.append(row)
     RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid, fleet=fleet,
-                  cluster=cluster)
+                  cluster=cluster, tails=tails, meanfield_plan=meanfield_plan)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(RESULT, indent=1, default=str))

@@ -91,7 +91,8 @@ _EULER_WEIGHTS = np.array(
 # ``euler_grow_iters``), EULER_BISECT_ITERS bisections to isolate a bracket
 # narrower than the noise wavelength, then EULER_NEWTON_ITERS safeguarded
 # Newton steps on the free Abate-Whitt density (midpoint fallback whenever
-# the Newton candidate leaves the bracket).
+# the Newton candidate leaves the bracket; a candidate ON an end of the
+# bracket stays — see ``_quantile_euler``).
 EULER_BISECT_ITERS = 10
 EULER_NEWTON_ITERS = 8
 ETA_GROW_ITERS = 64
@@ -427,7 +428,13 @@ def _quantile_euler(stations: Sequence[Station], q: float) -> float:
     remains inside; (3) ``EULER_NEWTON_ITERS`` safeguarded Newton steps using
     the free density from ``_cdf_pdf``, falling back to the midpoint whenever
     the Newton candidate leaves the bracket (so the bracket still halves and
-    the worst case stays a bisection).
+    the worst case stays a bisection). A candidate on an end of the bracket
+    has not left it: that is a converged iterate (``cdf == q`` to the last
+    bit makes the step zero, and the end it lands on is the iterate itself),
+    and it stays. The reference rejects it with strict bounds and jumps to
+    the midpoint of a bracket still up to 1e-5 of t wide, so its answer turns
+    on the last bit of ``cdf - q`` and two implementations of the one
+    trajectory part there (ROADMAP C9).
     """
     mean = sojourn_mean(stations)
     if not math.isfinite(mean):
@@ -452,7 +459,7 @@ def _quantile_euler(stations: Sequence[Station], q: float) -> float:
         lo = np.where(below, t, lo)
         hi = np.where(below, hi, t)
         newton = t - (cdf - q) / np.where(pdf > 0.0, pdf, 1.0)
-        ok = (pdf > 0.0) & (newton > lo) & (newton < hi)
+        ok = (pdf > 0.0) & (newton >= lo) & (newton <= hi)
         t = np.where(ok, newton, 0.5 * (lo + hi))
     return float(np.clip(t, lo, hi))
 

@@ -9,14 +9,18 @@ points at once, and for operating points that *move*:
     and batched-bisection crossover solving over a whole batch;
   * :func:`simulate_fleet` / :func:`lindley_station` — the batched tandem
     FCFS simulator, one hand-written Lindley-scan launch per station;
+  * :func:`fleet_tail` — batched sojourn-time q-quantiles (the SLO view of
+    the same closed forms: exact Euler inversion or the exponential-tail
+    asymptote);
   * :mod:`traces` + :func:`replay` — §5-style dynamic conditions scored
     against adaptive vs static offloading policies via the same
     ``AdaptiveOffloadManager.step()`` hook the serving gateway uses;
   * :mod:`cluster` — the closed loop: N clients sharing E edges, endogenous
     edge load, fixed-point equilibria, and an event-driven cross-check, its
-    decide step one hand-written decision-scan launch per epoch.
-
-Tails and the mean-field fleet are later slices of the port (ROADMAP A3).
+    decide step one hand-written decision-scan launch per epoch, priced on
+    means or on SLO quantiles;
+  * :mod:`meanfield` — client *classes* instead of clients: the Wardrop
+    fixed point of offload fractions and its trace replay, independent of N.
 """
 
 from .analytic_vec import (
@@ -41,6 +45,13 @@ from .cluster import (
     simulate_cluster,
     solve_equilibrium,
 )
+from .meanfield import (
+    MeanFieldEquilibrium,
+    MeanFieldResult,
+    cross_check_meanfield,
+    simulate_meanfield,
+    solve_meanfield_equilibrium,
+)
 from .policy import (
     bg_template,
     clamp_saturation,
@@ -50,6 +61,7 @@ from .policy import (
 )
 from .replay import PolicyResult, ReplayResult, replay
 from .sim_vec import FleetSimResult, lindley_station, simulate_fleet
+from .tail_vec import FleetTailPrediction, fleet_tail
 from .traces import (
     Trace,
     TraceBatch,

@@ -25,10 +25,13 @@ that loop for N clients sharing E edge servers over T epochs:
     validates the closed-loop analytic means against the event-driven
     simulators.
 
+``slo_quantile`` switches decisions and true-condition scoring from expected
+latencies to the q-quantile of each path's closed-form sojourn distribution
+(:mod:`repro_torch.fleet.tail_vec`; ``tail_method="asymptote"`` by default,
+the cheap dominant-singularity form, or ``"euler"``, the exact inversion).
+
 Every tensor is float64 (``FLOAT``, passed explicitly; torch's default dtype
-is never touched) on ``device`` (default: the card). The SLO-quantile mode of
-the reference needs the batched tail closed forms, which are not ported yet:
-passing ``slo_quantile`` raises.
+is never touched) on ``device`` (default: the card).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from ..core.scenario import ClusterSpec, Scenario, ScenarioError
 from ..core.scenario import analytic as scalar_analytic
 from ..core.scenario import implied_service_var
 from ..core.simulation import steady_slice
+from ..core.tail import KIND_EXP, KIND_GAMMA, euler_grow_iters, resolve_tail_method
 from ..device import resolve_device
 from ..kernels.decision_scan.ops import decision_scan
 from .analytic_vec import (
@@ -60,6 +64,7 @@ from .analytic_vec import (
 from .batch import MODEL_CODES, ScenarioBatch
 from .policy import bg_template, clamp_saturation, parse_policy
 from .sim_vec import simulate_fleet
+from .tail_vec import _device_tail_vec, _edge_tail_vec, _stack_stations, sojourn_quantile_vec
 from .traces import Trace, TraceBatch
 
 __all__ = [
@@ -75,11 +80,23 @@ __all__ = [
 ]
 
 
-def _no_slo(slo_quantile) -> None:
-    if slo_quantile is not None:
-        raise NotImplementedError(
-            "slo_quantile needs the batched tail closed forms (fleet/tail_vec.py and "
-            "euler_vec.py), which ROADMAP A3 ports next; the cluster runs in mean mode")
+# client-epochs the SLO scoring evaluates at once (each at its chosen target:
+# a three-station tandem, or the device's one station). The Euler path carries each row over a 27-point
+# complex128 contour, the asymptote over 144 root-finding steps; these keep
+# either near 10 GB of temporaries, far inside one 80 GB card.
+TAIL_ROWS_PER_CHUNK = {"euler": 1 << 19, "asymptote": 1 << 22}
+
+
+def _slo_method(slo_quantile: float | None, tail_method: str) -> str:
+    """Validate ``slo_quantile`` and resolve the tail method it is priced by
+    (Euler hands off to the asymptote past ``EULER_Q_MAX``)."""
+    if slo_quantile is None:
+        return tail_method
+    if not 0.0 < slo_quantile < 1.0:
+        raise ValueError(f"slo_quantile must be in (0, 1), got {slo_quantile}")
+    if tail_method not in ("euler", "asymptote"):
+        raise ValueError(f"unknown tail_method {tail_method!r} (known: euler, asymptote)")
+    return resolve_tail_method(slo_quantile, tail_method)
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +225,64 @@ def _predict_vec(cst, lam_hat, bw_hat, bg_lam, bg_wsum, bg_ssum):
         _predict_terms_vec(cst, lam_hat, bw_hat, bg_lam, bg_wsum, bg_ssum))
 
 
+def _predict_tail_vec(cst, lam_hat, bw_hat, bg_lam, bg_wsum, bg_ssum, q: float,
+                      method: str, grow_iters: int | None = None):
+    """The q-quantile twin of :func:`_predict_vec`: the station composition an
+    SLO-mode ``AdaptiveOffloadManager`` prices (device NIC -> aggregate-mixture
+    M/G/1 wait + OWN service -> return NIC), over (N, E)."""
+    n = lam_hat.shape[0]
+    e_n = cst["edge_s"].shape[0]
+    t_dev = sojourn_quantile_vec(_stack_stations({
+        "lam": lam_hat,
+        "wkind": cst["dev_model"],
+        "wmean": cst["dev_s"] / cst["dev_k"],
+        "wvar": cst["dev_var"],
+        "fkind": cst["dev_model"],
+        "fmean": cst["dev_s"],
+        "fvar": cst["dev_var"],
+    }), q, method=method, slot_kinds=(None,), grow_iters=grow_iters)
+
+    own_var = _implied_var_vec(cst["edge_model"], cst["edge_s"], cst["edge_var"])
+    lam = lam_hat[:, None]
+    lam_tot = lam + bg_lam
+    mean_mix = (lam * cst["edge_s"] + bg_wsum) / lam_tot
+    second = (lam * (own_var + cst["edge_s"] ** 2) + bg_ssum) / lam_tot
+    var_mix = torch.clamp(second - mean_mix**2, min=0.0)
+
+    b = torch.where(torch.isnan(cst["edge_bw"]), bw_hat[:, None], cst["edge_bw"])
+    req_mean = cst["req_bytes"] / b
+    use_res = cst["return_results"] & (cst["res_bytes"] > 0)
+    res_mean = torch.where(use_res, cst["res_bytes"] / b, 0.0)
+    shape = (n, e_n)
+    kexp = torch.full(shape, KIND_EXP, dtype=torch.int8, device=lam_hat.device)
+    kgam = torch.full(shape, KIND_GAMMA, dtype=torch.int8, device=lam_hat.device)
+    zero = torch.zeros(shape, dtype=FLOAT, device=lam_hat.device)
+    stations = _stack_stations(
+        {"lam": lam, "wkind": kexp, "wmean": req_mean, "wvar": zero,
+         "fkind": kexp, "fmean": req_mean, "fvar": zero},
+        {"lam": lam_tot, "wkind": kgam, "wmean": mean_mix / cst["edge_k"],
+         "wvar": var_mix, "fkind": kgam, "fmean": cst["edge_s"], "fvar": var_mix},
+        {"lam": lam_tot, "wkind": kexp, "wmean": res_mean, "wvar": zero,
+         "fkind": kexp, "fmean": res_mean, "fvar": zero},
+    )
+    t_edge = sojourn_quantile_vec(stations, q, method=method, slot_kinds=("nic", None, "nic"),
+                                  grow_iters=grow_iters)
+    return t_dev, t_edge
+
+
+def _tail_grow_iters(slo_quantile: float, tail_method: str) -> int | None:
+    """Bracket-doubling count of the Euler tail path (None for the asymptote)."""
+    return euler_grow_iters(slo_quantile) if tail_method == "euler" else None
+
+
+def _price(cst, lam_hat, bw_hat, bg, slo_quantile, tail_method):
+    """(t_dev, t_edge) the managers decide on: means, or q-quantiles."""
+    if slo_quantile is None:
+        return _predict_vec(cst, lam_hat, bw_hat, *bg)
+    return _predict_tail_vec(cst, lam_hat, bw_hat, *bg, slo_quantile, tail_method,
+                             _tail_grow_iters(slo_quantile, tail_method))
+
+
 def _stacked(t_dev, t_edge):
     """(1, N, E+1) costs, column 0 on-device: one epoch for ``decision_scan``."""
     return torch.cat([t_dev[:, None], t_edge], dim=1)[None]
@@ -239,6 +314,7 @@ def predict_decisions(
     prev_choice=None,
     hysteresis: float = 0.0,
     slo_quantile: float | None = None,
+    tail_method: str = "asymptote",
     device=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """One epoch of cluster decisions from explicit estimates, on ``device``
@@ -252,11 +328,12 @@ def predict_decisions(
     the client's spec rate, exactly like the closed-loop scan. The decision
     is one ``decision_scan`` launch: hysteresis against ``prev_choice``
     applies when it is given (global epoch 1 of a one-cohort scan), never
-    otherwise (epoch 0)."""
-    _no_slo(slo_quantile)
+    otherwise (epoch 0). With ``slo_quantile`` the costs are q-quantiles by
+    ``tail_method``."""
+    tail_method = _slo_method(slo_quantile, tail_method)
     cst = _as_tensors(_spec_arrays(spec), resolve_device(device))
-    t_dev, t_edge = _predict_vec(cst, *_estimates(spec, cst, lam_hat, bandwidth_hat,
-                                                  endo_hat, exo_hat))
+    lam_hat, bw_hat, *bg = _estimates(spec, cst, lam_hat, bandwidth_hat, endo_hat, exo_hat)
+    t_dev, t_edge = _price(cst, lam_hat, bw_hat, bg, slo_quantile, tail_method)
     n = spec.n_clients
     cohort = torch.zeros(n, dtype=torch.int32, device=t_dev.device)
     if prev_choice is None:
@@ -307,7 +384,8 @@ def predict_terms(
 
 def _closed_loop(cst, cohort, bw_true, lam_true, exo_true, n_req_all, *, window: int,
                  stagger: int, dt: float, bw_alpha: float, bg_alpha: float,
-                 hysteresis: float, shards: int = 1):
+                 hysteresis: float, shards: int = 1, slo_quantile: float | None = None,
+                 tail_method: str = "asymptote"):
     """Decisions, loads and estimates of the adaptive policy over all T
     epochs, for the (possibly padded) client axis of ``lam_true``.
 
@@ -329,7 +407,8 @@ def _closed_loop(cst, cohort, bw_true, lam_true, exo_true, n_req_all, *, window:
     axis; the ONLY cross-client coupling is the endogenous-load total. With
     ``shards > 1`` that total is summed per block of N / shards clients and
     then over the blocks (the single-card twin of the reference's sharded
-    scan: the same math, the sum re-associated)."""
+    scan: the same math, the sum re-associated). With ``slo_quantile`` the
+    managers price q-quantiles instead of means."""
     t_n, n = lam_true.shape
     e_n = exo_true.shape[1]
     dev = lam_true.device
@@ -364,9 +443,10 @@ def _closed_loop(cst, cohort, bw_true, lam_true, exo_true, n_req_all, *, window:
         rate = counts.sum(dim=1) / span
         lam_hat = torch.where(rate > 0, rate, cst["lam_spec"])
 
-        # -- Algorithm 1 on the estimated state, then one decision launch --
+        # -- Algorithm 1 on the estimated state (means or q-quantiles), then
+        # one decision launch --
         bg = _bg_moments(cst, est_endo, est_exo[None, :])
-        t_dev, t_edge = _predict_vec(cst, lam_hat, est_bw, *bg)
+        t_dev, t_edge = _price(cst, lam_hat, est_bw, bg, slo_quantile, tail_method)
         choice = decision_scan(_stacked(t_dev, t_edge), cohort, hysteresis=hysteresis,
                                stagger=stagger, prev=prev, t0=idx)[0]
 
@@ -470,9 +550,73 @@ def _latency_tables(cst, lam_true, bw_true, exo_true, choices):
     return t_dev, t_edge, endo_total
 
 
-def _score_assignment(cst, lam_true, bw_true, exo_true, choices) -> tuple[np.ndarray, np.ndarray]:
-    """True-condition mean latency of every (epoch, client) under ``choices``
-    ((T, N) int32 on the device), and the (T, E) endogenous loads."""
+def _latency_tables_tail(cst, lam_true, bw_true, exo_true, choices, q: float,
+                         tail_method: str):
+    """The q-quantile twin of :func:`_latency_tables` (analytic semantics:
+    the mixture mean as s_edge, exactly like ``_edge_tail_vec``), for the
+    equilibrium's one epoch; the closed loop scores only the chosen targets
+    (:func:`_score_chosen_tail`)."""
+    t_n, n = lam_true.shape
+    e_n = exo_true.shape[1]
+    grow = _tail_grow_iters(q, tail_method)
+    c, endo_total = _truth_batch(cst, lam_true, bw_true, exo_true, choices)
+    t_dev = _device_tail_vec(c, q, tail_method, grow).reshape(t_n, n)
+    t_edge = _edge_tail_vec(c, q, tail_method, grow).reshape(t_n, n, e_n)
+    return t_dev, t_edge, endo_total
+
+
+def _score_chosen_tail(cst, lam_true, bw_true, exo_true, choices, q: float, tail_method: str):
+    """(T, N) true-condition q-quantile of every client-epoch at the target it
+    chose, and the (T, E) endogenous loads.
+
+    Each value is the entry of :func:`_latency_tables_tail`'s table the
+    client sits at, evaluated alone: the background at the chosen edge is
+    the same ``endo_total - own`` and the same mixture expansion, and a
+    quantile is a per-row computation, so scoring one target per row
+    instead of all E + 1 changes no value. Rows go in chunks of
+    ``TAIL_ROWS_PER_CHUNK``."""
+    t_n, n = lam_true.shape
+    e_n = exo_true.shape[1]
+    edges = torch.arange(e_n, device=lam_true.device)
+    own = torch.where(choices[..., None] == edges[None, None, :], lam_true[..., None], 0.0)
+    endo_total = torch.sum(own, dim=1)  # (T, E)
+    del own
+    grow = _tail_grow_iters(q, tail_method)
+    step = TAIL_ROWS_PER_CHUNK[tail_method]
+    lam = lam_true.reshape(-1)
+    bw = bw_true.reshape(-1)
+    choice = choices.reshape(-1).long()
+    lat = torch.empty_like(lam)
+    rows = torch.arange(t_n * n, device=lam.device)
+    dev_rows, edge_rows = rows[choice < 0], rows[choice >= 0]
+    for r in torch.split(dev_rows, step):
+        c = {"lam": lam[r]} | {k: cst[k].expand(r.shape[0])
+                              for k in ("dev_s", "dev_k", "dev_var", "dev_model")}
+        lat[r] = _device_tail_vec(c, q, tail_method, grow)
+    for r in torch.split(edge_rows, step):
+        t, j = r // n, choice[r]
+        g = {k: cst[k][j] for k in ("endo_mean", "endo_var", "exo_mean", "exo_var")}
+        bg = _bg_moments(g, endo_total[t, j] - lam[r], exo_true[t, j])
+        per_row = {"lam": lam[r], "bandwidth_Bps": bw[r]} | {
+            k: cst[k].expand(r.shape[0]) for k in ("req_bytes", "res_bytes", "return_results")}
+        per_edge = {k: cst[k][j] for k in ("edge_s", "edge_k", "edge_var", "edge_model",
+                                           "edge_bw")}
+        per_edge |= dict(zip(("bg_lam", "bg_wsum", "bg_ssum"), bg))
+        per_edge["edge_mask"] = torch.ones_like(r, dtype=torch.bool)
+        c = per_row | {k: v[:, None] for k, v in per_edge.items()}  # E = 1: the chosen edge
+        lat[r] = _edge_tail_vec(c, q, tail_method, grow)[:, 0]
+    return lat.reshape(t_n, n), endo_total
+
+
+def _score_assignment(cst, lam_true, bw_true, exo_true, choices, slo_quantile=None,
+                      tail_method: str = "asymptote") -> tuple[np.ndarray, np.ndarray]:
+    """True-condition latency of every (epoch, client) under ``choices``
+    ((T, N) int32 on the device) — the mean, or the q-quantile when
+    ``slo_quantile`` is set — and the (T, E) endogenous loads."""
+    if slo_quantile is not None:
+        lat, endo_total = _score_chosen_tail(cst, lam_true, bw_true, exo_true, choices,
+                                             slo_quantile, tail_method)
+        return lat.cpu().numpy(), endo_total.cpu().numpy()
     t_dev, t_edge, endo_total = _latency_tables(cst, lam_true, bw_true, exo_true, choices)
     stacked = torch.cat([t_dev[:, :, None], t_edge], dim=2)
     del t_edge
@@ -553,6 +697,7 @@ def simulate_cluster(
     stagger: int = 1,
     shards: int = 1,
     slo_quantile: float | None = None,
+    tail_method: str = "asymptote",
     device=None,
 ) -> ClusterResult:
     """Drive N clients through the trace batch with the loop closed, on
@@ -577,8 +722,12 @@ def simulate_cluster(
     endogenous-load sum, padding with inert zero-rate dummies when it does
     not divide N: decisions match ``shards=1`` exactly, float outputs to the
     re-association of that one sum. The decide step runs over every client
-    at once either way."""
-    _no_slo(slo_quantile)
+    at once either way.
+
+    ``slo_quantile`` switches decisions AND true-condition scoring from
+    expected latencies to q-quantiles (``tail_method``, the asymptote by
+    default); the scoring then evaluates each client-epoch's quantile at the
+    target it chose only."""
     if isinstance(traces, Trace):
         traces = TraceBatch.from_trace(traces, spec.n_clients)
     if traces.n_clients != spec.n_clients:
@@ -595,6 +744,7 @@ def simulate_cluster(
         raise ValueError(f"stagger must be in [1, n_clients], got {stagger}")
     if not 1 <= shards <= spec.n_clients:
         raise ValueError(f"shards must be in [1, n_clients], got {shards}")
+    tail_method = _slo_method(slo_quantile, tail_method)
 
     dev = resolve_device(device)
     cst_np = _spec_arrays(spec)
@@ -632,20 +782,21 @@ def simulate_cluster(
         choice_t, _loads, bw_e, lam_e, endo_e, exo_e = _closed_loop(
             cst_p, cohort, bw_p, lam_p, exo, counts_p, window=int(rate_window_epochs),
             stagger=int(stagger), dt=float(traces.epoch_s), bw_alpha=float(bw_alpha),
-            bg_alpha=float(bg_alpha), hysteresis=float(hysteresis), shards=int(shards))
+            bg_alpha=float(bg_alpha), hysteresis=float(hysteresis), shards=int(shards),
+            slo_quantile=slo_quantile, tail_method=tail_method)
         keep = spec.n_clients
         choice_t = choice_t[:, :keep].contiguous()
         est_bw, est_lam = bw_e[:, :keep].cpu().numpy(), lam_e[:, :keep].cpu().numpy()
         est_endo, est_exo = endo_e[:, :keep].cpu().numpy(), exo_e.cpu().numpy()
         del endo_e
-        lat, loads = _score_assignment(cst, lam, bw, exo, choice_t)
+        lat, loads = _score_assignment(cst, lam, bw, exo, choice_t, slo_quantile, tail_method)
         lat, saturated = clamp_saturation(lat, saturation_penalty_s)
         results["adaptive"] = ClusterPolicyResult(
             "adaptive", lat, choice_t.cpu().numpy(), loads, saturated)
 
     for name, tgt in static_targets.items():
         choices = torch.full((t_n, spec.n_clients), tgt, dtype=torch.int32, device=dev)
-        lat, loads = _score_assignment(cst, lam, bw, exo, choices)
+        lat, loads = _score_assignment(cst, lam, bw, exo, choices, slo_quantile, tail_method)
         lat, saturated = clamp_saturation(lat, saturation_penalty_s)
         results[name] = ClusterPolicyResult(name, lat, choices.cpu().numpy(), loads,
                                             saturated)
@@ -694,7 +845,8 @@ class Equilibrium:
     @property
     def max_latency_s(self) -> float:
         """Worst per-client latency at the fixed point — the number an SLO
-        constrains."""
+        constrains. With ``slo_quantile`` set at solve time, ``latency_s``
+        holds per-client quantiles, so this is the worst client's quantile."""
         return float(np.max(self.latency_s))
 
     def meets_slo(self, slo_s: float) -> bool:
@@ -720,6 +872,7 @@ def solve_equilibrium(
     exo_rates: np.ndarray | None = None,
     max_iter: int = 20,
     slo_quantile: float | None = None,
+    tail_method: str = "asymptote",
     device=None,
 ) -> Equilibrium:
     """Iterate decisions -> loads to a fixed point under constant conditions,
@@ -736,8 +889,12 @@ def solve_equilibrium(
     toward on-device / the lowest edge index; a host argmin over one row per
     client). Each damped move strictly lowers the mover's latency given the
     others, so the dynamics descend a congestion potential instead of
-    oscillating; a sweep with no moves is the fixed point."""
-    _no_slo(slo_quantile)
+    oscillating; a sweep with no moves is the fixed point.
+
+    With ``slo_quantile`` set, clients best-respond on q-quantiles
+    (``tail_method``) instead of means, and ``latency_s`` reports each
+    client's quantile at the fixed point."""
+    tail_method = _slo_method(slo_quantile, tail_method)
     n, e_n = spec.n_clients, spec.n_edges
     dev = resolve_device(device)
     cst_np = _spec_arrays(spec)
@@ -761,7 +918,11 @@ def solve_equilibrium(
     def tables(ch: np.ndarray) -> torch.Tensor:
         """(1, N, E+1) true-condition costs under the assignment ``ch``."""
         choices = torch.as_tensor(ch[None, :], dtype=torch.int32, device=dev)
-        t_dev, t_edge, _ = _latency_tables(cst, lam_t, bw_t, exo_t, choices)
+        if slo_quantile is None:
+            t_dev, t_edge, _ = _latency_tables(cst, lam_t, bw_t, exo_t, choices)
+        else:
+            t_dev, t_edge, _ = _latency_tables_tail(cst, lam_t, bw_t, exo_t, choices,
+                                                    slo_quantile, tail_method)
         return _stacked(t_dev[0], t_edge[0])
 
     choices = np.full(n, ON_DEVICE, dtype=np.int32)

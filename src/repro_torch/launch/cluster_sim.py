@@ -1,16 +1,23 @@
 """Closed-loop cluster CLI: N adaptive clients sharing E edge servers, on
 the card.
 
-The exact mode of ``repro.launch.cluster_sim`` (per-client state): solves the
-fixed point of the decision->load map under nominal conditions (who lands
-where, per-edge utilization, best-response iterations), replays the fleet
-through a bandwidth trace with the estimator-lagged adaptive manager per
-client scored against every all-clients static policy, and with
-``--cross-check`` validates the closed-loop analytic means against the
-event-driven simulators. Everything runs on ``--device`` (default: the CUDA
-card), the decide steps through the hand-written decision-scan kernel. The
-mean-field mode (``--meanfield``) needs ``fleet/meanfield.py``, which is not
-ported yet: it exits 2 and says so.
+Runs the §6-style closed-loop questions from one command, in two modes:
+
+  * **exact** (default) — per-client state. Solves the fixed point of the
+    decision->load map under nominal conditions (who lands where, per-edge
+    utilization, best-response iterations), replays the fleet through a
+    bandwidth trace with the estimator-lagged adaptive manager per client
+    scored against every all-clients static policy, and with
+    ``--cross-check`` validates the closed-loop analytic means against the
+    event-driven simulators;
+  * **mean-field** (``--meanfield``) — class-aggregated offload fractions,
+    O(C * E^2) per epoch regardless of N. Solves the damped Wardrop fixed
+    point, prices every all-static fleet at the equilibrium's congestion,
+    replays the fraction state through the trace, and with ``--cross-check``
+    gates the mean-field solver against the exact one on a count-scaled copy.
+
+Everything runs on ``--device`` (default: the CUDA card), the exact decide
+steps through the hand-written decision-scan kernel.
 
 Conditions come from the built-in bandwidth-step walk (``--duration`` /
 ``--bw-drop``) or from a ``--trace`` JSON spec of step breakpoints; a
@@ -21,6 +28,8 @@ Usage:
       --duration 180 --bw-drop 0.15 --out experiments/CLUSTER.json
   PYTHONPATH=src python -m repro_torch.launch.cluster_sim --cluster spec.json \
       --cross-check
+  PYTHONPATH=src python -m repro_torch.launch.cluster_sim --meanfield \
+      --clients 1000000 --out experiments/MF.json
   PYTHONPATH=src python -m repro_torch.launch.cluster_sim --device cpu --clients 16
 """
 
@@ -30,18 +39,30 @@ import argparse
 import json
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
 
 from repro_torch.core.latency import NetworkPath, ServiceModel, Tier, Workload
-from repro_torch.core.scenario import ClusterSpec, EdgeSpec, Scenario
+from repro_torch.core.scenario import (
+    ClientClass,
+    ClusterSpec,
+    EdgeSpec,
+    MeanFieldSpec,
+    Scenario,
+)
 from repro_torch.fleet import (
     Trace,
+    TraceBatch,
     cross_check_equilibrium,
+    cross_check_meanfield,
     epoch_times,
     simulate_cluster,
+    simulate_meanfield,
     solve_equilibrium,
+    solve_meanfield_equilibrium,
+    static_fractions,
     step_signal,
 )
 from repro_torch.obs import run_manifest
@@ -49,16 +70,11 @@ from repro_torch.obs import run_manifest
 __all__ = [
     "TraceSpecError",
     "default_cluster",
+    "default_meanfield",
     "load_trace_spec",
     "trace_signals",
     "main",
 ]
-
-MEANFIELD_NOT_PORTED = (
-    "--meanfield needs fleet/meanfield.py (solve_meanfield_equilibrium, "
-    "simulate_meanfield), which ROADMAP A3 ports after tail_vec/euler_vec; the "
-    "exact mode runs without it")
-
 
 class TraceSpecError(ValueError):
     """A ``--trace`` JSON spec that cannot mean anything: the CLI prints the
@@ -87,6 +103,48 @@ def default_cluster(n_clients: int = 64) -> ClusterSpec:
     )
     return ClusterSpec(base=base, n_clients=n_clients,
                        name=f"cluster-{n_clients}x{len(base.edges)}")
+
+
+def default_meanfield(n_clients: int = 100_000) -> MeanFieldSpec:
+    """The built-in mean-field fleet: three bandwidth/rate classes over
+    three pooled accelerator tiers on a 20 Mbit path.
+
+    Results are fire-and-forget (``res_bytes=0``): the model prices the
+    return path as one queue at the edge's AGGREGATE rate over the client's
+    bandwidth, which caps any pooled edge at bandwidth/res_bytes regardless
+    of accelerator count — fire-and-forget is the regime where pooling at
+    this scale is meaningful.
+
+    Pool sizes scale with ``n_clients`` (the mean-field limit is scale-free,
+    so per-edge utilization at the fixed point is size-invariant above the
+    25k-client provisioning floor): the reference point is 128/256/256
+    accelerators per pool at 100k clients."""
+    if n_clients < 4:
+        raise ValueError(f"need at least 4 clients for the 3-class default "
+                         f"mix, got {n_clients}")
+    pool = max(n_clients, 25_000) / 100_000.0
+    base = Scenario(
+        workload=Workload(arrival_rate=0.05, req_bytes=30_000, res_bytes=0,
+                          name="mf-cli"),
+        device=Tier("orin", 0.045),
+        edges=(
+            EdgeSpec(Tier("a100-pool", 0.008, parallelism_k=128.0 * pool)),
+            EdgeSpec(Tier("a2-pool", 0.028, parallelism_k=256.0 * pool)),
+            EdgeSpec(Tier("t4-pool", 0.020, parallelism_k=256.0 * pool,
+                          service_model=ServiceModel.EXPONENTIAL)),
+        ),
+        network=NetworkPath(20e6 / 8),
+        name="meanfield-default-base",
+    )
+    steady, light = n_clients // 2, n_clients // 4
+    classes = (
+        ClientClass(n_clients=steady, arrival_scale=1.0, name="steady"),
+        ClientClass(n_clients=light, arrival_scale=0.5, name="light"),
+        ClientClass(n_clients=n_clients - steady - light, arrival_scale=2.0,
+                    bandwidth_scale=0.5, name="heavy"),
+    )
+    return MeanFieldSpec(base=base, classes=classes,
+                         name=f"meanfield-{n_clients}x{len(base.edges)}")
 
 
 # -- trace specs --------------------------------------------------------------
@@ -329,16 +387,148 @@ def _run_exact(args, ts: dict | None) -> int:
     return rc
 
 
+# -- mean-field mode ----------------------------------------------------------
+
+
+def _gate_sized(spec: MeanFieldSpec, cap: int = 256) -> MeanFieldSpec:
+    """Count-scaled copy for the exact cross-check: solver agreement is
+    checked on at most ``cap`` clients with the same class mix; a spec
+    already at or under the cap is used as-is."""
+    if spec.n_total <= cap:
+        return spec
+    k = spec.n_total / cap
+    classes = tuple(replace(c, n_clients=max(1, round(c.n_clients / k)))
+                    for c in spec.classes)
+    return MeanFieldSpec(base=spec.base, classes=classes, name=f"{spec.name}-gate{cap}")
+
+
+def _run_meanfield(args, ts: dict | None) -> int:
+    if args.cluster is not None:
+        spec = MeanFieldSpec.from_dict(json.loads(args.cluster.read_text()))
+    else:
+        spec = default_meanfield(args.clients)
+    c_n, e_n = spec.n_classes, spec.n_edges
+    bw0 = float(np.asarray(spec.base.network.bandwidth_Bps))
+    if ts is None:
+        ts = _default_trace_spec(args, bw0)
+    times, bw, lam, exo = trace_signals(ts, e_n, spec.base.workload.arrival_rate)
+    # trace columns are per CLASS: the base signals with each class's
+    # bandwidth/arrival scale folded in
+    traces = TraceBatch(
+        times=times,
+        bandwidth_Bps=bw[:, None] * np.array([c.bandwidth_scale for c in spec.classes]),
+        arrival_rate=lam[:, None] * np.array([c.arrival_scale for c in spec.classes]),
+        edge_bg_rate=exo,
+    )
+
+    # -- Wardrop fixed point under nominal conditions -------------------------
+    t0 = time.perf_counter()
+    eq = solve_meanfield_equilibrium(spec, max_iter=args.max_iter or 500, device=args.device)
+    eq_s = time.perf_counter() - t0
+    print(f"{spec.name}: {spec.n_total} clients in {c_n} classes x {e_n} edges (mean-field)")
+    print(f"equilibrium: {'converged' if eq.converged else 'NOT CONVERGED'} in "
+          f"{eq.iterations} iterations ({eq_s*1e3:.0f} ms, regret {eq.regret_pct:.2f}%)")
+    for tgt, cnt in eq.expected_counts().items():
+        if cnt > 0.5:
+            print(f"  {tgt:12s} {cnt:12.1f} expected clients")
+    print("  edge rho: " + "  ".join(f"{r:.3f}" for r in eq.rho_edges))
+    print(f"  mean latency {eq.mean_latency_s*1e3:.2f} ms")
+
+    # every all-static fleet priced at the fixed point's congestion: the
+    # count-weighted staying cost of the one-hot fraction state. At a Wardrop
+    # equilibrium every class sits on its cheapest target, so the adaptive
+    # mean must undercut every static price — a self-consistency gate, not a
+    # counterfactual replay (a static fleet would also induce different load).
+    w = spec.class_counts() / spec.n_total
+    prices = {}
+    for pname in ("on_device",) + tuple(f"edge[{j}]" for j in range(e_n)):
+        f = static_fractions(pname, c_n, e_n)
+        prices[pname] = float(np.sum(w * np.sum(f * eq.class_latency_s, axis=1)))
+    adaptive_wins = bool(all(eq.mean_latency_s <= p * (1 + 1e-9) for p in prices.values()))
+    print("static deviation prices at equilibrium congestion:")
+    for pname, p in prices.items():
+        print(f"  {pname:12s} {p*1e3:9.2f} ms")
+    print(f"adaptive undercuts every static price: {adaptive_wins}")
+
+    # -- mean-field replay on the trace (a warm second pass is timed) ---------
+    res = simulate_meanfield(spec, traces, switch_fraction=1.0 / args.stagger, device=args.device)
+    t0 = time.perf_counter()
+    res = simulate_meanfield(spec, traces, switch_fraction=1.0 / args.stagger, device=args.device)
+    rate = res.client_epochs / (time.perf_counter() - t0)
+    off = res.offload_frac
+    print(f"mean-field replay: {res.client_epochs} client-epochs ({rate:.3e} client-epochs/s warm)")
+    print(f"  mean latency {res.mean_latency_s*1e3:9.2f} ms  "
+          f"offload {off.min():5.1%}..{off.max():5.1%}  "
+          f"saturated class-epochs {res.saturated_epochs}")
+
+    report = {
+        "spec": spec.to_dict(),
+        "mode": "meanfield",
+        "device": args.device,
+        "equilibrium": {
+            "iterations": eq.iterations,
+            "converged": eq.converged,
+            "regret_pct": eq.regret_pct,
+            "expected_counts": eq.expected_counts(),
+            "rho_edges": eq.rho_edges.tolist(),
+            "mean_latency_s": eq.mean_latency_s,
+            "offload_frac": eq.offload_frac,
+            "solve_s": eq_s,
+        },
+        "static_prices_s": prices,
+        "adaptive_wins": adaptive_wins,
+        "replay": {
+            "epochs": res.n_epochs,
+            "client_epochs": res.client_epochs,
+            "client_epochs_per_sec": rate,
+            "mean_latency_s": res.mean_latency_s,
+            "offload_frac_min": float(off.min()),
+            "offload_frac_max": float(off.max()),
+            "saturated_epochs": res.saturated_epochs,
+            "peak_rho_edges": res.rho_edges.max(axis=0).tolist(),
+        },
+    }
+
+    rc = 0 if (eq.converged and adaptive_wins) else 1
+    if args.cross_check:
+        small = _gate_sized(spec)
+        t0 = time.perf_counter()
+        cc = cross_check_meanfield(small, device=args.device)
+        cc_s = time.perf_counter() - t0
+        gated = cc["gated_max_mape_pct"]
+        conv = bool(cc["meanfield_converged"] and cc["exact_converged"])
+        print(f"cross-check vs exact solver on {small.n_total} clients ({cc_s:.1f} s): "
+              + (f"gated max MAPE {gated:.2f}%" if gated is not None else "no gated rows")
+              + ("" if conv else "  [a solver did not converge]"))
+        report["cross_check"] = {
+            "spec": small.name,
+            "n_total": small.n_total,
+            "elapsed_s": cc_s,
+            "gated_max_mape_pct": gated,
+            "gated_mean_mape_pct": cc["gated_mean_mape_pct"],
+            "converged": conv,
+        }
+        if not conv or (gated is not None and gated > 5.0):
+            rc = 1
+
+    _write_report(args.out, report, args)
+    return rc
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--cluster", type=Path, default=None,
-                    help="spec JSON: ClusterSpec.to_dict(); default: the built-in "
+                    help="spec JSON: ClusterSpec.to_dict() (exact mode) or "
+                         "MeanFieldSpec.to_dict() (--meanfield); default: the built-in "
                          "fleet sized by --clients")
     ap.add_argument("--meanfield", action="store_true",
-                    help="mean-field mode (not ported yet: exits 2)")
+                    help="mean-field mode: class-aggregated offload fractions, "
+                         "O(classes x edges^2) per epoch regardless of fleet size")
     ap.add_argument("--clients", type=int, default=64,
-                    help="fleet size for the built-in spec (default 64)")
+                    help="fleet size for the built-in spec (default 64 exact; try "
+                         "100000..1000000 with --meanfield — the built-in pools scale "
+                         "with the population)")
     ap.add_argument("--duration", type=float, default=180.0,
                     help="trace duration in seconds (default 180)")
     ap.add_argument("--epoch-s", type=float, default=1.0,
@@ -352,28 +542,33 @@ def main(argv=None) -> int:
                          "--bw-drop); malformed specs exit 2")
     ap.add_argument("--stagger", type=int, default=8,
                     help="decision cohorts (desynchronized control epochs; "
-                         "default 8, 1 = fully synchronous)")
+                         "default 8, 1 = fully synchronous; in mean-field mode "
+                         "1/stagger of each class re-decides per epoch)")
     ap.add_argument("--hysteresis", type=float, default=0.0,
-                    help="relative-improvement switching threshold (default 0)")
+                    help="relative-improvement switching threshold "
+                         "(default 0; exact mode only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-iter", type=int, default=None,
-                    help="equilibrium best-response iteration cap (default 20)")
+                    help="equilibrium best-response iteration cap (default 20 exact; "
+                         "500 for the mean-field solver's damped fixed point)")
     ap.add_argument("--cross-check", action="store_true",
-                    help="validate the equilibrium against the event-driven "
-                         "simulators (slower)")
+                    help="exact mode: validate the equilibrium against the "
+                         "event-driven simulators (slower); mean-field mode: gate "
+                         "the mean-field solver against the exact one on a "
+                         "count-scaled copy")
     ap.add_argument("--check-n", type=int, default=120_000,
-                    help="simulated jobs per cross-check group (default 120000)")
+                    help="simulated jobs per cross-check group (default 120000; "
+                         "exact mode only)")
     ap.add_argument("--device", default="cuda",
                     help="where the cluster runs (default: the CUDA card; 'cpu' to run here)")
     ap.add_argument("--out", type=Path, default=None,
                     help="write the full report JSON here")
     args = ap.parse_args(argv)
 
-    if args.meanfield:
-        print(f"error: {MEANFIELD_NOT_PORTED}", file=sys.stderr)
-        return 2
     try:
         ts = load_trace_spec(args.trace) if args.trace is not None else None
+        if args.meanfield:
+            return _run_meanfield(args, ts)
         return _run_exact(args, ts)
     except TraceSpecError as err:
         print(f"error: bad trace spec: {err}", file=sys.stderr)

@@ -1,11 +1,12 @@
 """Differential model validation of the port: golden corpus, error metrics,
-and gates 1–3 (scalar vs batched closed forms, golden pins, analytic vs
-simulated MAPE).
+and the five gates (scalar vs batched closed forms, golden pins, analytic vs
+simulated MAPE, tail quantiles, mean field vs the exact solver).
 
   * :mod:`corpus` — the golden scenario corpus, read from the fixture under
     ``tests/golden/`` (the port never writes it);
   * :mod:`metrics` — MAPE, per-regime error tables, block-bootstrap CIs;
-  * :mod:`differential` — the cross-path runner and its report.
+  * :mod:`differential` — the cross-path runner and the fidelity report
+    behind ``python -m repro_torch.launch.validate``.
 """
 
 from .corpus import (
@@ -22,15 +23,21 @@ from .corpus import (
     rho_band,
 )
 from .differential import (
+    DEFAULT_EULER_VEC_TOL,
     DEFAULT_GOLDEN_TOL,
     DEFAULT_MAPE_BUDGET_PCT,
+    DEFAULT_MEANFIELD_BUDGET_PCT,
+    DEFAULT_TAIL_BUDGET_PCT,
+    DEFAULT_TAIL_PCT,
     DEFAULT_VEC_TOL,
-    GATES,
-    NOT_PORTED,
+    EULER_VEC_RHO_MAX,
     EntryReport,
     ValidationReport,
+    meanfield_gate_specs,
     run_differential,
+    run_meanfield_gate,
     smoke_subset,
+    tail_gated,
 )
 from .metrics import (
     BootstrapCI,

@@ -24,8 +24,7 @@ golden scalar-analytic totals, so any future change to the closed forms that
 moves a prediction is caught as a diff, not a silent drift.
 
 The port reads that fixture (``load_corpus``) and never writes it. Its
-generator covers every regime but the mean-field equilibria, whose solver is
-not ported yet: reaching them raises ``NotImplementedError``. The cluster
+generator reproduces it entry for entry; the cluster and mean-field
 equilibria are solved on ``device`` (default: the card).
 """
 
@@ -391,14 +390,77 @@ def _meanfield_entry(
     *,
     sim_gate: bool = True,
     smoke: bool = False,
+    device=None,
 ) -> CorpusEntry:
     """Mean-field regime: a representative client's induced scenario at the
-    integerized mean-field fixed point of a small multi-class fleet. Needs
-    ``fleet/meanfield.py``, which the port does not have yet."""
-    raise NotImplementedError(
-        "meanfield-equilibrium corpus entries need fleet/meanfield.py "
-        "(solve_meanfield_equilibrium), which ROADMAP A3 ports later; read the pinned "
-        "entries with load_corpus instead")
+    integerized mean-field fixed point of a small multi-class fleet (§6 at
+    the continuum limit), solved on ``device``.
+
+    The fleet has three client classes — two well-connected (steady/heavy)
+    whose combined rate lands the fast edge near ``target_rho``, and a
+    cellular class whose thin uplink keeps it on-device — so the solved
+    fractions are class-structured rather than uniform. The continuous
+    fractions are integerized per class by largest remainder, the
+    representative is the first client on the busiest edge, and its induced
+    view of the fixed point is pinned like any other multitenant entry. The
+    solver is deterministic, so regeneration stays byte-identical."""
+    from repro_torch.core.scenario import ClientClass, MeanFieldSpec
+    from repro_torch.fleet.cluster import induced_scenario
+    from repro_torch.fleet.meanfield import solve_meanfield_equilibrium
+
+    lam = _jitter(rng, 2.0)
+    classes = (
+        ClientClass(n_clients=6, arrival_scale=1.0, name="steady"),
+        ClientClass(n_clients=3, arrival_scale=2.0, name="heavy"),
+        ClientClass(n_clients=3, arrival_scale=0.5, bandwidth_scale=0.08, name="cellular"),
+    )
+    # the two well-connected classes' combined rate sets the fast edge's rho
+    offload_rate = (6 * 1.0 + 3 * 2.0) * lam
+    s_fast = _jitter(rng, target_rho / offload_rate, 0.05)
+    n_total = sum(c.n_clients for c in classes)
+    spec = MeanFieldSpec(
+        base=Scenario(
+            workload=Workload(arrival_rate=lam, req_bytes=40_000, res_bytes=2_000,
+                              name="corpus"),
+            device=Tier("tx2-dnn", 0.150),
+            network=NetworkPath(bandwidth_Bps=_BANDWIDTHS_BPS[1]),
+            edges=(
+                EdgeSpec(_tier("mf-fast", s_fast, ServiceModel.DETERMINISTIC, 0.0)),
+                EdgeSpec(_tier("mf-slow", 6.0 * s_fast, ServiceModel.DETERMINISTIC, 0.0)),
+            ),
+            name=f"mf-base-rho{target_rho:.2f}",
+        ),
+        classes=classes,
+        name=f"mf-{n_total}c-rho{target_rho:.2f}",
+    )
+    mf = solve_meanfield_equilibrium(spec, device=device)
+    assert mf.converged, "corpus mean-field fleet must reach its fixed point"
+    # integerize: per class, largest-remainder apportionment of n_c over targets
+    choice_list: list[int] = []
+    for c, cl in enumerate(spec.classes):
+        exact = cl.n_clients * mf.fractions[c]
+        counts = np.floor(exact).astype(np.int64)
+        order = np.argsort(-(exact - counts), kind="stable")
+        counts[order[: cl.n_clients - int(counts.sum())]] += 1
+        for tgt, k in enumerate(counts):
+            choice_list.extend([tgt - 1] * int(k))
+    choices = np.array(choice_list, dtype=np.int64)
+    on_edges = choices[choices >= 0]
+    assert on_edges.size, "corpus mean-field fixed point must offload"
+    j = int(np.argmax(np.bincount(on_edges, minlength=spec.n_edges)))
+    rep = int(np.nonzero(choices == j)[0][0])
+    scn = induced_scenario(spec.to_cluster(), choices, rep,
+                           name=f"mf-{n_total}c-rho{target_rho:.2f}")
+    strategy = f"edge[{j}]"
+    rho = bottleneck_rho(scn, strategy)
+    return CorpusEntry(
+        scenario=scn,
+        strategy=strategy,
+        regime="meanfield-equilibrium",
+        rho=rho,
+        sim_gate=sim_gate and rho <= 0.9,
+        smoke=smoke,
+    )
 
 
 def generate_corpus(seed: int = DEFAULT_SEED, *, device=None) -> tuple[CorpusEntry, ...]:
@@ -475,8 +537,8 @@ def generate_corpus(seed: int = DEFAULT_SEED, *, device=None) -> tuple[CorpusEnt
     # integerized fixed point of a class-structured fleet, gated like the
     # cluster regime. Appended last, same prefix-stability discipline as
     # tail-percentile above.
-    entries.append(_meanfield_entry(rng, 0.55))
-    entries.append(_meanfield_entry(rng, 0.82))
+    entries.append(_meanfield_entry(rng, 0.55, device=device))
+    entries.append(_meanfield_entry(rng, 0.82, device=device))
 
     names = [e.name for e in entries]
     assert len(names) == len(set(names)), "corpus entry names must be unique"

@@ -16,7 +16,15 @@ fleet path on the card against the CPU 1e-12 relative on departure clocks
 card's pow/log/exp may round an ulp apart); the cluster on the card against
 the CPU on the same counts: choices exact, floats 1e-12 relative (client-axis
 sums associate differently), the rate estimators exact; the selective scan's
-bf16 y to one bf16 step plus the fp32 sum order, its fp32 state to 1e-5.
+bf16 y to one bf16 step plus the fp32 sum order, its fp32 state to 1e-5;
+the batched tails on the card against the CPU 1e-8 (the same trajectory;
+the card's complex products may round an ulp apart, which moves a quantile
+~1e-12) for Euler, 1e-6 for the asymptote, but an Euler row whose CDF's
+rounding noise fixes its quantile only to a wider band, at twice that band
+(ROADMAP C10: past rho 0.99 an ulp moves the search onto other noise; 3
+rows of 1,646 here, measured by ``launch.euler_parity.noise_band``); the
+SLO closed loop's choices exact on the same counts; the mean-field fixed
+point 1e-12 (closed forms over a few dozen rows, the same iteration count).
 """
 
 import numpy as np
@@ -27,9 +35,11 @@ from repro_torch.fleet import (
     ScenarioBatch,
     fleet_analytic,
     fleet_crossover,
+    fleet_tail,
     make_trace,
     simulate_cluster,
     simulate_fleet,
+    solve_meanfield_equilibrium,
     step_signal,
 )
 from repro_torch.kernels.decision_scan.ops import STAGES, decision_scan, scan_plan
@@ -51,8 +61,10 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_reference, rmsnorm_refer
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_reference
-from repro_torch.launch.cluster_sim import default_cluster
+from repro_torch.launch.cluster_sim import default_cluster, default_meanfield
+from repro_torch.launch import euler_parity
 from repro_torch.launch.fleet_sweep import default_scenario
+from repro_torch.validate import EULER_VEC_RHO_MAX, bottleneck_rho, meanfield_gate_specs
 
 pytestmark = pytest.mark.cuda
 
@@ -474,6 +486,65 @@ def test_simulate_cluster_on_the_card_matches_cpu(gen):
     # equal rates
     np.testing.assert_array_equal(got.est_endo_rate, want.est_endo_rate)
     np.testing.assert_array_equal(got.est_arrival_rate, want.est_arrival_rate)
+
+
+@pytest.mark.parametrize("method,rtol", [("euler", 1e-8), ("asymptote", 1e-6)])
+def test_fleet_tail_on_the_card_matches_cpu(gen, method, rtol):
+    """Every finite row at ``rtol``, but an Euler row whose quantile the
+    CDF's rounding noise fixes only to a band wider than that (ROADMAP C10:
+    three edge rows past rho 0.99 on this grid) is held to twice its band,
+    as far apart as two converged searches inside it can stop."""
+    base, axes = euler_parity.grid()
+    batch = ScenarioBatch.from_sweep(base, axes)
+    got = fleet_tail(batch, 0.99, method=method)
+    want = fleet_tail(batch, 0.99, method=method, device="cpu")
+    rho = np.array([[bottleneck_rho(scn, s) for s in ("on_device", "edge[0]")]
+                    for scn in base.grid(axes)])
+    for column, a, b, r in ((None, got.t_dev, want.t_dev, rho[:, 0]),
+                            (0, got.t_edge[:, 0], want.t_edge[:, 0], rho[:, 1])):
+        assert np.array_equal(np.isinf(a), np.isinf(b))
+        fin = np.isfinite(b)
+        assert (fin & (r <= EULER_VEC_RHO_MAX)).sum() >= 400
+        tol = rtol * np.abs(b[fin])
+        if method == "euler":
+            st, hints = euler_parity.stations(batch, "cpu", column)
+            t = torch.as_tensor(want.t_dev if column is None else want.t_edge)
+            band = euler_parity.noise_band(st, t, hints).numpy()
+            band = (band if column is None else band[:, column])[fin]
+            wide = 2.0 * band > tol
+            assert wide.sum() <= 0.01 * fin.sum() and (r[fin][wide] > 0.99).all()
+            tol = np.maximum(tol, 2.0 * band)
+        gap = np.abs(a[fin] - b[fin])
+        assert (gap <= tol).all(), (np.flatnonzero(fin)[gap > tol], gap[gap > tol])
+    np.testing.assert_array_equal(got.best_edge, want.best_edge)
+
+
+def test_slo_closed_loop_on_the_card_matches_cpu(gen):
+    spec = default_cluster(24)
+    tr = make_trace(40.0, 1.0, arrival_rate=2.0, bandwidth_Bps=lambda t: step_signal(
+        t, [(0, 2.5e6), (13, 3.75e5), (26, 2.5e6)]))
+    n_req = np.random.default_rng(4).poisson(2.0, (tr.n_epochs, 24)).astype(np.float64)
+    kw = dict(policies=("adaptive", "on_device", "edge[1]"), stagger=3, n_req=n_req,
+              slo_quantile=0.99)
+    before = decision_scan.launches
+    got = simulate_cluster(spec, tr, **kw)
+    assert decision_scan.launches == before + tr.n_epochs
+    want = simulate_cluster(spec, tr, device="cpu", **kw)
+    for name in kw["policies"]:
+        a, b = got.policies[name], want.policies[name]
+        np.testing.assert_array_equal(a.choices, b.choices)
+        np.testing.assert_allclose(a.latencies_s, b.latencies_s, rtol=1e-6, atol=0)
+
+
+def test_meanfield_on_the_card_matches_cpu(gen):
+    for spec in meanfield_gate_specs() + (default_meanfield(1_000_000),):
+        for q in (None, 0.99):
+            got = solve_meanfield_equilibrium(spec, slo_quantile=q)
+            want = solve_meanfield_equilibrium(spec, slo_quantile=q, device="cpu")
+            assert (got.iterations, got.converged) == (want.iterations, want.converged)
+            for name in ("fractions", "latency_s", "edge_loads"):
+                np.testing.assert_allclose(getattr(got, name), getattr(want, name),
+                                           rtol=1e-12, atol=1e-15, err_msg=name)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,18 @@
-"""The port's differential validation (gates 1–3) on the CPU, against the JAX
-package's corpus, metrics and closed forms.
+"""The port's differential validation (gates 1–5) on the CPU, against the JAX
+package's corpus, metrics, closed forms and report.
 
 Gate budgets are the reference's: scalar vs batched closed forms <= 1e-6
-relative, golden pins <= 1e-9, analytic vs simulated <= 5% mean MAPE over
-the gated entries. Gate 3 here runs the smoke subset at 4,096 jobs per entry
-(the reference's tier-1 smoke uses 20,000; ``chip_smoke.py`` runs those sizes
-on the card), which the statistical gate still resolves: the smoke entries
-sit at rho <= 0.6.
+relative (means and tails), golden pins <= 1e-9, batched vs scalar Euler
+quantiles <= 1e-8, analytic vs simulated <= 5% mean MAPE over the gated
+entries and <= 10% on their p99, mean field vs the exact solver <= 5%.
+Gate 3 and gate 4's simulated side run the smoke subset at 4,096 jobs per
+entry (the reference's tier-1 smoke uses 20,000; ``chip_smoke.py`` runs those
+sizes on the card), which the statistical gates still resolve: the smoke
+entries sit at rho <= 0.6. The deterministic blocks of gates 4 and 5 are
+held against the reference's: the scalar quantiles and the mean-field
+cross-check's numbers 1e-9 relative (the same float64 formulas), the
+batched-vs-scalar errors both under their tolerances (each is float noise of
+its own package, ~1e-12, not a number two packages can share).
 """
 
 import json
@@ -21,10 +27,9 @@ from repro.validate import error_stats as j_error_stats
 from repro.validate import error_table as j_error_table
 from repro.validate import load_corpus as j_load_corpus
 from repro.validate import mape as j_mape
+from repro.validate import run_differential as j_run_differential
 from repro_torch.validate import (
     BAND_ORDER,
-    GATES,
-    NOT_PORTED,
     bootstrap_mean_ci,
     bottleneck_rho,
     corpus_to_dict,
@@ -35,8 +40,14 @@ from repro_torch.validate import (
     mape,
     run_differential,
     smoke_subset,
+    tail_gated,
 )
 from repro_torch.validate.differential import _rel_err, _sim_n_for
+
+# the blocks of the reference's report, gates 1-5 and their breakdowns
+REPORT_KEYS = {"version", "passed", "config", "scalar_vs_vec", "golden", "mape_gate",
+               "tail_gate", "scalar_vs_vec_tail", "tail_euler_vec", "meanfield_gate",
+               "bands", "regimes", "sim_cross", "entries"}
 
 SMOKE_N = 4096
 
@@ -57,6 +68,16 @@ def corpus():
     return load_corpus()
 
 
+@pytest.fixture
+def x64(monkeypatch):
+    """The reference's ``jax.experimental.enable_x64()`` for this test only."""
+    import jax
+    import jax.experimental
+
+    monkeypatch.setattr(jax.experimental, "enable_x64", lambda: jax.enable_x64(True),
+                        raising=False)
+
+
 def test_corpus_is_the_reference_fixture(corpus):
     entries, meta = corpus
     j_entries, j_meta = j_load_corpus()
@@ -68,10 +89,14 @@ def test_corpus_is_the_reference_fixture(corpus):
 
 
 def test_generator_names_the_unported_regimes():
-    # the cluster entries solve on the given device; the mean-field entries
-    # after them are the regime still to port
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        generate_corpus(0, device="cpu")
+    """Once the regimes the generator could not reach; now it reaches them
+    all and gives the pinned fixture entry for entry, the mean-field
+    equilibria (solved on the CPU) included."""
+    entries, meta = load_corpus()
+    got = corpus_to_dict(generate_corpus(meta["seed"], device="cpu"), seed=meta["seed"])
+    assert got["entries"] == corpus_to_dict(entries, seed=meta["seed"])["entries"]
+    assert {e["regime"] for e in got["entries"]} >= {"cluster-equilibrium",
+                                                     "meanfield-equilibrium"}
 
 
 def test_metrics_equal_the_reference():
@@ -122,6 +147,10 @@ def test_smoke_gates_1_to_3(corpus):
     rep = run_differential(sub, expected_totals=meta["expected_totals"], base_n=SMOKE_N,
                            max_n_factor=1.0, bootstrap=100, sim_cross_count=2, device="cpu")
     assert rep.vec_passed and rep.golden_passed and rep.gate_passed and rep.passed
+    # gate 4's simulated side, from the same runs: p99 within its 10% budget
+    assert rep.tail.n == sum(tail_gated(e) for e in sub) >= 5
+    assert rep.tail_passed and rep.tail.mean_pct <= 10.0
+    assert all(r.sim_tail_s > r.sim_mean_s for r in rep.entries)
     assert rep.gate.n == len(sub)
     assert rep.gate.mean_pct <= 5.0
     backends = {r.sim_backend for r in rep.entries}
@@ -133,14 +162,51 @@ def test_smoke_gates_1_to_3(corpus):
 
 
 def test_report_marks_the_unported_blocks(corpus):
+    """Once the blocks still to port; now every gate's block is present,
+    with the reference's keys, and none is marked unported."""
     entries, meta = corpus
     rep = run_differential(entries[:3], expected_totals=meta["expected_totals"],
-                           simulate=False, device="cpu")
+                           simulate=False, meanfield=False, device="cpu")
     d = json.loads(json.dumps(rep.to_dict()))
-    assert d["passed"] is True and d["covers"] == list(GATES)
-    for name in NOT_PORTED:
-        assert d[name] == {"ported": False}
-    assert set(GATES) <= set(d) and len(d["entries"]) == 3
+    assert d["passed"] is True and set(d) == REPORT_KEYS and len(d["entries"]) == 3
+    for name in ("scalar_vs_vec", "golden", "mape_gate", "tail_gate", "scalar_vs_vec_tail",
+                 "tail_euler_vec"):
+        assert d[name]["passed"] is True and "ported" not in d[name]
+    assert d["meanfield_gate"] is None  # meanfield=False, as the reference reports it
+    assert d["config"]["device"] == "cpu"
+
+
+def test_gates_4_and_5_equal_the_reference(corpus, x64):
+    """run_differential without simulation on the full corpus, both packages:
+    the deterministic blocks of gates 4 and 5 and every entry's tail fields."""
+    entries, meta = corpus
+    got = run_differential(entries, expected_totals=meta["expected_totals"], simulate=False,
+                           device="cpu").to_dict()
+    j_entries, j_meta = j_load_corpus()
+    want = j_run_differential(j_entries, expected_totals=j_meta["expected_totals"],
+                              simulate=False).to_dict()
+    assert set(got) == set(want) == REPORT_KEYS and got["passed"] and want["passed"]
+    assert set(got["config"]) == set(want["config"]) | {"device"}
+    for name in ("scalar_vs_vec_tail", "tail_euler_vec"):
+        g, w = got[name], want[name]
+        assert set(g) == set(w) and g["passed"] and w["passed"]
+        assert {k: v for k, v in g.items() if k != "max_rel_err"} == \
+            {k: v for k, v in w.items() if k != "max_rel_err"}
+        assert g["max_rel_err"] <= 1e-10 and w["max_rel_err"] <= 1e-10
+    # n = 0 without simulation: its statistics are NaN on both sides
+    assert json.dumps(got["tail_gate"]) == json.dumps(want["tail_gate"])
+    g, w = got["meanfield_gate"], want["meanfield_gate"]
+    assert set(g) == set(w) and g["passed"] and g["converged"]
+    for k in ("budget_pct", "n_specs", "converged", "passed"):
+        assert g[k] == w[k]
+    for k in ("gated_max_mape_pct", "gated_mean_mape_pct"):
+        assert g[k] == pytest.approx(w[k], rel=1e-9)
+    assert [s["spec"] for s in g["specs"]] == [s["spec"] for s in w["specs"]]
+    for ge, we in zip(got["entries"], want["entries"]):
+        assert set(ge) == set(we)
+        assert ge["tail_gate"] == we["tail_gate"]
+        assert ge["analytic_tail_s"] == pytest.approx(we["analytic_tail_s"], rel=1e-9)
+        assert ge["sim_tail_s"] is None and ge["tail_mape_pct"] is None
 
 
 def test_gate_budget_is_enforced(corpus):
