@@ -12,7 +12,9 @@ Phases; any failure exits non-zero before the result lines are printed:
      add + RMSNorm at StarCoder2's and jamba's widths, whose s is torch's add
      and whose y is bit-equal to the RMSNorm kernel on that s; ragged prompts,
      Sq < Skv, window + softcap, every head dim, jamba's G = 4 shapes, decode
-     at pos 700 of 1024, garbage past pos, G = 32, more (b, kv head) pairs
+     at pos 700 of 1024, the measure phase's shapes (prompts of 1, 6, 8 and
+     10 tokens; one slot of 64 positions at pos 0, 5 and 15), garbage past
+     pos, G = 32, more (b, kv head) pairs
      than SMs, a CUDA-graph replay of decode equal to the eager call;
      Lindley scans bit for bit in float64 and float32 at B = 1, ragged B and T,
      zero services, arrival ties, the ring's edges (T of 1, TILE - 1, TILE,
@@ -98,8 +100,19 @@ Phases; any failure exits non-zero before the result lines are printed:
      adaptive undercuts every static price), ``provision`` at its default
      space for 48 clients at p99 <= 120 ms by Euler (the plan equal to the
      same call on the CPU), and ``launch/validate.py --smoke`` (exit 0);
-  9. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
-     entry), the card's name and power limit as
+  9. measure: the measurement harness (``repro_torch.measure``) and the
+     measured gate, three runs: the reduced StarCoder2-3B on the simulated
+     clock on the card and on the CPU (the traces bit-equal, the profiles
+     equal); ``launch/measure.py validate --config starcoder2_3b
+     --full-config`` (240 Poisson requests at one slot, simulated clock: exit
+     0, the launch counts exact for warmup plus the recorded prefills and
+     decode steps); the same harness at full width on the wall clock (every
+     fit finite, the batched cross-check within 1e-6, the counts exact with
+     the 8 calibration requests; its mean and p99 MAPE printed beside the 15%
+     and 35% budgets, not gated);
+ 10. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
+     entry; the serving kernels also with their launches in the measure
+     phase's full-width simulated run), the card's name and power limit as
      nvidia-smi gives them, and the final ``{"ok": true, ...}`` line.
 Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -111,6 +124,7 @@ import ctypes
 import gc
 import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -306,6 +320,12 @@ def phase_check(torch, ops, refs) -> Checker:
         (1, 1024, 1024, 24, 2, 128, True, 0, 0.0),  # a 1024-token prompt: 16 query tiles
         (2, 700, 700, 16, 16, 256, True, 0, 30.0),  # hd 256: 32-key kv tiles, softcap
         (1, 1000, 1000, 32, 4, 32, True, 300, 0.0),  # window edge across many kv tiles
+        # the measure phase's prompts (6-10 tokens) and one token: one partly
+        # filled query tile against one partly filled kv tile
+        (1, 1, 1, 24, 2, 128, True, 0, 0.0),
+        (1, 6, 6, 24, 2, 128, True, 0, 0.0),
+        (1, 8, 8, 24, 2, 128, True, 0, 0.0),
+        (1, 10, 10, 24, 2, 128, True, 0, 0.0),
     ]
     for B, Sq, Skv, H, K, hd, causal, window, cap in flash_cases:
         what = f"q ({B},{Sq},{H},{hd}) kv ({Skv},{K}) c{int(causal)} w{window} cap{cap:g}"
@@ -352,6 +372,9 @@ def phase_check(torch, ops, refs) -> Checker:
         (1, 700, 64, 2, 64, 650, 0.0, torch.bfloat16),  # G = 32: two 16-row tiles
         (70, 64, 8, 2, 128, 50, 0.0, torch.bfloat16),  # B * K > 132 SMs: one run per pair
         (1, 4096, 8, 1, 128, 4000, 0.0, torch.float32),  # fp32, 126 runs merged
+        (1, 64, 24, 2, 128, 0, 0.0, torch.bfloat16),  # the measure phase: 1 slot of 64
+        (1, 64, 24, 2, 128, 5, 0.0, torch.bfloat16),
+        (1, 64, 24, 2, 128, 15, 0.0, torch.bfloat16),
     ]
     for B, S, H, K, hd, pos, cap, dtype in decode_cases:
         what = f"q ({B},1,{H},{hd}) cache ({S},{K}) pos {pos} cap{cap:g} {str(dtype)[6:]}"
@@ -582,6 +605,16 @@ def plain_path(refs: dict):
             setattr(mod, name, saved[name])
 
 
+def serving_launches(L: int, prefills: int, decodes: int) -> dict[str, int]:
+    """Every kernel's launches for that many prefills and decode steps of an
+    L-layer dense model: 2 rmsnorm, 2L - 1 rmsnorm_add and L flash per
+    prefill, 1 rmsnorm, 2L rmsnorm_add and L decode per step, nothing else."""
+    return {"rmsnorm": 2 * prefills + decodes,
+            "rmsnorm_add": (2 * L - 1) * prefills + 2 * L * decodes,
+            "flash_attention": L * prefills, "decode_attention": L * decodes,
+            "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0}
+
+
 # the slice's cell: 16 Poisson requests at 20 rps, prompts 256 +/- 64, 32 new
 # tokens, 4 slots of 1024 positions, at full width
 SERVE_ARGV = ["--arch", "starcoder2_3b", "--requests", "16", "--rps", "20",
@@ -633,10 +666,7 @@ def phase_serve(torch, ops, refs) -> dict:
     n_prefill = len(lengths) + sum(ev.phase == "prefill" for ev in engine.service_log)
     n_decode = 1 + sum(ev.phase == "decode" for ev in engine.service_log)
     L = cfg.num_layers
-    expect = {"rmsnorm": 2 * n_prefill + n_decode,
-              "rmsnorm_add": (2 * L - 1) * n_prefill + 2 * L * n_decode,
-              "flash_attention": L * n_prefill, "decode_attention": L * n_decode,
-              "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0}
+    expect = serving_launches(L, n_prefill, n_decode)
     log(f"[serve] launches {launches}; expected {expect} for {n_prefill} prefills "
         f"(2 rmsnorm + {2 * L - 1} rmsnorm_add + {L} flash each) and {n_decode} decode steps "
         f"(1 rmsnorm + {2 * L} rmsnorm_add + {L} decode each)")
@@ -2244,6 +2274,154 @@ def phase_meanfield_plan(torch, scan_ref) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the measured gate: the measure CLI's documented profiling run at full width
+
+# HarnessConfig's defaults: 240 Poisson requests at target rho 0.45, 1 slot of
+# 64 positions, prompts 8 +/- 2, at most 6 new tokens (geometric p 0.35)
+MEASURE_ARGV = ["validate", "--config", "starcoder2_3b", "--full-config", "--device", "cuda"]
+
+
+def log_fits(profile) -> None:
+    for f in profile.fits:
+        log(f"[measure]   {f.phase:8s} occ={f.occupancy}  n={f.n:4d}  {f.mean_s * 1e3:9.4f} ms  "
+            f"scv={f.scv:6.3f}  {f.model.value}")
+
+
+def phase_measure(torch) -> dict:
+    """Three runs of the measurement harness: the reduced model on the card
+    and the CPU (simulated clock: the same trace), the full-width model on
+    the simulated clock through the CLI (its gate passes, kernel counts
+    exact), and the full-width model on the wall clock (its gate reported)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import measure as measure_cli
+    from repro_torch.measure import HarnessConfig, build_profile, load_profile, run_harness
+    from repro_torch.obs import run_manifest
+    from repro_torch.validate import MEASURED_VEC_TOL, run_measured_gate
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    reports = tempfile.TemporaryDirectory()  # the CLI's profile and report, read back
+    tmp = Path(reports.name)
+    L = get_config("starcoder2_3b").num_layers
+
+    # 1. the reduced model on the simulated clock: the card's trace is the CPU's
+    hc = HarnessConfig(arch="starcoder2_3b", slots=1)
+    t0 = time.perf_counter()
+    card = run_harness(hc, device="cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run_harness(hc, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same_trace = card.to_dict() == cpu.to_dict()
+    same_profile = build_profile(card).dumps() == build_profile(cpu).dumps()
+    ok = same_trace and same_profile
+    log(f"[measure] reduced {hc.arch}, simulated clock: {len(card.events)} events, "
+        f"{len(card.requests)} requests, lambda {card.arrival_rate!r} req/s; {card_s:.2f} s on "
+        f"the card, {cpu_s:.2f} s on the CPU; traces bit-equal {same_trace}, profiles equal "
+        f"{same_profile} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"reduced simulated trace: card vs CPU trace equal {same_trace}, "
+                        f"profile equal {same_profile}")
+    out["reduced"] = dict(events=len(card.events), requests=len(card.requests),
+                          arrival_rate=card.arrival_rate, card_s=card_s, cpu_s=cpu_s,
+                          same_trace=same_trace, same_profile=same_profile)
+    del card, cpu
+
+    # 2. full width, simulated clock, through the CLI: warmup runs 5 prompt
+    # lengths and 1 decode step, then every recorded event is one call
+    defaults = HarnessConfig(arch="starcoder2_3b")
+    warm_prefills = 2 * defaults.prompt_len_jitter + 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = measure_cli.main(MEASURE_ARGV + ["--out", str(tmp / "profile.json"),
+                                          "--report-out", str(tmp / "gate.json")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = load_profile(tmp / "profile.json")
+    rep = json.loads((tmp / "gate.json").read_text())
+    n_prefill = sum(f.n for f in prof.fits if f.phase == "prefill")
+    n_decode = sum(f.n for f in prof.fits if f.phase == "decode")
+    expect = serving_launches(L, warm_prefills + n_prefill, 1 + n_decode)
+    ok = (rc == 0 and rep["passed"] is True and launches == expect
+          and n_prefill == prof.n_requests == defaults.n_requests)
+    log(f"[measure] {' '.join(MEASURE_ARGV)}: exit {rc} in {wall:.2f} s (model set-up "
+        f"included); lambda {prof.arrival_rate!r} req/s, rho_hat "
+        f"{prof.observed_stat('rho_hat'):.4f}; peak memory {peak:.2f} GiB")
+    log(f"[measure] simulated gate: mean MAPE {rep['mean']['mape_pct']:.4f}% (budget "
+        f"{rep['mean']['budget_pct']:g}%), p99 MAPE {rep['tail']['mape_pct']:.4f}% (budget "
+        f"{rep['tail']['budget_pct']:g}%), vec rel err {rep['vec']['rel_err']:.2e}; fits:")
+    log_fits(prof)
+    log(f"[measure] launches {launches}; expected {expect} for {warm_prefills} + {n_prefill} "
+        f"prefills and 1 + {n_decode} decode steps {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"measure --full-config: exit {rc}, passed {rep['passed']}, launches "
+                        f"{launches} != {expect}")
+    out.update(argv=MEASURE_ARGV, exit=rc, wall_s=wall, peak_mem_gib=peak, launches=launches,
+               gate=rep, fits=[f.to_dict() for f in prof.fits],
+               arrival_rate=prof.arrival_rate, rho_hat=prof.observed_stat("rho_hat"))
+    del prof
+    reports.cleanup()
+
+    # 3. full width, wall clock: the gate is reported, not gated (a measurement
+    # of the closed forms against a host-bound engine, not a check of the port).
+    # Its calls: warmup, 8 unrecorded calibration requests of max_new_tokens
+    # tokens at one slot (1 prefill and max_new_tokens - 1 decode steps each),
+    # then every recorded event
+    hw = HarnessConfig(arch="starcoder2_3b", reduced=False, clock="wall")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trace = run_harness(hw, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = build_profile(trace, manifest=run_manifest(seed=hw.seed, config=hw.to_dict()))
+    gate = run_measured_gate(prof, device="cuda")
+    n_prefill = sum(e[1] == "prefill" for e in trace.events)
+    n_decode = sum(e[1] == "decode" for e in trace.events)
+    calib = hw.calibrate_requests
+    expect = serving_launches(L, warm_prefills + calib + n_prefill,
+                              1 + calib * (hw.max_new_tokens - 1) + n_decode)
+    finite = all(math.isfinite(x) for f in prof.fits for x in (f.mean_s, f.var_s, f.scv)) and all(
+        math.isfinite(x) for x in (gate.analytic_mean_s, gate.analytic_p99_s, gate.rho))
+    ok = finite and gate.vec_rel_err <= MEASURED_VEC_TOL and launches == expect
+    log(f"[measure] wall clock, {hw.arch} at full width: {len(trace.requests)} requests, "
+        f"{len(trace.events)} events in {wall:.2f} s (model set-up included); lambda "
+        f"{trace.arrival_rate!r} req/s, rho_hat {prof.observed_stat('rho_hat'):.4f}, gate rho "
+        f"{gate.rho:.4f}; peak memory {peak:.2f} GiB; on {RESULT.get('card')}")
+    log(f"[measure] wall-clock gate (reported, not gated): mean MAPE {gate.mean_mape_pct:.4f}% "
+        f"against {gate.budget_pct:g}% -> {'PASS' if gate.mean_passed else 'FAIL'}; p99 MAPE "
+        f"{gate.p99_mape_pct:.4f}% against {gate.tail_budget_pct:g}% -> "
+        f"{'PASS' if gate.tail_passed else 'FAIL'}; analytic {gate.analytic_mean_s * 1e3:.3f} / "
+        f"{gate.analytic_p99_s * 1e3:.3f} ms vs observed {gate.observed_mean_s * 1e3:.3f} / "
+        f"{gate.observed_p99_s * 1e3:.3f} ms (mean / p99); vec rel err {gate.vec_rel_err:.2e}; "
+        "fits:")
+    log_fits(prof)
+    log(f"[measure] launches {launches}; expected {expect} for {warm_prefills} + {calib} + "
+        f"{n_prefill} prefills and 1 + {calib * (hw.max_new_tokens - 1)} + {n_decode} decode "
+        f"steps (warmup + calibration + recorded) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"measure wall clock: finite {finite}, vec rel err {gate.vec_rel_err}, "
+                        f"launches {launches} != {expect}")
+    out["wall"] = dict(wall_s=wall, peak_mem_gib=peak, launches=launches,
+                       events=len(trace.events), requests=len(trace.requests),
+                       arrival_rate=trace.arrival_rate, rho_hat=prof.observed_stat("rho_hat"),
+                       gate=gate.to_dict(), fits=[f.to_dict() for f in prof.fits])
+    del trace, prof
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[measure] phase wall time {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2330,6 +2508,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     meanfield_plan = phase_meanfield_plan(torch, decision_scan_reference)
     end_phase("meanfield_plan")
+    gc.collect()
+    torch.cuda.empty_cache()
+    measure = phase_measure(torch)
+    end_phase("measure")
 
     where = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:32"),
@@ -2367,6 +2549,8 @@ def main() -> int:
         if name == "rmsnorm_add":  # no one library call: torch.add, then F.rms_norm
             row.update(library_ms=None, yardstick_ms=t["library_ms"],
                        prefill_library_ms=None, prefill_yardstick_ms=p["library_ms"])
+        if name in ("rmsnorm", "rmsnorm_add", "flash_attention", "decode_attention"):
+            row["measure_launches"] = measure["launches"][name]  # the full-width measured gate
         if name in ("lindley_scan", "decision_scan"):  # launched on the new paths too
             row.update(tails_launches=tails["launches"][name],
                        meanfield_plan_launches=meanfield_plan["launches"][name])
@@ -2386,7 +2570,7 @@ def main() -> int:
                        prefill_eager_ms=p["eager_ms"])
         kernels.append(row)
     RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid, fleet=fleet,
-                  cluster=cluster, tails=tails, meanfield_plan=meanfield_plan)
+                  cluster=cluster, tails=tails, meanfield_plan=meanfield_plan, measure=measure)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(RESULT, indent=1, default=str))

@@ -258,6 +258,11 @@ class Engine:
             ServiceEvent(now, "decode", dt, n_active, -1, n_active, cold))
         return n_active
 
+    def drain(self) -> None:
+        """Tick on the wall clock until the queue and every slot are empty."""
+        while self.queue or any(r is not None for r in self.active):
+            self.tick()
+
     # ------------------------------------------------------------------
     def observed_service_stats(self) -> tuple[float, float]:
         """(mean, var) of measured per-op service times — the paper's

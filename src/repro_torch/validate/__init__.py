@@ -6,7 +6,10 @@ simulated MAPE, tail quantiles, mean field vs the exact solver).
     ``tests/golden/`` (the port never writes it);
   * :mod:`metrics` — MAPE, per-regime error tables, block-bootstrap CIs;
   * :mod:`differential` — the cross-path runner and the fidelity report
-    behind ``python -m repro_torch.launch.validate``.
+    behind ``python -m repro_torch.launch.validate``;
+  * :mod:`measured` — analytic mean/p99 against the latencies the port's
+    serving engine delivered (paper §5), behind ``python -m
+    repro_torch.launch.measure validate``.
 """
 
 from .corpus import (
@@ -38,6 +41,14 @@ from .differential import (
     run_meanfield_gate,
     smoke_subset,
     tail_gated,
+)
+from .measured import (
+    DEFAULT_MEASURED_BUDGET_PCT,
+    DEFAULT_MEASURED_TAIL_BUDGET_PCT,
+    MEASURED_VEC_TOL,
+    MeasuredGateReport,
+    measured_scenario,
+    run_measured_gate,
 )
 from .metrics import (
     BootstrapCI,

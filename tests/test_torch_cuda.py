@@ -24,7 +24,9 @@ rounding noise fixes its quantile only to a wider band, at twice that band
 (ROADMAP C10: past rho 0.99 an ulp moves the search onto other noise; 3
 rows of 1,646 here, measured by ``launch.euler_parity.noise_band``); the
 SLO closed loop's choices exact on the same counts; the mean-field fixed
-point 1e-12 (closed forms over a few dozen rows, the same iteration count).
+point 1e-12 (closed forms over a few dozen rows, the same iteration count);
+the measurement harness's simulated trace on the card equal to the CPU's bit
+for bit (its durations are the timer's seeded draws).
 """
 
 import numpy as np
@@ -64,6 +66,7 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_reference
 from repro_torch.launch.cluster_sim import default_cluster, default_meanfield
 from repro_torch.launch import euler_parity
 from repro_torch.launch.fleet_sweep import default_scenario
+from repro_torch.measure import HarnessConfig, build_profile, run_harness
 from repro_torch.validate import EULER_VEC_RHO_MAX, bottleneck_rho, meanfield_gate_specs
 
 pytestmark = pytest.mark.cuda
@@ -181,6 +184,30 @@ def test_decode_attention(gen, pos, dtype, tol):
 
 
 DECODE_BF16 = dict(atol=8e-3, rtol=1e-2)  # p rounds to bf16 where the plain version rounds it
+
+
+@pytest.mark.parametrize("L", [1, 6, 8, 10])
+def test_flash_attention_measure_prompts(gen, L):
+    """The measurement path's prompts (6-10 tokens) at StarCoder2's heads: one
+    partly filled query tile and one partly filled kv tile."""
+    q, k, v = randn(gen, 1, L, 24, 128), randn(gen, 1, L, 2, 128), randn(gen, 1, L, 2, 128)
+    torch.testing.assert_close(flash_attention(q, k, v).float(),
+                               flash_attention_reference(q, k, v).float(), **BF16)
+
+
+@pytest.mark.parametrize("pos", [0, 5, 15])
+def test_decode_attention_measure_cache(gen, pos):
+    """The measurement path's decode: one slot of 64 positions, pos <= 15."""
+    q, kc, vc = randn(gen, 1, 1, 24, 128), randn(gen, 1, 64, 2, 128), randn(gen, 1, 64, 2, 128)
+    torch.testing.assert_close(decode_attention(q, kc, vc, pos).float(),
+                               decode_attention_reference(q, kc, vc, pos).float(), **DECODE_BF16)
+
+
+def test_simulated_trace_on_the_card_equals_cpu(gen):  # gen: skips without a card
+    hc = HarnessConfig(arch="starcoder2_3b", n_requests=60)
+    card, cpu = run_harness(hc, device="cuda"), run_harness(hc, device="cpu")
+    assert card.to_dict() == cpu.to_dict()
+    assert build_profile(card).dumps() == build_profile(cpu).dumps()
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
