@@ -53,14 +53,24 @@ Phases; any failure exits non-zero before the result lines are printed:
      serving 16 Poisson requests through the serving CLI's own path
      (``repro_torch.launch.serve.run``), with the launch counters reset just
      before and read just after (2 rmsnorm and 2L - 1 fused add + rmsnorm
-     launches per prefill, 1 and 2L per decode step); then the served model's
+     launches per prefill, 1 and 2L per decode step); the same call then runs
+     the offload gateway (Algorithm 1) over the profiled service and the
+     20, 10, 2, 20 Mbps schedule, before the counts are read (so it adds no
+     launch): every epoch's decision line, s_dev and rps * s_dev logged, the
+     audit's re-sum check and each choice the argmin of its audited totals
+     gated, the Fig. 6 row reported; then the tracer's cost on the warmed
+     engine (12 requests of 8 + 8 tokens, no / disabled / enabled tracer
+     interleaved, best of 5: the disabled tracer records no span and the
+     enabled one exactly 3 per request plus 1 per decode step; the overheads
+     reported beside the 5% budget); then the served model's
      kernel-path logits held against its plain path, and profiler traces of
      decode steps and prefills (device time, device operations per call);
   4b. serve_hybrid: the StarCoder engine freed, then jamba (mamba + MoE) at
      full width with 2 of its 4 superblocks (16 of 32 layers: 103 GB of bf16
      weights do not fit 80 GB) serving 8 Poisson requests through the same
      CLI path, launch counts reset just before and read just after (14
-     selective-scan launches per prefill and per decode step); its kernel
+     selective-scan launches per prefill and per decode step), its gateway
+     epochs checked as the serve phase's; its kernel
      path held against its plain path, and a profiler trace of decode steps;
   5. fleet: the fleet path at its users' sizes, counters reset just before and
      read just after: ``repro_torch.launch.fleet_sweep.run_sweep`` over a
@@ -110,9 +120,17 @@ Phases; any failure exits non-zero before the result lines are printed:
      fit finite, the batched cross-check within 1e-6, the counts exact with
      the 8 calibration requests; its mean and p99 MAPE printed beside the 15%
      and 35% budgets, not gated);
- 10. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
+ 10. obs: the 64 x 4 acceptance closed loop with a tracer (one decide span
+     per epoch, offloaded = the choices' row sums; the decision-scan launches
+     and the results equal to the same call without one), ``audit_cluster``
+     over 8 epochs x 8 clients on the card (re-sum check; the targets and
+     terms equal the CPU's to 1e-9), and ``obs_report --demo --device cuda``
+     (its trace, Chrome export, audit and report byte for byte the
+     ``--device cpu`` run's; the reduced engine's launch counts exact);
+ 11. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
      entry; the serving kernels also with their launches in the measure
-     phase's full-width simulated run), the card's name and power limit as
+     phase's full-width simulated run, and they and the decision scan with
+     their launches in the obs phase), the card's name and power limit as
      nvidia-smi gives them, and the final ``{"ok": true, ...}`` line.
 Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -629,7 +647,8 @@ def phase_serve(torch, ops, refs) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    engine = serve.run(SERVE_ARGV)  # the CLI's path: model, warmup, replay, summary
+    # the CLI's path: model, warmup, replay, summary, then the gateway's epochs
+    engine, gw = serve.run(SERVE_ARGV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -669,15 +688,117 @@ def phase_serve(torch, ops, refs) -> dict:
     expect = serving_launches(L, n_prefill, n_decode)
     log(f"[serve] launches {launches}; expected {expect} for {n_prefill} prefills "
         f"(2 rmsnorm + {2 * L - 1} rmsnorm_add + {L} flash each) and {n_decode} decode steps "
-        f"(1 rmsnorm + {2 * L} rmsnorm_add + {L} decode each)")
+        f"(1 rmsnorm + {2 * L} rmsnorm_add + {L} decode each); the gateway's epochs, run "
+        "before the counts were read, add none")
     if launches != expect:
         FAILURES.append(f"launch counts {launches} != {expect}")
     out["launches"] = launches
+    out["gateway"] = check_gateway("serve", engine, gw, rps=20.0)
+    out["tracer"] = tracer_cost(torch, engine)
 
     out.update(kernel_vs_plain(torch, model, refs, LOGITS_REL_L2, cache_len=1024))
     out["profile"] = profile_decode(torch, model, slots=4, pos=300, cache_len=1024)
-    del engine, model
+    del engine, model, gw
     return out
+
+
+def check_gateway(tag: str, engine, gw, *, rps: float) -> dict:
+    """The serve CLI's gateway half over the profiled service: the audit
+    verifies, each epoch's choice is the argmin of its audited totals (no
+    hysteresis), and the Fig. 6 row (reported, not gated: it depends on the
+    profiled service)."""
+    from repro_torch.obs import format_decision
+
+    s_dev, var = engine.observed_service_stats()
+    auditor = gw.manager.auditor
+    log(f"[{tag}] gateway: profiled service s_dev {s_dev * 1e3:.3f} ms (var {var:.3e}); device "
+        f"tier rho = rps * s_dev = {rps * s_dev:.4f}")
+    for row in auditor:
+        log(f"[{tag}]   {format_decision(row)}")
+    try:
+        err = auditor.verify()
+    except AssertionError as exc:
+        FAILURES.append(f"{tag} gateway audit: {exc}")
+        err = None
+    argmin = all(row.totals[row.chosen] == min(row.totals.values()) for row in auditor)
+    ok = err is not None and argmin and len(auditor) == len(gw.decisions) >= 1
+    fig6 = ";".join("on_device" if d.edge_index < 0 else "offload" for d in gw.decisions)
+    log(f"[{tag}] gateway: {len(gw.decisions)} epochs, audit re-sum error {err} (limit 1e-9), "
+        f"every choice the argmin of its audited totals: {argmin}, switches {gw.switches}; "
+        f"Fig. 6 row {fig6} (reported, not gated) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"{tag} gateway: re-sum error {err}, argmin {argmin}, "
+                        f"{len(auditor)} audits for {len(gw.decisions)} epochs")
+    return dict(s_dev_s=s_dev, s_dev_var=var, rho_device=rps * s_dev, fig6_row=fig6,
+                switches=gw.switches, resum_error=err, metrics=gw.metrics.snapshot(),
+                decisions=[format_decision(row) for row in auditor])
+
+
+TRACER_REQUESTS, TRACER_REPEATS, TRACER_BUDGET_PCT = 12, 5, 5.0
+
+
+def tracer_cost(torch, engine) -> dict:
+    """The tracer's cost on the warmed full-width engine, after the reference's
+    ``benchmarks/obs_bench.py``: bursts of 12 requests (8-token prompts, 8 new
+    tokens) drained on the wall clock with no tracer, a disabled one and an
+    enabled one, the modes interleaved, best of 5 each. Gated: the disabled
+    tracer records nothing and the enabled one exactly 3 spans per request
+    (queue, prefill, respond) plus 1 per decode step. The overheads are
+    reported beside the reference's 5% budget, not gated (host-bound)."""
+    import numpy as np
+
+    from repro_torch.obs import Tracer
+    from repro_torch.serving.engine import Request
+
+    cfg = engine.cfg
+    engine.warmup([8])
+    engine.completed.clear()
+    engine.service_log.clear()
+
+    def drain() -> tuple[float, int]:
+        rng = np.random.default_rng(0)
+        for rid in range(TRACER_REQUESTS):
+            engine.submit(Request(rid=rid, max_new_tokens=8,
+                                  prompt=rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)))
+        t0 = time.perf_counter()
+        engine.drain()
+        wall = time.perf_counter() - t0
+        tokens = sum(len(r.tokens_out) for r in engine.completed)
+        steps = sum(ev.phase == "decode" for ev in engine.service_log)
+        engine.completed.clear()
+        engine.service_log.clear()
+        return tokens / wall, steps
+
+    drain()  # untimed: the first drain after a warmup runs slower
+    modes = {"none": None, "disabled": Tracer(enabled=False), "enabled": Tracer()}
+    best: dict[str, float] = {}
+    expect_spans = 0
+    for _ in range(TRACER_REPEATS):
+        for mode, tracer in modes.items():
+            engine.tracer = tracer
+            engine._trace = tracer is not None and tracer.enabled
+            tps, steps = drain()
+            best[mode] = max(best.get(mode, 0.0), tps)
+            if mode == "enabled":
+                expect_spans += 3 * TRACER_REQUESTS + steps
+    engine.tracer, engine._trace = None, False
+    n_off, n_on = len(modes["disabled"]), len(modes["enabled"])
+    cats = {c: len(modes["enabled"].by_cat(c)) for c in ("queue", "prefill", "respond", "decode")}
+    dis = (best["none"] - best["disabled"]) / best["none"] * 100.0
+    ena = (best["none"] - best["enabled"]) / best["none"] * 100.0
+    ok = n_off == 0 and n_on == expect_spans
+    log(f"[serve] tracer cost at full width ({TRACER_REQUESTS} requests of 8 + 8 tokens, best of "
+        f"{TRACER_REPEATS}, modes interleaved; {RESULT.get('card')}): tokens/s none "
+        f"{best['none']:.2f}, disabled {best['disabled']:.2f}, enabled {best['enabled']:.2f}; "
+        f"overhead disabled {dis:.2f}%, enabled {ena:.2f}% (budget {TRACER_BUDGET_PCT:g}%, "
+        "reported, not gated)")
+    log(f"[serve] tracer spans: disabled {n_off} (expected 0), enabled {n_on} (expected "
+        f"{expect_spans} = 3 per request + 1 per decode step; {cats}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"tracer spans: disabled {n_off}, enabled {n_on} != {expect_spans}")
+    return dict(tokens_per_s=best, disabled_overhead_pct=dis, enabled_overhead_pct=ena,
+                budget_pct=TRACER_BUDGET_PCT, spans_disabled=n_off, spans_enabled=n_on,
+                spans_expected=expect_spans, spans_by_cat=cats)
 
 
 def fill_caches(full, part, L: int) -> None:
@@ -1036,7 +1157,7 @@ def phase_serve_hybrid(torch, refs) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    engine = serve.run(HYBRID_ARGV)
+    engine, gw = serve.run(HYBRID_ARGV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -1092,10 +1213,11 @@ def phase_serve_hybrid(torch, refs) -> dict:
     if launches != expect:
         FAILURES.append(f"hybrid launch counts {launches} != {expect}")
     out["launches"] = launches
+    out["gateway"] = check_gateway("serve_hybrid", engine, gw, rps=4.0)
 
     out.update(kernel_vs_plain(torch, model, refs, HYBRID_LOGITS_REL_L2, cache_len=512))
     out["profile"] = profile_decode(torch, model, slots=4, pos=300, cache_len=512)
-    del engine, model
+    del engine, model, gw
     return out
 
 
@@ -2422,6 +2544,135 @@ def phase_measure(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the obs path: the cluster's decide spans and audits, the obs_report demo
+
+OBS_AUDIT_EPOCHS, OBS_AUDIT_CLIENTS = range(0, ACCEPT_EPOCHS, 15), range(0, ACCEPT_CLIENTS, 8)
+OBS_ARTIFACTS = ("trace.jsonl", "trace.chrome.json", "audit.jsonl", "report.md")
+
+
+def phase_obs(torch) -> dict:
+    """The acceptance closed loop with a tracer (one decide span per epoch,
+    the same launches and results as without), ``audit_cluster`` over 8
+    epochs x 8 clients on the card against the CPU, and ``obs_report --demo``
+    on the card against the CPU (the artifacts byte for byte, the reduced
+    engine's serving-kernel launches exact)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.fleet import simulate_cluster
+    from repro_torch.launch import obs_report
+    from repro_torch.launch.cluster_sim import default_cluster
+    from repro_torch.measure import HarnessConfig
+    from repro_torch.obs import Tracer, audit_cluster
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    spec = default_cluster(ACCEPT_CLIENTS)
+    bw0 = float(np.asarray(spec.base.network.bandwidth_Bps))
+    pols = ("adaptive", "on_device") + tuple(f"edge[{j}]" for j in range(spec.n_edges))
+    trace = walk_trace(float(ACCEPT_EPOCHS), bw0)
+    kw = dict(policies=pols, stagger=8, seed=1, device="cuda")
+
+    # 1. the closed loop with and without a tracer: the same counts (seed 1 on
+    # the card), the same launches, the same results
+    reset_counts()
+    t0 = time.perf_counter()
+    plain = simulate_cluster(spec, trace, **kw)
+    plain_s = time.perf_counter() - t0
+    n_plain = read_counts()["decision_scan"]
+    reset_counts()
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    res = simulate_cluster(spec, trace, tracer=tracer, **kw)
+    traced_s = time.perf_counter() - t0
+    n_traced = read_counts()["decision_scan"]
+    choices = res.policies["adaptive"].choices
+    spans = tracer.by_cat("decide")
+    offloaded = [dict(sp.attrs)["offloaded"] for sp in spans]
+    row_sums = offloaded == [int(n) for n in (choices >= 0).sum(axis=1)]
+    same = all(np.array_equal(a.choices, b.choices) and np.array_equal(a.latencies_s,
+                                                                       b.latencies_s)
+               for a, b in zip(res.policies.values(), plain.policies.values()))
+    ok = (len(tracer) == len(spans) == ACCEPT_EPOCHS
+          and [dict(sp.attrs)["epoch"] for sp in spans] == list(range(ACCEPT_EPOCHS))
+          and row_sums and n_traced == n_plain == ACCEPT_EPOCHS and same)
+    log(f"[obs] closed loop {ACCEPT_CLIENTS} x {spec.n_edges} x {ACCEPT_EPOCHS} epochs with a "
+        f"tracer in {traced_s:.2f} s (without {plain_s:.2f} s): {len(spans)} decide spans, "
+        f"offloaded per epoch = the choices' row sums: {row_sums}; "
+        f"decision_scan launches {n_traced} with the tracer, {n_plain} without (expected "
+        f"{ACCEPT_EPOCHS}); results bit-equal {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"obs cluster spans: {len(tracer)} spans, launches {n_traced} / "
+                        f"{n_plain}, results equal {same}")
+    out["cluster"] = dict(spans=len(tracer), launches=n_traced, launches_untraced=n_plain,
+                          traced_s=traced_s, plain_s=plain_s, offloaded=offloaded)
+
+    # 2. audit_cluster on a subset, on the card and on the CPU
+    t0 = time.perf_counter()
+    card = audit_cluster(res, epochs=OBS_AUDIT_EPOCHS, clients=OBS_AUDIT_CLIENTS, device="cuda")
+    audit_s = time.perf_counter() - t0
+    cpu = audit_cluster(res, epochs=OBS_AUDIT_EPOCHS, clients=OBS_AUDIT_CLIENTS, device="cpu")
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        for strat, terms in a.terms.items():
+            for k, v in terms.items():
+                w = b.terms[strat][k]
+                if v != w:
+                    worst = max(worst, abs(v - w) / abs(w) if math.isfinite(w) and w else math.inf)
+    try:
+        errs = (card.verify(), cpu.verify())
+    except AssertionError as exc:
+        FAILURES.append(f"obs audit_cluster: {exc}")
+        errs = None
+    n_rows = len(OBS_AUDIT_EPOCHS) * len(OBS_AUDIT_CLIENTS)
+    targets = [r.edge_index for r in card] == [r.edge_index for r in cpu] == [
+        int(choices[t, i]) for t in OBS_AUDIT_EPOCHS for i in OBS_AUDIT_CLIENTS]
+    ok = errs is not None and len(card) == len(cpu) == n_rows and targets and worst <= 1e-9
+    log(f"[obs] audit_cluster over {len(OBS_AUDIT_EPOCHS)} epochs x {len(OBS_AUDIT_CLIENTS)} "
+        f"clients: {len(card)} rows on the card in {audit_s:.3f} s; re-sum errors (card, CPU) "
+        f"{errs} (limit 1e-9); targets equal the scan's and the CPU's {targets}; terms vs the "
+        f"CPU max rel err {worst:.2e} (limit 1e-9) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"obs audit_cluster: {len(card)} rows, targets {targets}, terms {worst}")
+    out["audit"] = dict(rows=len(card), resum_errors=errs, terms_max_rel_err=worst,
+                        card_s=audit_s)
+
+    # 3. obs_report --demo on the card and on the CPU; warmup runs every
+    # prompt length and one decode step, then each recorded event is one call
+    hc = HarnessConfig(arch="starcoder2_3b")
+    L = get_config("starcoder2_3b").reduced(seq_chunk=hc.seq_chunk).num_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        reset_counts()
+        t0 = time.perf_counter()
+        rc_card = obs_report.main(["--demo", "--device", "cuda", "--out-dir", str(tmp / "cuda")])
+        torch.cuda.synchronize()
+        demo_s = time.perf_counter() - t0
+        launches = read_counts()
+        rc_cpu = obs_report.main(["--demo", "--device", "cpu", "--out-dir", str(tmp / "cpu")])
+        equal = {n: (tmp / "cuda" / n).read_bytes() == (tmp / "cpu" / n).read_bytes()
+                 for n in OBS_ARTIFACTS}
+        lines = (tmp / "cuda" / "trace.jsonl").read_text().splitlines()
+    cats = [json.loads(ln)["cat"] for ln in lines]
+    n_prefill, n_decode = cats.count("prefill"), cats.count("decode")
+    expect = serving_launches(L, 2 * hc.prompt_len_jitter + 1 + n_prefill, 1 + n_decode)
+    ok = rc_card == rc_cpu == 0 and all(equal.values()) and launches == expect and n_prefill
+    log(f"[obs] obs_report --demo --device cuda: exit {rc_card} in {demo_s:.2f} s, {len(lines)} "
+        f"spans; artifacts equal to the --device cpu run's: {equal}")
+    log(f"[obs] demo launches {launches}; expected {expect} for {2 * hc.prompt_len_jitter + 1} + "
+        f"{n_prefill} prefills and 1 + {n_decode} decode steps of the reduced {L}-layer model "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"obs demo: exits {rc_card} / {rc_cpu}, equal {equal}, launches "
+                        f"{launches} != {expect}")
+    out["demo"] = dict(spans=len(lines), equal=equal, launches=launches, demo_s=demo_s)
+    out["launches"] = {**launches, "decision_scan": n_traced}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[obs] phase wall time {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2512,6 +2763,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     measure = phase_measure(torch)
     end_phase("measure")
+    obs = phase_obs(torch)
+    end_phase("obs")
 
     where = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:32"),
@@ -2551,6 +2804,9 @@ def main() -> int:
                        prefill_library_ms=None, prefill_yardstick_ms=p["library_ms"])
         if name in ("rmsnorm", "rmsnorm_add", "flash_attention", "decode_attention"):
             row["measure_launches"] = measure["launches"][name]  # the full-width measured gate
+        if name in ("rmsnorm", "rmsnorm_add", "flash_attention", "decode_attention",
+                    "decision_scan"):  # the obs phase: the demo's engine, the traced loop
+            row["obs_launches"] = obs["launches"][name]
         if name in ("lindley_scan", "decision_scan"):  # launched on the new paths too
             row.update(tails_launches=tails["launches"][name],
                        meanfield_plan_launches=meanfield_plan["launches"][name])
@@ -2570,7 +2826,8 @@ def main() -> int:
                        prefill_eager_ms=p["eager_ms"])
         kernels.append(row)
     RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid, fleet=fleet,
-                  cluster=cluster, tails=tails, meanfield_plan=meanfield_plan, measure=measure)
+                  cluster=cluster, tails=tails, meanfield_plan=meanfield_plan, measure=measure,
+                  obs=obs)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(RESULT, indent=1, default=str))

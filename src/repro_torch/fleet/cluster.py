@@ -699,6 +699,7 @@ def simulate_cluster(
     slo_quantile: float | None = None,
     tail_method: str = "asymptote",
     device=None,
+    tracer=None,
 ) -> ClusterResult:
     """Drive N clients through the trace batch with the loop closed, on
     ``device`` (default: the card).
@@ -727,7 +728,12 @@ def simulate_cluster(
     ``slo_quantile`` switches decisions AND true-condition scoring from
     expected latencies to q-quantiles (``tail_method``, the asymptote by
     default); the scoring then evaluates each client-epoch's quantile at the
-    target it chose only."""
+    target it chose only.
+
+    ``tracer`` (a ``repro_torch.obs.Tracer``) gets one fleet-wide ``decide``
+    span per epoch of the adaptive policy (clients offloaded and on-device,
+    mean scored latency), built on the host from the choices and latencies
+    the loop already copied there: it adds no launch and no device read."""
     if isinstance(traces, Trace):
         traces = TraceBatch.from_trace(traces, spec.n_clients)
     if traces.n_clients != spec.n_clients:
@@ -791,8 +797,18 @@ def simulate_cluster(
         del endo_e
         lat, loads = _score_assignment(cst, lam, bw, exo, choice_t, slo_quantile, tail_method)
         lat, saturated = clamp_saturation(lat, saturation_penalty_s)
-        results["adaptive"] = ClusterPolicyResult(
-            "adaptive", lat, choice_t.cpu().numpy(), loads, saturated)
+        choices = choice_t.cpu().numpy()
+        results["adaptive"] = ClusterPolicyResult("adaptive", lat, choices, loads, saturated)
+        if tracer is not None:
+            # per-epoch fleet-aggregate decide spans, stamped on the trace clock
+            dt = float(traces.epoch_s)
+            for t in range(t_n):
+                offloaded = int(np.sum(choices[t] >= 0))
+                tracer.span(
+                    t=t * dt, dur=dt, name="decide", cat="decide",
+                    track="cluster", epoch=t, offloaded=offloaded,
+                    on_device=int(choices.shape[1] - offloaded),
+                    mean_latency_s=float(np.mean(lat[t])))
 
     for name, tgt in static_targets.items():
         choices = torch.full((t_n, spec.n_clients), tgt, dtype=torch.int32, device=dev)

@@ -89,6 +89,8 @@ def replay(
     manager: AdaptiveOffloadManager | None = None,
     slo_quantile: float | None = None,
     tail_method: str = "euler",
+    auditor=None,
+    tracer=None,
 ) -> ReplayResult:
     """Drive ``scn`` through ``trace``, scoring adaptive vs static policies.
 
@@ -105,8 +107,11 @@ def replay(
     true conditions, so ``adaptive_wins`` answers the §5 question for tail
     latency instead of the mean.
 
-    The reference's ``auditor``/``tracer`` hooks come back with the port's
-    ``obs`` slice (ROADMAP A2).
+    ``auditor``/``tracer`` (``repro_torch.obs``, duck-typed) record the
+    adaptive manager's decision audits and decide spans (source and track
+    ``"replay"``; attached to ``manager`` when one is passed), and the tracer
+    gets a ``respond`` instant per epoch with the adaptive target's
+    true-condition latency.
     """
     if trace.n_edges not in (0, len(scn.edges)):
         raise ScenarioError(
@@ -123,12 +128,18 @@ def replay(
     spec_bg = np.array([t[0] for t in templates])
 
     rng = np.random.default_rng(seed)
+    obs_kw = {"auditor": auditor, "tracer": tracer, "audit_source": "replay"}
     if manager is not None:
         mgr = manager
+        if auditor is not None:
+            mgr.auditor = auditor
+        if tracer is not None:
+            mgr.tracer = tracer
     elif slo_quantile is not None:
-        mgr = scn.manager(slo_quantile=slo_quantile, tail_method=tail_method)
+        mgr = scn.manager(slo_quantile=slo_quantile, tail_method=tail_method,
+                          **obs_kw)
     else:
-        mgr = scn.manager()
+        mgr = scn.manager(**obs_kw)
     dt = trace.epoch_s
     bw_est = EwmaEstimator(alpha=bw_alpha)
     lam_est = SlidingRateEstimator(window_s=rate_window_epochs * dt)
@@ -195,6 +206,14 @@ def replay(
             name=name, latencies_s=lats, targets=tuple(targets),
             saturated_epochs=saturated,
         )
+        if tracer is not None and name == "adaptive":
+            # close each epoch's lifecycle: the decide span (emitted by the
+            # manager) gets its true-condition outcome stamped as a respond
+            for i, tgt in enumerate(targets):
+                tracer.instant(
+                    t=float(trace.times[i]), name="respond", cat="respond",
+                    track="replay", epoch=i, latency_s=float(lats[i]),
+                    target="on_device" if tgt < 0 else f"edge[{tgt}]")
 
     return ReplayResult(
         trace=trace,

@@ -1,14 +1,20 @@
-"""Serving launcher CLI: the slot engine serving a Poisson request stream.
+"""Serving launcher CLI: engine + Poisson workload + Algorithm-1 gateway.
 
-The engine half of ``repro.launch.serve``: a model at full width (random
-weights from seed 0) serves ``--requests`` requests arriving at ``--rps``
-on the CUDA card, through the port's RMSNorm, flash-attention and
+The port of ``repro.launch.serve``. The engine half: a model at full width
+(random weights from seed 0) serves ``--requests`` requests arriving at
+``--rps`` on the CUDA card, through the port's RMSNorm, flash-attention and
 decode-attention kernels, and for a hybrid model (jamba) its selective-scan
 kernel. ``--reduced`` swaps in the tiny same-family config the CPU tests use.
 ``--superblocks N`` keeps the first N superblocks at full width, a depth cut
 for a model that one card cannot hold (the override of the reference's
-``launch/perf_probe.py``). The gateway half (Algorithm 1 over the profiled
-service) is not ported yet (ROADMAP A2).
+``launch/perf_probe.py``).
+
+The gateway half: the engine's profiled service (mean over its warm prefill
+and decode calls, paper §4.2) becomes the device tier of the offload
+gateway, which replays the ``--schedule`` of bandwidths (Mbps, one epoch
+each) and prints each epoch's decision from its audit row, the audit's
+re-sum check, the switch count and the metrics, as the reference prints
+them. The gateway is host code: it launches nothing on the card.
 
 Arrivals are replayed on the engine clock: a request is admitted once the
 clock passes its arrival, the clock advances by each measured service time,
@@ -20,7 +26,8 @@ new tokens, rounded up to a multiple of 64, unless ``--max-seq`` sets it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \
-      --requests 16 --rps 20 --prompt-len 256 --prompt-jitter 64 --max-new 32 --slots 4
+      --requests 16 --rps 20 --prompt-len 256 --prompt-jitter 64 --max-new 32 --slots 4 \
+      --schedule 20,10,2,20
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v0_1_52b --superblocks 2 \
       --requests 8 --rps 4 --prompt-len 256 --prompt-jitter 64 --max-new 16 --slots 4
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
@@ -36,12 +43,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ARCH_IDS, get_config
+from repro_torch.core.latency import ServiceModel, Tier, Workload
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import LM
+from repro_torch.obs import AuditLog, MetricsRegistry, format_decision
 from repro_torch.serving.engine import Engine, Request, ServeConfig
+from repro_torch.serving.gateway import EdgeHandle, OffloadGateway
 from repro_torch.serving.workload import PoissonWorkload, WorkloadConfig
 
-__all__ = ["replay", "summarize", "run", "main"]
+__all__ = ["replay", "summarize", "gateway_epochs", "run", "main"]
 
 _EPS = 1e-12
 SEQ_ALIGN = 64  # cache capacity per slot is a multiple of this
@@ -91,9 +101,47 @@ def _fmt(x: float | None) -> str:
     return "n/a" if x is None else f"{x:.3f}"
 
 
-def run(argv=None) -> Engine:
-    """Parse the command line, serve the stream, print the summary and return
-    the engine (its completed requests and service log)."""
+def gateway_epochs(s_dev: float, rps: float, schedule, *, auditor, metrics,
+                   tracer=None) -> OffloadGateway:
+    """Algorithm 1 over a bandwidth ``schedule`` (Mbps, one epoch each) for a
+    device tier whose exponential service has the profiled mean ``s_dev``,
+    against one edge 8x faster with 4 servers; prints one line per epoch
+    (rendered FROM the audit log, so the console and the machine-readable
+    trail cannot disagree), verifies the audit, and prints the switches and
+    the metrics. Returns the gateway."""
+    dev = Tier("device-engine", s_dev, service_model=ServiceModel.EXPONENTIAL)
+    # payloads scaled to the profiled service: the schedule's bandwidth
+    # crossover lands near 5 Mbps regardless of machine speed
+    req_bytes = max(1, int(0.8 * s_dev * 0.625e6))
+    gw = OffloadGateway(
+        dev,
+        [EdgeHandle("edge0", service_mean_s=s_dev / 8, parallelism_k=4.0)],
+        Workload(rps, req_bytes, max(1, req_bytes // 5)),
+        bandwidth_Bps=2.5e6,
+        auditor=auditor,
+        tracer=tracer,
+        metrics=metrics,
+    )
+    for i, mbps in enumerate(schedule):
+        for _ in range(3):
+            gw.observe_bandwidth(mbps * 1e6 / 8)
+        for dt in np.arange(0.0, 1.0, 1.0 / max(rps, 1.0)):
+            gw.observe_arrival(i + dt)
+        gw.decide(now=i + 1.0)
+        print(format_decision(auditor.rows[-1]))
+    auditor.verify()  # terms must re-sum to the decision totals
+    print(f"[gateway] switches={gw.switches}")
+    for line in metrics.render().splitlines():
+        print(f"[metrics] {line}")
+    return gw
+
+
+def run(argv=None) -> tuple[Engine, OffloadGateway]:
+    """Parse the command line, serve the stream, print the summary, run the
+    gateway over the profiled service and return ``(engine, gateway)`` (the
+    engine's completed requests and service log; the gateway's decisions,
+    audit rows in ``gateway.manager.auditor`` and metrics in
+    ``gateway.metrics``)."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", choices=ARCH_IDS, default="starcoder2_3b")
@@ -111,7 +159,13 @@ def run(argv=None) -> Engine:
                     help="tiny same-family config (CPU tests) instead of full width")
     ap.add_argument("--superblocks", type=int, default=None,
                     help="serve only the first N superblocks (a depth cut; widths unchanged)")
+    ap.add_argument("--schedule", type=str, default="20,10,2,20",
+                    help="bandwidth schedule in Mbps, one epoch each")
     args = ap.parse_args(argv)
+    try:
+        schedule = [float(x) for x in args.schedule.split(",")]
+    except ValueError:
+        ap.error(f"--schedule {args.schedule!r} is not a comma-separated list of Mbps")
     # the furthest shared decode position is the longest prompt plus its new tokens
     need = args.prompt_len + args.prompt_jitter + args.max_new + 1
     max_seq = args.max_seq or -(-need // SEQ_ALIGN) * SEQ_ALIGN
@@ -146,7 +200,13 @@ def run(argv=None) -> Engine:
     print(f"[serve] prefill {_fmt(s['prefill_ms_mean'])} ms mean over {s['prefills']}; "
           f"decode step {_fmt(s['decode_step_ms_mean'])} ms mean over {s['decode_steps']}; "
           f"{_fmt(s['tokens_per_s_busy'])} tokens/s of busy time")
-    return engine
+
+    s_dev, var = engine.observed_service_stats()
+    print(f"[serve] profiled service {s_dev * 1e3:.3f} ms (var {var:.2e}); device tier rho "
+          f"{args.rps * s_dev:.3f} at {args.rps:g} rps")
+    gw = gateway_epochs(s_dev, args.rps, schedule, auditor=AuditLog(),
+                        metrics=MetricsRegistry())
+    return engine, gw
 
 
 def main(argv=None) -> int:

@@ -308,7 +308,7 @@ def _request_records(reqs, events) -> list[RequestRecord]:
     return out
 
 
-def run_harness(hc: HarnessConfig, *, device=None) -> MeasuredTrace:
+def run_harness(hc: HarnessConfig, *, device=None, tracer=None) -> MeasuredTrace:
     """Run one profiling experiment end to end and return its trace.
 
     Event loop: arrivals with ``arrival_s <= t`` are submitted, the engine
@@ -317,14 +317,20 @@ def run_harness(hc: HarnessConfig, *, device=None) -> MeasuredTrace:
     the sum of the tick's event durations). When the system empties, ``t``
     jumps to the next arrival — idle time costs nothing.
 
+    ``tracer`` (a ``repro_torch.obs.Tracer``) records the queue/prefill/
+    decode/respond lifecycle of every request on the harness clock — with the
+    simulated clock the emitted span stream is byte-stable per seed, and
+    equal to the reference's for the same config. Calibration probes are
+    excluded (the tracer is attached after calibration, mirroring
+    service_log.clear()).
+
     ``device=None`` runs the engine on the CUDA card (and raises where there
     is none); pass ``device="cpu"`` for the CPU. The device is not part of
     the :class:`HarnessConfig`: a simulated trace is the same on either.
     On the card the model runs in bfloat16, the dtype the port's
     flash-attention kernel takes; that changes only the reduced configs,
     which are float32 for the CPU, and no simulated trace (the timer's
-    durations do not depend on the dtype). The reference's ``tracer`` hook
-    comes back with the port's ``obs`` tracer (ROADMAP A2).
+    durations do not depend on the dtype).
     """
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
@@ -359,6 +365,9 @@ def run_harness(hc: HarnessConfig, *, device=None) -> MeasuredTrace:
 
     lam = _resolve_arrival_rate(hc, eng, timer, probe_request)
     eng.service_log.clear()  # drop any calibration events
+    if tracer is not None:
+        eng.tracer = tracer
+        eng._trace = getattr(tracer, "enabled", True)
 
     wc = WorkloadConfig(
         arrival_rate=lam,

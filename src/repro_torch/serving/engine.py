@@ -97,11 +97,14 @@ class Engine:
 
     ``device=None`` means the CUDA card (and raises where there is none); the
     model must already be on that device. ``timer`` (optional) replaces the
-    wall clock for service durations.
+    wall clock for service durations. ``tracer`` (optional, a
+    ``repro_torch.obs.Tracer``) records each request's queue / prefill /
+    respond spans and one decode span per step, stamped on the engine clock
+    with the reference's names and attributes.
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, sc: ServeConfig,
-                 timer: Timer | None = None,
+                 timer: Timer | None = None, tracer=None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type or (
@@ -111,6 +114,11 @@ class Engine:
         self.sc = sc
         self.model = model
         self.timer = timer
+        # request tracing (duck-typed; serving never imports obs). _trace is
+        # the single predicate every emission site checks: tracer=None and
+        # Tracer(enabled=False) cost exactly one bool test.
+        self.tracer = tracer
+        self._trace = tracer is not None and getattr(tracer, "enabled", True)
         # slot state
         B, S = sc.slots, sc.max_seq
         self.caches = model.init_caches(B, S)
@@ -191,11 +199,21 @@ class Engine:
             req.t_first_token = now + dt
             self.service_log.append(
                 ServiceEvent(now, "prefill", dt, 1, req.rid, L, cold))
+            if self._trace:
+                track = f"req[{req.rid}]"
+                self.tracer.span(
+                    t=req.arrival_s, dur=max(0.0, now - req.arrival_s),
+                    name="queue", cat="queue", track=track, rid=req.rid)
+                self.tracer.span(
+                    t=now, dur=dt, name="prefill", cat="prefill", track=track,
+                    rid=req.rid, tokens=L, compile=cold)
             now += dt
             if self.remaining[slot] <= 0:
                 # single-token request: prefill IS the whole service
                 req.t_done = req.t_first_token
                 self.completed.append(req)
+                if self._trace:
+                    self._respond(req)
             else:
                 self.active[slot] = req
         return now
@@ -254,9 +272,20 @@ class Engine:
                 req.t_done = now + dt
                 self.completed.append(req)
                 self.active[slot] = None
+                if self._trace:
+                    self._respond(req)
         self.service_log.append(
             ServiceEvent(now, "decode", dt, n_active, -1, n_active, cold))
+        if self._trace:
+            self.tracer.span(
+                t=now, dur=dt, name="decode", cat="decode", track="engine",
+                occupancy=n_active, compile=cold)
         return n_active
+
+    def _respond(self, req: Request) -> None:
+        self.tracer.instant(
+            t=req.t_done, name="respond", cat="respond", track=f"req[{req.rid}]",
+            rid=req.rid, tokens=len(req.tokens_out), latency_s=req.latency_s)
 
     def drain(self) -> None:
         """Tick on the wall clock until the queue and every slot are empty."""

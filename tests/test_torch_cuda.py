@@ -26,7 +26,9 @@ rows of 1,646 here, measured by ``launch.euler_parity.noise_band``); the
 SLO closed loop's choices exact on the same counts; the mean-field fixed
 point 1e-12 (closed forms over a few dozen rows, the same iteration count);
 the measurement harness's simulated trace on the card equal to the CPU's bit
-for bit (its durations are the timer's seeded draws).
+for bit (its durations are the timer's seeded draws), and so its engine's
+spans; the closed loop's decide spans and ``audit_cluster`` rows on the card
+against the CPU's: counts and targets exact, latencies and terms 1e-9.
 """
 
 import numpy as np
@@ -67,6 +69,7 @@ from repro_torch.launch.cluster_sim import default_cluster, default_meanfield
 from repro_torch.launch import euler_parity
 from repro_torch.launch.fleet_sweep import default_scenario
 from repro_torch.measure import HarnessConfig, build_profile, run_harness
+from repro_torch.obs import Tracer, audit_cluster
 from repro_torch.validate import EULER_VEC_RHO_MAX, bottleneck_rho, meanfield_gate_specs
 
 pytestmark = pytest.mark.cuda
@@ -208,6 +211,49 @@ def test_simulated_trace_on_the_card_equals_cpu(gen):  # gen: skips without a ca
     card, cpu = run_harness(hc, device="cuda"), run_harness(hc, device="cpu")
     assert card.to_dict() == cpu.to_dict()
     assert build_profile(card).dumps() == build_profile(cpu).dumps()
+
+
+@pytest.mark.parametrize("slots", [1, 2])
+def test_engine_trace_on_the_card_equals_cpu(gen, slots):  # gen: skips without a card
+    hc = HarnessConfig(arch="starcoder2_3b", slots=slots, n_requests=12)
+    card, cpu = Tracer(), Tracer()
+    before = flash_attention.launches
+    run_harness(hc, device="cuda", tracer=card)
+    run_harness(hc, device="cpu", tracer=cpu)
+    assert flash_attention.launches > before  # the card run went through the kernels
+    assert card.to_jsonl() == cpu.to_jsonl() and len(card) > 3 * 12
+
+
+def test_cluster_spans_and_audits_on_the_card_match_cpu(gen):
+    """Spans: epoch, stamps and counts exact, the mean latency 1e-9 (the
+    closed forms in float64; the card's pow/log/exp may round an ulp apart);
+    ``audit_cluster``: the targets exact, the terms 1e-9; the tracer adds no
+    decision-scan launch."""
+    spec = default_cluster(24)
+    tr = make_trace(40.0, 1.0, arrival_rate=2.0, bandwidth_Bps=lambda t: step_signal(
+        t, [(0, 2.5e6), (15, 3.75e5), (30, 2.5e6)]))
+    n_req = np.random.default_rng(5).poisson(2.0, (tr.n_epochs, 24)).astype(np.float64)
+    kw = dict(policies=("adaptive", "on_device"), stagger=3, hysteresis=0.05, n_req=n_req)
+    card_tr, cpu_tr = Tracer(), Tracer()
+    before = decision_scan.launches
+    got = simulate_cluster(spec, tr, tracer=card_tr, **kw)
+    assert decision_scan.launches == before + tr.n_epochs
+    want = simulate_cluster(spec, tr, device="cpu", tracer=cpu_tr, **kw)
+    assert len(card_tr) == len(cpu_tr) == tr.n_epochs
+    for a, b in zip(card_tr.spans, cpu_tr.spans):
+        da, db = dict(a.attrs), dict(b.attrs)
+        assert (a.t, a.dur, da["epoch"], da["offloaded"], da["on_device"]) == \
+            (b.t, b.dur, db["epoch"], db["offloaded"], db["on_device"])
+        assert da["mean_latency_s"] == pytest.approx(db["mean_latency_s"], rel=1e-9)
+    sub = dict(epochs=range(0, 40, 5), clients=range(0, 24, 3))
+    card_log = audit_cluster(got, **sub)
+    cpu_log = audit_cluster(want, device="cpu", **sub)
+    assert card_log.verify() <= 1e-9 and cpu_log.verify() <= 1e-9
+    assert [r.edge_index for r in card_log] == [r.edge_index for r in cpu_log]
+    for a, b in zip(card_log, cpu_log, strict=True):
+        for strat, terms in a.terms.items():
+            for k, v in terms.items():
+                assert v == pytest.approx(b.terms[strat][k], rel=1e-9, abs=0), (strat, k)
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])

@@ -95,8 +95,8 @@ def test_engine_slot_write_keeps_other_slots_and_copies_states_wholesale():
 
 
 def test_serve_cli_runs_reduced_jamba_on_cpu(capsys):
-    engine = serve.run(["--arch", "jamba_v0_1_52b", "--reduced", "--device", "cpu",
-                        "--requests", "4", "--slots", "2", "--max-new", "4"])
+    engine, _ = serve.run(["--arch", "jamba_v0_1_52b", "--reduced", "--device", "cpu",
+                           "--requests", "4", "--slots", "2", "--max-new", "4"])
     assert len(engine.completed) == 4
     assert all(len(r.tokens_out) == 4 for r in engine.completed)
     out = capsys.readouterr().out
@@ -104,8 +104,8 @@ def test_serve_cli_runs_reduced_jamba_on_cpu(capsys):
 
 
 def test_serve_cli_cuts_depth_by_superblocks(capsys):
-    engine = serve.run(["--arch", "jamba_v0_1_52b", "--reduced", "--device", "cpu",
-                        "--superblocks", "1", "--requests", "2", "--max-new", "2"])
+    engine, _ = serve.run(["--arch", "jamba_v0_1_52b", "--reduced", "--device", "cpu",
+                           "--superblocks", "1", "--requests", "2", "--max-new", "2"])
     assert engine.cfg.num_superblocks == 1 and len(engine.model.layers) == 8
     assert len(engine.completed) == 2
     assert "superblocks: 1 of 2" in capsys.readouterr().out
@@ -147,8 +147,8 @@ def test_serve_cli_refuses_prompts_longer_than_the_cache():
 
 def test_serve_cli_sizes_the_cache_to_the_workload(capsys):
     # longest prompt 60 + 8, 3 new tokens: 72 positions, rounded up to 128
-    engine = serve.run(["--reduced", "--device", "cpu", "--requests", "3", "--slots", "2",
-                        "--prompt-len", "60", "--prompt-jitter", "8", "--max-new", "3"])
+    engine, _ = serve.run(["--reduced", "--device", "cpu", "--requests", "3", "--slots", "2",
+                           "--prompt-len", "60", "--prompt-jitter", "8", "--max-new", "3"])
     assert engine.sc.max_seq == 128
     assert len(engine.completed) == 3
     assert all(len(r.tokens_out) == 3 for r in engine.completed)
