@@ -32,7 +32,14 @@ Phases; any failure exits non-zero before the result lines are printed:
      33 and 241, B and C as strided slices of one x_proj output, each case
      also through every neighbour of its plan: G of 4, 8, 16 lanes per
      channel, y reduced by shuffles each step or reduce-scattered G steps
-     at a time);
+     at a time); gemma2's hd-256 attention with q drawn past the soft-cap of
+     50 and held also by rel-L2 over blocks of rows (flash over 4864 tokens
+     with the 4096 window, without it, and over a ragged 4353; decode for 4
+     slots on a 4096-slot ring at pos 4095, 4096 and 4700 and on a 4928-slot
+     cache at pos 4700), each beside planted faults the check must refuse
+     (the kernel with no cap; with the window one key wider; the plain
+     attention capping after the mask), and RMSNorm at gemma2's and xLSTM's
+     widths (d 3584 and 2048);
   3. time: each kernel's device time per call (CUDA-graph replay between CUDA
      events; StarCoder2's and jamba's attention shapes) beside its plain
      version, one PyTorch library call for the same
@@ -48,7 +55,11 @@ Phases; any failure exits non-zero before the result lines are printed:
      RMSNorm plan's (threads per row, rows per CTA) and the selective scan's
      (lanes per channel, the y reduction, steps per tile), the host time of
      the RMSNorm and scan planners per call, and the
-     card's per-launch floor (a one-element elementwise op);
+     card's per-launch floor (a one-element elementwise op); then gemma2's
+     attention at the serve_local cell's shapes (flash over 4608 tokens,
+     causal and windowed; decode at pos 4700 on the append cache and the
+     ring) beside SDPA (no soft-cap) and a compiled flex_attention with the
+     soft-cap, where it builds;
   4. serve: StarCoder2-3B at full width (bf16, random weights from seed 0)
      serving 16 Poisson requests through the serving CLI's own path
      (``repro_torch.launch.serve.run``), with the launch counters reset just
@@ -72,6 +83,28 @@ Phases; any failure exits non-zero before the result lines are printed:
      selective-scan launches per prefill and per decode step), its gateway
      epochs checked as the serve phase's; its kernel
      path held against its plain path, and a profiler trace of decode steps;
+  4c. serve_local: gemma2-9B at full width (42 layers, nothing cut) serving 8
+     Poisson requests of 4352-4864 tokens (every one past the 4096 window:
+     each prefill masks the window and rolls the local layers' rings, each
+     decode step writes past the wrap) through the same CLI path, launch
+     counts reset just before and read just after (the dense model's: 2 +
+     83 + 42 flash per prefill, 1 + 84 + 42 decode per step); its gateway
+     epochs checked; its logits on a 4353-token prompt and 4 decode steps
+     gated above the model's rounding noise: the kernel path's rel-L2 to the
+     plain path in float32 at most 1.5 times the plain bf16 path's, which a
+     control (the norms' sums reordered) must pass and two planted faults (a
+     full ring read as an append cache; local prefill without the window)
+     must fail; a profiler trace of
+     decode steps at pos 4700 against the step's floor (weights and K/V
+     reads);
+  4d. serve_xlstm: xLSTM-1.3B at full width (48 blocks, nothing cut) serving 8
+     Poisson requests through the same path, launch counts exact (50 + 47
+     per prefill, 49 + 48 per decode step: no FFN, so no norm2, and a head
+     norm per cell), gateway, its logits over a prefill and 4 decode steps
+     gated in float32 (kernel path against plain path, rel-L2 1e-3, which
+     the control must pass and norms storing through bf16 must fail; the
+     bf16 paths' difference reported), and a profiler trace of decode steps
+     against the floor (weights and the mLSTM states read and written);
   5. fleet: the fleet path at its users' sizes, counters reset just before and
      read just after: ``repro_torch.launch.fleet_sweep.run_sweep`` over a
      131,072-row grid with bandwidth crossovers (spot rows held against the
@@ -129,9 +162,11 @@ Phases; any failure exits non-zero before the result lines are printed:
      ``--device cpu`` run's; the reduced engine's launch counts exact);
  11. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
      entry; the serving kernels also with their launches in the measure
-     phase's full-width simulated run, and they and the decision scan with
-     their launches in the obs phase), the card's name and power limit as
-     nvidia-smi gives them, and the final ``{"ok": true, ...}`` line.
+     phase's full-width simulated run and in serve_local, the RMSNorm entries
+     in serve_xlstm, flash and decode with their gemma2 timing rows, and they
+     and the decision scan with their launches in the obs phase), the card's
+     name and power limit as nvidia-smi gives them, and the final
+     ``{"ok": true, ...}`` line.
 Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -139,6 +174,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import itertools
 import json
@@ -165,6 +201,17 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)  # outputs round to bf16 at different poin
 # was 7.8e-3 at most (one bf16 step of an output between 1 and 2)
 DECODE_BF16_TOL = dict(atol=8e-3, rtol=1e-2)
 FP32_TOL = dict(atol=1e-5, rtol=1e-5)  # same arithmetic, other summation order
+# gemma2's attention cases draw q at 40x: at hd 256 the scaled scores then
+# have a standard deviation of 40 and a fifth of them pass the soft-cap of 50,
+# so the cap shapes every row, and each output row is carried by a few keys
+# and stays of order 1 (with q ~ N(0, 1) the scores sit far below the cap and
+# a row past the first few hundred averages ~1,500 keys to |out| ~ 0.03, the
+# size of BF16_TOL's atol). Such outputs are also held by their rel-L2 over
+# blocks of 64 query rows of one head (each row in decode): the kernels read
+# 3.1e-3 to 3.6e-3, the subtlest planted fault (the window one key wider)
+# 3.6e-2, the kernel with no cap 6.6 (an H100 80GB HBM3 at 700 W), so 1e-2
+CAP_Q_SCALE = 40.0
+CAP_REL_L2 = 1e-2
 # kernel-path vs plain-path logits of the full 30-layer bf16 model: bf16
 # rounding of attention outputs compounds over 30 residual layers
 LOGITS_REL_L2 = 3e-2
@@ -192,6 +239,7 @@ HYBRID_LOGITS_REL_L2 = 3e-2
 FAILURES: list[str] = []
 RESULT: dict = {}
 COUNTED: list = []  # every kernel wrapper with a launch counter (filled by main)
+STARTED = time.perf_counter()
 
 # the fleet path's sizes: the acceptance sweep of tests/test_fleet.py (131,072
 # rows) and the reference's full differential-gate run length (base_n 120,000)
@@ -227,7 +275,8 @@ def fail(msg: str) -> None:
 def end_phase(name: str) -> None:
     if FAILURES:
         fail(f"phase {name}: " + "; ".join(FAILURES))
-    log(f"[smoke] phase {name} passed")
+    RESULT.setdefault("phase_end_s", {})[name] = time.perf_counter() - STARTED
+    log(f"[smoke] phase {name} passed ({RESULT['phase_end_s'][name]:.1f} s since the start)")
 
 
 def reset_counts() -> None:
@@ -264,18 +313,48 @@ class Checker:
         self.torch = torch
         self.max_err: dict[str, float] = {}
 
-    def compare(self, name: str, what: str, got, want, tol: dict) -> None:
-        torch = self.torch
+    def _within(self, got, want, tol: dict) -> tuple[bool, float]:
         got_f, want_f = got.float(), want.float()
         err = (got_f - want_f).abs()
-        ok = bool(torch.isfinite(got_f).all()) and got.shape == want.shape and bool(
+        ok = bool(self.torch.isfinite(got_f).all()) and got.shape == want.shape and bool(
             (err <= tol["atol"] + tol["rtol"] * want_f.abs()).all())
-        e = float(err.max())
+        return ok, float(err.max())
+
+    def compare(self, name: str, what: str, got, want, tol: dict) -> None:
+        ok, e = self._within(got, want, tol)
         self.max_err[name] = max(self.max_err.get(name, 0.0), e)
         log(f"[check] {name:16s} {what:52s} max_abs_err {e:.3e} "
             f"(atol {tol['atol']:g} rtol {tol['rtol']:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             FAILURES.append(f"{name} {what}: max_abs_err {e:.3e}")
+
+    def compare_rows(self, name: str, what: str, got, want, tol: dict, limit: float, rows: int,
+                     *, fault: bool = False) -> None:
+        """``compare``, and the largest rel-L2 over blocks of ``rows`` rows
+        (dim 1) of one batch entry and head of a (B, S, H, hd) output: a
+        measure sized to the output where it is small. A planted ``fault``
+        must fail one of the two (and is kept out of the recorded error)."""
+        F = self.torch.nn.functional
+        ok, e = self._within(got, want, tol)
+        B, S, H, D = want.shape
+        pad = -S % rows
+
+        def blocks(t):
+            return F.pad(t.square(), (0, 0, 0, 0, 0, pad)).view(B, -1, rows, H, D).sum((2, 4))
+
+        rel = float((blocks(got.float() - want.float()) / blocks(want.float())).sqrt().max())
+        ok = ok and rel <= limit
+        what = f"{what:52s} max_abs_err {e:.3e} (atol {tol['atol']:g} rtol {tol['rtol']:g}), " \
+               f"rel_l2 over {rows}-row blocks {rel:.3e} (limit {limit:g})"
+        if fault:
+            log(f"[check] {name:16s} {what}: planted fault {'caught' if not ok else 'MISSED'}")
+            if ok:
+                FAILURES.append(f"{name} {what}: the planted fault passed the check")
+            return
+        self.max_err[name] = max(self.max_err.get(name, 0.0), e)
+        log(f"[check] {name:16s} {what} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"{name} {what}")
 
     def run(self, name: str, what: str, fn) -> None:
         try:
@@ -303,7 +382,10 @@ def phase_check(torch, ops, refs) -> Checker:
     for shape, dtype in [((256, 3072), torch.bfloat16), ((4, 1, 3072), torch.bfloat16),
                          ((256, 4096), torch.bfloat16), ((4, 1, 4096), torch.bfloat16),
                          ((3, 97, 256), torch.bfloat16), ((64, 3072), torch.float32),
-                         ((5, 16), torch.float32)]:
+                         ((5, 16), torch.float32),
+                         # gemma2 (d 3584) and xLSTM (d 2048): decode and prefill rows
+                         ((4, 3584), torch.bfloat16), ((4864, 3584), torch.bfloat16),
+                         ((4, 2048), torch.bfloat16), ((320, 2048), torch.bfloat16)]:
         def case(shape=shape, dtype=dtype):
             x = randn(*shape, dtype=dtype, scale=3.0)
             sc = randn(shape[-1], dtype=dtype, scale=0.2)  # non-zero: (1+scale) matters
@@ -428,7 +510,80 @@ def phase_check(torch, ops, refs) -> Checker:
                        out, eager, dict(atol=0.0, rtol=0.0))
     ck.run("decode_attention", "graph replay", graph_replay)
     torch.cuda.synchronize()
+    check_capped_attention(torch, ck, flash_attention, decode_attention, flash_ref, decode_ref)
     return ck
+
+
+def flash_cap_after_mask(torch, q, k, v, *, window: int, softcap: float):
+    """A planted fault: the plain causal attention (Sq = Skv) with the
+    soft-cap applied after the mask, so a masked score of -inf becomes
+    -softcap instead of staying out of the softmax."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    kf, vf = k.float().repeat_interleave(G, dim=2), v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * hd**-0.5
+    i = torch.arange(S, device=q.device)
+    keep = i[None, :] <= i[:, None]
+    if window:
+        keep &= i[None, :] > i[:, None] - window
+    s = softcap * torch.tanh(s.masked_fill(~keep, float("-inf")) / softcap)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vf).to(q.dtype)
+
+
+def check_capped_attention(torch, ck: Checker, flash_attention, decode_attention, flash_ref,
+                           decode_ref) -> None:
+    """gemma2's attention at hd 256, 16 query heads on 8 kv heads, soft-cap
+    50, with q drawn at CAP_Q_SCALE: prefill over the longest serve_local
+    prompt with the 4096 window (the window's edge after the cap) and without
+    it (a global layer), and over a ragged 4353 tokens; decode for 4 slots
+    on a 4096-slot ring before, at and past its wrap (the wrapper attends
+    min(pos + 1, 4096) slots) and on a global layer's 4928-slot cache. Each
+    case beside the planted faults it must catch: the kernel with no cap,
+    the kernel with the window one key wider (its edge off by one), and the
+    plain attention that caps after the mask."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2408)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    cap = 50.0
+    for Sq, window in ((4864, 4096), (4864, 0), (4353, 4096)):
+        what = f"q (1,{Sq},16,256) x {CAP_Q_SCALE:g} kv ({Sq},8) w{window} cap{cap:g}"
+
+        def case(Sq=Sq, window=window, what=what):
+            q = randn(1, Sq, 16, 256, scale=CAP_Q_SCALE)
+            k, v = randn(1, Sq, 8, 256), randn(1, Sq, 8, 256)
+            want = flash_ref(q, k, v, window=window, softcap=cap)
+            args = ("flash_attention", what)
+            ck.compare_rows(*args, flash_attention(q, k, v, window=window, softcap=cap), want,
+                            BF16_TOL, CAP_REL_L2, 64)
+            faults = [("kernel with no cap", flash_attention(q, k, v, window=window))]
+            if window:
+                faults.append(("kernel, window one key wider",
+                               flash_attention(q, k, v, window=window + 1, softcap=cap)))
+            if Sq == 4864 and window:
+                faults.append(("plain attention, cap after the mask",
+                               flash_cap_after_mask(torch, q, k, v, window=window, softcap=cap)))
+            for fault, got in faults:
+                ck.compare_rows("flash_attention", f"{what}, {fault}", got, want, BF16_TOL,
+                                CAP_REL_L2, 64, fault=True)
+        ck.run("flash_attention", what, case)
+        torch.cuda.empty_cache()
+
+    for S, pos in ((4096, 4095), (4096, 4096), (4096, 4700), (4928, 4700)):
+        what = f"q (4,1,16,256) x {CAP_Q_SCALE:g} cache ({S},8) pos {pos} cap{cap:g}"
+
+        def case(S=S, pos=pos, what=what):
+            q = randn(4, 1, 16, 256, scale=CAP_Q_SCALE)
+            kc, vc = randn(4, S, 8, 256), randn(4, S, 8, 256)
+            want = decode_ref(q, kc, vc, pos, softcap=cap)
+            ck.compare_rows("decode_attention", what, decode_attention(q, kc, vc, pos, softcap=cap),
+                            want, DECODE_BF16_TOL, CAP_REL_L2, 1)
+            ck.compare_rows("decode_attention", f"{what}, kernel with no cap",
+                            decode_attention(q, kc, vc, pos), want, DECODE_BF16_TOL, CAP_REL_L2, 1,
+                            fault=True)
+        ck.run("decode_attention", what, case)
 
 
 # ---------------------------------------------------------------------------
@@ -562,6 +717,114 @@ def phase_time(torch, F, ops, refs) -> dict:
     return rows
 
 
+# gemma2's attention in the serve_local cell: 16 query heads on 8 kv heads,
+# head dim 256, a 4096-token window on the local layers, soft-cap 50
+GEMMA_H, GEMMA_K, GEMMA_HD, GEMMA_W, GEMMA_CAP = 16, 8, 256, 4096, 50.0
+
+
+def flex_softcap(torch, L: int, window: int):
+    """``flex_attention`` (compiled) with gemma2's soft-cap as its score_mod
+    and the causal mask (and window) as a block mask over L queries and L
+    keys, or none for one query: the library's one call for the function
+    the kernels compute. Raises where it does not build."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return GEMMA_CAP * torch.tanh(score / GEMMA_CAP)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        keep = kv_idx <= q_idx
+        return keep & (kv_idx > q_idx - window) if window else keep
+
+    block = create_block_mask(mask_mod, None, None, L, L, device="cuda") if L > 1 else None
+    compiled = torch.compile(flex_attention)
+    return lambda q, k, v: compiled(q, k, v, score_mod=score_mod, block_mask=block,
+                                    enable_gqa=True)
+
+
+def phase_time_gemma2(torch, F, flash_attention, decode_attention, flash_ref, decode_ref) -> dict:
+    """The serve_local cell's attention at hd 256, device time per call
+    (CUDA-graph replay): flash over a 4608-token prompt (the cell's mean),
+    causal as a global layer runs it and in the 4096 window as a local layer
+    does; decode for 4 slots at pos 4700 against a global layer's 4928-slot
+    cache and a local layer's full 4096-slot ring. Beside kernel, plain
+    version and bound, two library yardsticks the port never calls: SDPA
+    with ``enable_gqa`` (no soft-cap: no single SDPA call computes it; the
+    window as an explicit boolean mask) and ``flex_attention`` with the
+    soft-cap, compiled, where it builds (else its error is recorded)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(77)
+    H, K, hd, cap = GEMMA_H, GEMMA_K, GEMMA_HD, GEMMA_CAP
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows: dict[str, list] = {"flash_attention": [], "decode_attention": []}
+
+    def timed(make):  # build a yardstick and time it; it may not build or run: (ms, error)
+        try:
+            return device_ms(torch, make()), None
+        except Exception as exc:  # recorded and reported, not gated
+            return None, f"{type(exc).__name__}: {exc}"[:400]
+
+    def record(name, shape, kernel, plain, sdpa, make_flex, nbytes, nops):
+        b_ms, b_by = bound(nbytes, nops, BF16_OPS)
+        r = dict(shape=shape, ms=device_ms(torch, kernel), plain_ms=device_ms(torch, plain),
+                 bound_ms=b_ms, bound_by=b_by, eager_ms=eager_ms(torch, kernel))
+        r["sdpa_no_softcap_ms"], r["sdpa_error"] = timed(lambda: sdpa)
+        r["flex_softcap_ms"], r["flex_error"] = timed(make_flex)
+        rows[name].append(r)
+        lib = " ".join(f"{k} {'n/a' if r[k] is None else f'{r[k]:.4f} ms'}"
+                       for k in ("sdpa_no_softcap_ms", "flex_softcap_ms"))
+        log(f"[time] {name:16s} {shape:52s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} "
+            f"ms  bound {b_ms:.5f} ms ({b_by});  {lib};  eager kernel {r['eager_ms']:.4f} ms")
+        for k in ("sdpa_error", "flex_error"):
+            if r[k]:
+                log(f"[time] {name:16s} {k}: {r[k]}")
+
+    L = 4608
+    q, k, v = randn(1, L, H, hd), randn(1, L, K, hd), randn(1, L, K, hd)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    for window in (0, GEMMA_W):
+        pairs = sum(min(i + 1, window or L) for i in range(L))  # (q, k) pairs this mask keeps
+        i = torch.arange(L, device="cuda")
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+        def flex(window=window):
+            fn = flex_softcap(torch, L, window)
+            return lambda: fn(qt, kt, vt)
+
+        record("flash_attention",
+               f"q (1,{L},{H},{hd}) kv ({L},{K}) {'window ' + str(window) if window else 'causal'}"
+               f" cap {cap:g}",
+               lambda window=window: flash_attention(q, k, v, window=window, softcap=cap),
+               lambda window=window: flash_ref(q, k, v, window=window, softcap=cap),
+               (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                       enable_gqa=True)) if not window else
+               (lambda band=band: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                                 enable_gqa=True)),
+               flex, nbytes=2 * (2 * L * H * hd + 2 * L * K * hd), nops=4 * H * hd * pairs)
+
+    q = randn(4, 1, H, hd)
+    for S, pos, what in ((4928, 4700, "global append cache"), (GEMMA_W, 4700, "local ring")):
+        kc, vc = randn(4, S, K, hd), randn(4, S, K, hd)
+        n = min(pos + 1, S)  # the keys the wrapper attends
+        qt, kt, vt = q.transpose(1, 2), kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2)
+
+        def flex(qt=qt, kt=kt, vt=vt):
+            fn = flex_softcap(torch, 1, 0)
+            return lambda: fn(qt, kt, vt)
+
+        record("decode_attention", f"q (4,1,{H},{hd}) {what} (4,{S},{K},{hd}) pos {pos} cap "
+               f"{cap:g}",
+               lambda kc=kc, vc=vc: decode_attention(q, kc, vc, pos, softcap=cap),
+               lambda kc=kc, vc=vc: decode_ref(q, kc, vc, pos, softcap=cap),
+               lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                           enable_gqa=True),
+               flex, nbytes=2 * (2 * 4 * H * hd + 2 * 4 * n * K * hd), nops=4 * 4 * H * hd * n)
+    return rows
+
+
 def norm_plan_variants(torch, x, r, sc) -> list[dict]:
     """The RMSNorm plan's neighbours at x's shape: a warp per row up to a CTA
     per row, one to four rows per CTA, each entry held to the plain version
@@ -640,58 +903,74 @@ SERVE_ARGV = ["--arch", "starcoder2_3b", "--requests", "16", "--rps", "20",
               "--slots", "4", "--max-seq", "1024", "--device", "cuda"]
 
 
-def phase_serve(torch, ops, refs) -> dict:
+def serve_full_width(torch, tag: str, argv: list, arch: str, *, requests: int, max_new: int,
+                     rps: float, cut: str = "nothing cut"):
+    """One full-width cell through the serving CLI's path with the launch
+    counters reset just before and read just after; logs its summary and
+    checks every request done with all its tokens inside the padded vocab.
+    Returns (engine, gateway, out, launches, prefills, decode steps)."""
     from repro_torch.launch import serve
     from repro_torch.models.lm import num_params
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    # the CLI's path: model, warmup, replay, summary, then the gateway's epochs
-    engine, gw = serve.run(SERVE_ARGV)
+    engine, gw = serve.run(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
     cfg, model = engine.cfg, engine.model
     n_params = model.num_params()
-    if cfg.name != "starcoder2_3b" or n_params != num_params(cfg):
+    if cfg.name != arch or n_params != num_params(cfg):
         FAILURES.append(f"served {cfg.name} holds {n_params} params, template says "
                         f"{num_params(cfg)}")
-    out: dict = {"params": n_params, "argv": SERVE_ARGV}
-    n_requests, max_new = 16, 32
     lengths = sorted({len(r.prompt) for r in engine.completed})
     s = serve.summarize(engine)
-    s.update(wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log(f"[serve] {s['requests_done']} requests done in {wall:.2f} s wall (model set-up and "
-        f"warmup of {len(lengths)} prompt lengths included)")
-    log(f"[serve] latency p50 {s['latency_p50_ms']:.2f} ms, p99 {s['latency_p99_ms']:.2f} ms "
-        "(Poisson 20 rps replayed on the engine clock)")
-    log(f"[serve] prefill {s['prefill_ms_mean']:.3f} ms mean over {s['prefills']}; decode step "
-        f"{s['decode_step_ms_mean']:.3f} ms mean over {s['decode_steps']} "
-        f"(weight-read floor {2 * n_params / HBM_BPS * 1e3:.3f} ms)")
-    log(f"[serve] {s['tokens_out']} tokens, {s['tokens_per_s_busy']:.1f} tokens/s of busy time; "
-        f"peak memory {s['peak_mem_gib']:.2f} GiB")
-    out["serve"] = s
-
-    # outputs: every request done with all its tokens, ids inside the padded vocab
-    if s["requests_done"] != n_requests:
-        FAILURES.append(f"{s['requests_done']} of {n_requests} requests done")
+    s.update(wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+             prompt_lengths=[len(r.prompt) for r in engine.completed])
+    log(f"[{tag}] {cfg.name} ({cfg.num_layers} layers, {n_params:,} params, {cut}): "
+        f"{s['requests_done']} requests done in {wall:.2f} s wall (model set-up and warmup of "
+        f"{len(lengths)} prompt lengths, {lengths[0]}..{lengths[-1]} tokens, included)")
+    log(f"[{tag}] latency p50 {s['latency_p50_ms']:.2f} ms, p99 {s['latency_p99_ms']:.2f} ms "
+        f"(Poisson {rps:g} rps replayed on the engine clock)")
+    log(f"[{tag}] prefill {s['prefill_ms_mean']:.3f} ms mean over {s['prefills']}; decode step "
+        f"{s['decode_step_ms_mean']:.3f} ms mean over {s['decode_steps']}; {s['tokens_out']} "
+        f"tokens, {s['tokens_per_s_busy']:.1f} tokens/s of busy time; peak memory "
+        f"{s['peak_mem_gib']:.2f} GiB (limit 80 GB)")
+    out: dict = {"params": n_params, "argv": argv, "layers": cfg.num_layers, "serve": s}
+    if s["requests_done"] != requests:
+        FAILURES.append(f"{tag}: {s['requests_done']} of {requests} requests done")
     for r in engine.completed:
         if len(r.tokens_out) != max_new or not all(
                 0 <= t < cfg.padded_vocab for t in r.tokens_out):
-            FAILURES.append(f"request {r.rid}: {len(r.tokens_out)} tokens {r.tokens_out[:4]}...")
-
-    # launch counts: every prefill and decode call (warmup included) went through the kernels
+            FAILURES.append(f"{tag} request {r.rid}: {len(r.tokens_out)} tokens "
+                            f"{r.tokens_out[:4]}...")
+    if torch.cuda.max_memory_allocated() >= 80e9:
+        FAILURES.append(f"{tag} peak memory {s['peak_mem_gib']:.2f} GiB")
     n_prefill = len(lengths) + sum(ev.phase == "prefill" for ev in engine.service_log)
     n_decode = 1 + sum(ev.phase == "decode" for ev in engine.service_log)
+    return engine, gw, out, launches, n_prefill, n_decode
+
+
+def check_launches(tag: str, launches: dict, expect: dict, what: str) -> None:
+    ok = launches == expect
+    log(f"[{tag}] launches {launches}; expected {expect} for {what} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"{tag} launch counts {launches} != {expect}")
+
+
+def phase_serve(torch, ops, refs) -> dict:
+    # the CLI's path: model, warmup, replay, summary, then the gateway's epochs
+    engine, gw, out, launches, n_prefill, n_decode = serve_full_width(
+        torch, "serve", SERVE_ARGV, "starcoder2_3b", requests=16, max_new=32, rps=20.0)
+    cfg, model = engine.cfg, engine.model
+    log(f"[serve] weight-read floor of a decode step {2 * out['params'] / HBM_BPS * 1e3:.3f} ms")
+    # every prefill and decode call (warmup included) went through the kernels
     L = cfg.num_layers
-    expect = serving_launches(L, n_prefill, n_decode)
-    log(f"[serve] launches {launches}; expected {expect} for {n_prefill} prefills "
-        f"(2 rmsnorm + {2 * L - 1} rmsnorm_add + {L} flash each) and {n_decode} decode steps "
-        f"(1 rmsnorm + {2 * L} rmsnorm_add + {L} decode each); the gateway's epochs, run "
-        "before the counts were read, add none")
-    if launches != expect:
-        FAILURES.append(f"launch counts {launches} != {expect}")
+    check_launches("serve", launches, serving_launches(L, n_prefill, n_decode),
+                   f"{n_prefill} prefills (2 rmsnorm + {2 * L - 1} rmsnorm_add + {L} flash each) "
+                   f"and {n_decode} decode steps (1 rmsnorm + {2 * L} rmsnorm_add + {L} decode "
+                   "each); the gateway's epochs, run before the counts were read, add none")
     out["launches"] = launches
     out["gateway"] = check_gateway("serve", engine, gw, rps=20.0)
     out["tracer"] = tracer_cost(torch, engine)
@@ -836,6 +1115,170 @@ def routing(record: list | None = None, replay: list | None = None):
         yield replaced
     finally:
         moe.route = saved
+
+
+def resummed_norms(torch):
+    """The plain RMSNorm entries with the mean of squares summed in another
+    order (two halves of the row, then their sum), as the kernel sums it in
+    its own: the same function, its bf16 output one step apart where the
+    order tips the rounding."""
+    def rmsnorm(x, scale, eps=1e-6):
+        sq = x.float() ** 2
+        h = sq.shape[-1] // 2
+        var = (sq[..., :h].sum(-1, keepdim=True) + sq[..., h:].sum(-1, keepdim=True)) / (
+            sq.shape[-1])
+        return (x.float() * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+    def rmsnorm_add(x, r, scale, eps=1e-6):
+        s = x + r
+        return s, rmsnorm(s, scale, eps)
+
+    return {"rmsnorm": rmsnorm, "rmsnorm_add": rmsnorm_add}
+
+
+def bf16_rounded_norms(torch, refs):
+    """A planted fault: the plain RMSNorm entries with their output stored
+    through bfloat16 whatever the input's type."""
+    def rmsnorm(x, scale, eps=1e-6):
+        return refs["rmsnorm"](x, scale, eps).to(torch.bfloat16).to(x.dtype)
+
+    def rmsnorm_add(x, r, scale, eps=1e-6):
+        s, y = refs["rmsnorm_add"](x, r, scale, eps)
+        return s, y.to(torch.bfloat16).to(y.dtype)
+
+    return {"rmsnorm": rmsnorm, "rmsnorm_add": rmsnorm_add}
+
+
+def ring_as_append_cache(refs):
+    """A planted fault: decode attention that reads a full ring (pos past its
+    S slots) as an append cache, attending only its slots 0..pos % S."""
+    def decode_attention(q, k, v, pos, **kw):
+        S = k.shape[1]
+        return refs["decode_attention"](q, k, v, pos % S if pos >= S else pos, **kw)
+
+    return {"decode_attention": decode_attention}
+
+
+def gemma2_faults(torch, refs) -> dict:
+    """The planted faults gemma2's logits gate must refuse."""
+    def no_window(q, k, v, **kw):
+        return refs["flash_attention"](q, k, v, **{**kw, "window": 0})
+
+    return {"ring read as an append cache": ring_as_append_cache(refs),
+            "local prefill without the window": {"flash_attention": no_window}}
+
+
+def xlstm_faults(torch, refs) -> dict:
+    """The planted faults xLSTM's logits gate must refuse."""
+    return {"norm outputs stored through bf16": bf16_rounded_norms(torch, refs)}
+
+
+@contextlib.contextmanager
+def in_fp32(torch, model):
+    """The model with its weights and its dtype in float32, restored after
+    (bfloat16 to float32 and back is exact)."""
+    cfg, params = model.cfg, list(model.parameters())
+    dtypes = [p.dtype for p in params]
+    for p in params:
+        p.data = p.data.float()
+    model.cfg = dataclasses.replace(cfg, dtype="float32")
+    try:
+        yield
+    finally:
+        for p, dt in zip(params, dtypes):
+            p.data = p.data.to(dt)
+        model.cfg = cfg
+        if p.is_cuda:
+            torch.cuda.empty_cache()
+
+
+def path_logits(model, prompt, toks, cache_len: int, refs: dict | None = None) -> list:
+    """The logits of a prefill of ``prompt``, then of a decode step for each
+    of ``toks`` from that prefill's caches: through the kernels, or through
+    ``refs`` in their place."""
+    L = prompt.shape[1]
+    with plain_path(refs) if refs else contextlib.nullcontext():
+        logits, caches = model.prefill(prompt)
+        full = model.init_caches(1, cache_len)
+        fill_caches(full, caches, L)
+        del caches
+        return [logits] + [model.decode_step(t, L + i, full)[0] for i, t in enumerate(toks)]
+
+
+def logits_gate(torch, model, refs, faults: dict, *, cache_len: int, prompt_len: int,
+                steps: int, fp32_kernels: bool) -> dict:
+    """The served model's kernel path held against its plain path above the
+    model's own rounding noise: a ragged prompt, then ``steps`` decode steps
+    (tokens from a seed). Beside the kernel path run a control (the plain
+    path with its RMSNorm sums in another order, ``resummed_norms``: a
+    correct kernel's kind of difference) and planted ``faults`` (name ->
+    plain versions to swap in); the gate must pass the kernel path and the
+    control and refuse every fault.
+
+    ``fp32_kernels``: the model runs in float32 through the kernels and
+    through the plain path, and each is held by the worst rel-L2 of its
+    logits against the plain path's over the prefill and the steps, limit
+    FP32_LOGITS_REL_L2. Otherwise (a kernel on the path takes bf16 only) the
+    bf16 paths are held against the plain path in float32, after the
+    convention of FlashAttention's own tests: at every position the kernel
+    path's rel-L2 to it at most FP32_ERROR_RATIO times the plain bf16
+    path's. The bf16 kernel path against the bf16 plain path is reported
+    beside it, not gated."""
+    cfg, dev = model.cfg, model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    L = prompt_len
+    prompt = torch.randint(0, cfg.vocab_size, (1, L), generator=gen, device=dev)
+    toks = [torch.randint(0, cfg.vocab_size, (1, 1), generator=gen, device=dev)
+            for _ in range(steps)]
+    variants = {"control": {**refs, **resummed_norms(torch)}}
+    variants.update({f"fault: {name}": {**refs, **swap} for name, swap in faults.items()})
+
+    def rel_l2(got, want):
+        return float((got.float() - want.float()).norm() / want.float().norm())
+
+    def run_all(paths):
+        return {name: path_logits(model, prompt, toks, cache_len, r) for name, r in paths.items()}
+
+    bf16 = run_all({"kernel": None, "plain": refs})
+    worst = max(rel_l2(g, w) for g, w in zip(bf16["kernel"], bf16["plain"]))
+    finite = all(bool(torch.isfinite(g).all()) and g.shape == (1, 1, cfg.padded_vocab)
+                 for g in bf16["kernel"])
+    out: dict = {"bf16_kernel_vs_plain_rel_l2": worst}
+    log(f"[serve] {cfg.name}: bf16 kernel vs plain path over the prefill ({L} tokens) and "
+        f"{steps} decode steps: worst rel_l2 {worst:.3e} (reported, not gated: the model's "
+        f"rounding noise); logits finite, shape (1, 1, {cfg.padded_vocab}): {finite}")
+    if not finite:
+        FAILURES.append(f"{cfg.name}: kernel-path logits not finite or misshapen")
+    if fp32_kernels:
+        with in_fp32(torch, model):
+            runs = run_all({"plain": refs, "kernel": None, **variants})
+        limit, measure = FP32_LOGITS_REL_L2, "worst rel_l2 to the fp32 plain path"
+        reading = {name: max(rel_l2(g, w) for g, w in zip(runs[name], runs["plain"]))
+                   for name in runs if name != "plain"}
+        plain = [rel_l2(p, r) for p, r in zip(bf16["plain"], runs["plain"])]
+    else:
+        bf16.update(run_all(variants))
+        with in_fp32(torch, model):
+            ref = path_logits(model, prompt, toks, cache_len, refs)
+        plain = [rel_l2(p, r) for p, r in zip(bf16["plain"], ref)]
+        limit = FP32_ERROR_RATIO
+        measure = "worst ratio of its rel_l2 to the fp32 path to the plain bf16 path's"
+        reading = {name: max(rel_l2(g, r) / e for g, r, e in zip(bf16[name], ref, plain))
+                   for name in bf16 if name != "plain"}
+    out["bf16_plain_vs_fp32_rel_l2"] = plain
+    log(f"[serve] {cfg.name}: the plain bf16 path against the fp32 plain path: rel_l2 "
+        + ", ".join(f"{e:.3e}" for e in plain) + " (prefill, then each step)")
+    for name, r in reading.items():
+        fault = name.startswith("fault")
+        ok = (r > limit) if fault else (r <= limit)
+        verdict = ("caught" if ok else "MISSED") if fault else ("ok" if ok else "FAIL")
+        log(f"[serve] {cfg.name}: {name}: {measure} {r:.3e} (limit {limit:g}) {verdict}")
+        out.setdefault("readings", {})[name] = r
+        if not ok:
+            FAILURES.append(f"{cfg.name} logits gate, {name}: {r:.3e} against {limit:g}")
+    out["gate_limit"] = limit
+    return out
 
 
 def kernel_vs_plain(torch, model, refs, limit: float, *, cache_len: int) -> dict:
@@ -1151,53 +1594,18 @@ def scan_plan_variants(torch, args, scan_ref) -> list[dict]:
 
 def phase_serve_hybrid(torch, refs) -> dict:
     """Jamba at full width, 2 of 4 superblocks, through the serving CLI's path."""
-    from repro_torch.launch import serve
-    from repro_torch.models.lm import num_params
-
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    engine, gw = serve.run(HYBRID_ARGV)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
+    engine, gw, out, launches, n_prefill, n_decode = serve_full_width(
+        torch, "serve_hybrid", HYBRID_ARGV, "jamba_v0_1_52b", requests=8, max_new=16, rps=4.0,
+        cut="2 of 4 superblocks")
     cfg, model = engine.cfg, engine.model
-    n_params = model.num_params()
-    if cfg.name != "jamba_v0_1_52b" or cfg.num_superblocks != 2 or n_params != num_params(cfg):
-        FAILURES.append(f"served {cfg.name} x {cfg.num_superblocks} superblocks holds "
-                        f"{n_params} params, template says {num_params(cfg)}")
-    out: dict = {"params": n_params, "argv": HYBRID_ARGV, "layers": cfg.num_layers,
-                 "superblocks": f"{cfg.num_superblocks} of 4"}
-    n_requests, max_new = 8, 16
-    lengths = sorted({len(r.prompt) for r in engine.completed})
-    s = serve.summarize(engine)
-    s.update(wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    floor_ms = 2 * n_params / HBM_BPS * 1e3
-    log(f"[serve_hybrid] {cfg.name}, superblocks {cfg.num_superblocks} of 4 ({cfg.num_layers} "
-        f"layers, {n_params:,} params): {s['requests_done']} requests done in {wall:.2f} s wall "
-        f"(model set-up and warmup of {len(lengths)} prompt lengths included)")
-    log(f"[serve_hybrid] latency p50 {s['latency_p50_ms']:.2f} ms, p99 "
-        f"{s['latency_p99_ms']:.2f} ms (Poisson 4 rps replayed on the engine clock)")
-    log(f"[serve_hybrid] prefill {s['prefill_ms_mean']:.3f} ms mean over {s['prefills']}; "
-        f"decode step {s['decode_step_ms_mean']:.3f} ms mean over {s['decode_steps']} "
-        f"(weight-read floor 2 x {n_params:,} B / 3.35 TB/s = {floor_ms:.3f} ms: the dense "
-        f"dispatch runs every expert over a capacity buffer of at least 4)")
-    log(f"[serve_hybrid] {s['tokens_out']} tokens, {s['tokens_per_s_busy']:.1f} tokens/s of "
-        f"busy time; peak memory {s['peak_mem_gib']:.2f} GiB (limit 80 GB)")
-    s["decode_floor_ms"] = floor_ms
-    out["serve"] = s
-    if s["requests_done"] != n_requests:
-        FAILURES.append(f"hybrid: {s['requests_done']} of {n_requests} requests done")
-    for r in engine.completed:
-        if len(r.tokens_out) != max_new or not all(
-                0 <= t < cfg.padded_vocab for t in r.tokens_out):
-            FAILURES.append(f"hybrid request {r.rid}: {len(r.tokens_out)} tokens "
-                            f"{r.tokens_out[:4]}...")
-    if torch.cuda.max_memory_allocated() >= 80e9:
-        FAILURES.append(f"hybrid peak memory {s['peak_mem_gib']:.2f} GiB")
-
-    n_prefill = len(lengths) + sum(ev.phase == "prefill" for ev in engine.service_log)
-    n_decode = 1 + sum(ev.phase == "decode" for ev in engine.service_log)
+    if cfg.num_superblocks != 2:
+        FAILURES.append(f"hybrid served {cfg.num_superblocks} superblocks, not 2")
+    out["superblocks"] = f"{cfg.num_superblocks} of 4"
+    floor_ms = 2 * out["params"] / HBM_BPS * 1e3
+    out["serve"]["decode_floor_ms"] = floor_ms
+    log(f"[serve_hybrid] decode-step weight-read floor 2 x {out['params']:,} B / 3.35 TB/s = "
+        f"{floor_ms:.3f} ms (the dense dispatch runs every expert over a capacity buffer of "
+        "at least 4)")
     n_mamba = sum(spec.mixer == "mamba" for spec in cfg.superblock) * cfg.num_superblocks
     n_attn = cfg.num_layers - n_mamba
     L = cfg.num_layers
@@ -1206,17 +1614,137 @@ def phase_serve_hybrid(torch, refs) -> dict:
               "flash_attention": n_attn * n_prefill, "decode_attention": n_attn * n_decode,
               "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0,
               "ssm_scan": n_mamba * (n_prefill + n_decode)}
-    log(f"[serve_hybrid] launches {launches}; expected {expect} for {n_prefill} prefills "
-        f"(2 rmsnorm + {2 * L - 1} rmsnorm_add + {n_attn} flash + {n_mamba} ssm_scan each) and "
-        f"{n_decode} decode steps (1 rmsnorm + {2 * L} rmsnorm_add + {n_attn} decode + "
-        f"{n_mamba} ssm_scan each)")
-    if launches != expect:
-        FAILURES.append(f"hybrid launch counts {launches} != {expect}")
+    check_launches("serve_hybrid", launches, expect,
+                   f"{n_prefill} prefills (2 rmsnorm + {2 * L - 1} rmsnorm_add + {n_attn} flash + "
+                   f"{n_mamba} ssm_scan each) and {n_decode} decode steps (1 rmsnorm + {2 * L} "
+                   f"rmsnorm_add + {n_attn} decode + {n_mamba} ssm_scan each)")
     out["launches"] = launches
     out["gateway"] = check_gateway("serve_hybrid", engine, gw, rps=4.0)
 
     out.update(kernel_vs_plain(torch, model, refs, HYBRID_LOGITS_REL_L2, cache_len=512))
     out["profile"] = profile_decode(torch, model, slots=4, pos=300, cache_len=512)
+    del engine, model, gw
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gemma2 (sliding-window ring-buffer decode, head dim 256) and xLSTM at full width
+
+# gemma2-9B, nothing cut: 8 Poisson requests at 2 rps, prompts 4608 +/- 256
+# (every one past the 4096 window), 32 new tokens, 4 slots of 4928 positions
+LOCAL_ARGV = ["--arch", "gemma2_9b", "--requests", "8", "--rps", "2", "--prompt-len", "4608",
+              "--prompt-jitter", "256", "--max-new", "32", "--slots", "4", "--max-seq", "4928",
+              "--device", "cuda"]
+# xLSTM-1.3B, nothing cut: 8 Poisson requests at 4 rps, prompts 256 +/- 64, 16
+# new tokens, 4 slots of 384 positions
+XLSTM_ARGV = ["--arch", "xlstm_1_3b", "--requests", "8", "--rps", "4", "--prompt-len", "256",
+              "--prompt-jitter", "64", "--max-new", "16", "--slots", "4", "--max-seq", "384",
+              "--device", "cuda"]
+# the logits gates of these two cells (``logits_gate``). The bf16 kernel path
+# sits at the model's own rounding noise from the bf16 plain path (gemma2
+# 2.9e-2, as far as a control that only reorders the norms' sums; xLSTM 3.5e-2,
+# its bf16 logits 0.49-0.63 from its own float32 evaluation, so that two bf16
+# paths can land anywhere up to that apart), so no limit on that difference
+# separates a faulty kernel from a correct one. xLSTM's kernels take float32, so it is
+# held in float32 against its plain path: kernel path 5.26e-5, control
+# 5.20e-5, norms storing through bf16 4.4e-1, so 1e-3. gemma2's flash kernel
+# takes bf16 only, so its error against the fp32 plain path is held to a
+# multiple of the plain bf16 path's: kernel path 1.006, control 1.036, local
+# prefill without the window 1.87, a full ring read as an append cache 14.3,
+# so 1.5 (readings on an H100 80GB HBM3 at 700 W)
+FP32_LOGITS_REL_L2 = 1e-3
+FP32_ERROR_RATIO = 1.5
+
+
+def xlstm_launches(cfg, prefills: int, decodes: int) -> tuple[dict[str, int], str]:
+    """Every kernel's launches for that many prefills and decode steps of an
+    xLSTM whose L blocks have no FFN (so no norm2), X of them recurrent
+    cells with a head norm, and the formula: per prefill 1 + X + 1 rmsnorm
+    (layer 0's norm1, the head norms, the final norm of the last position)
+    and L - 1 rmsnorm_add (every other norm1 fused with the mixer's add);
+    per decode step 1 + X rmsnorm and L rmsnorm_add (the final norm fused)."""
+    L = cfg.num_layers
+    X = sum(spec.mixer in ("mlstm", "slstm") for spec in cfg.superblock) * cfg.num_superblocks
+    counts = {"rmsnorm": (2 + X) * prefills + (1 + X) * decodes,
+              "rmsnorm_add": (L - 1) * prefills + L * decodes,
+              "flash_attention": 0, "decode_attention": 0, "lindley_scan": 0,
+              "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0}
+    formula = (f"per prefill 1 + X + 1 = {2 + X} rmsnorm and L - 1 = {L - 1} rmsnorm_add, per "
+               f"decode step 1 + X = {1 + X} and L = {L} (L = {L} blocks, X = {X} head norms)")
+    return counts, formula
+
+
+def phase_serve_local(torch, refs) -> dict:
+    """gemma2-9B at full width: 21 local layers (a 4096-token window, ring
+    caches of 4096 slots) and 21 global ones, head dim 256, soft-caps 50 and
+    30, through the serving CLI's path; every prompt longer than the window,
+    so each prefill masks the window and rolls the ring and each decode step
+    writes past its wrap."""
+    engine, gw, out, launches, n_prefill, n_decode = serve_full_width(
+        torch, "serve_local", LOCAL_ARGV, "gemma2_9b", requests=8, max_new=32, rps=2.0)
+    cfg, model = engine.cfg, engine.model
+    W = cfg.window_size
+    shortest = min(len(r.prompt) for r in engine.completed)
+    log(f"[serve_local] shortest prompt {shortest} tokens, window {W}: every prompt past the "
+        f"window {'ok' if shortest > W else 'FAIL'}")
+    if shortest <= W:
+        FAILURES.append(f"serve_local: a {shortest}-token prompt does not pass the {W} window")
+    L = cfg.num_layers
+    check_launches("serve_local", launches, serving_launches(L, n_prefill, n_decode),
+                   f"{n_prefill} prefills (2 rmsnorm + 2L - 1 = {2 * L - 1} rmsnorm_add + L = "
+                   f"{L} flash each) and {n_decode} decode steps (1 rmsnorm + 2L = {2 * L} "
+                   f"rmsnorm_add + L = {L} decode each), L = {L}")
+    out["launches"] = launches
+    # a decode step's floor at pos 4700: the weights once, then every layer's K
+    # and V over the keys it attends (4701 on a global layer, the 4096-slot ring
+    # on a local one) for 4 slots
+    n_local = sum(sp.mixer == "attn_local" for sp in cfg.superblock) * cfg.num_superblocks
+    kv_bytes = 2 * 4 * cfg.num_kv_heads * cfg.resolved_head_dim * 2  # K and V, 4 slots, bf16
+    weights_ms = 2 * out["params"] / HBM_BPS * 1e3
+    cache_ms = (n_local * W + (L - n_local) * 4701) * kv_bytes / HBM_BPS * 1e3
+    out["serve"].update(decode_floor_ms=weights_ms + cache_ms, weights_floor_ms=weights_ms,
+                        cache_floor_ms=cache_ms)
+    log(f"[serve_local] decode-step floor at pos 4700: weights 2 x {out['params']:,} B / 3.35 "
+        f"TB/s = {weights_ms:.3f} ms + K/V reads {cache_ms:.3f} ms = {weights_ms + cache_ms:.3f} "
+        f"ms; measured mean {out['serve']['decode_step_ms_mean']:.3f} ms over all positions")
+    out["gateway"] = check_gateway("serve_local", engine, gw, rps=2.0)
+    # a ragged prompt past the window, then decode steps past the ring's wrap
+    out["logits"] = logits_gate(torch, model, refs, gemma2_faults(torch, refs), cache_len=4928,
+                                prompt_len=4353, steps=4, fp32_kernels=False)
+    out["profile"] = profile_decode(torch, model, slots=4, pos=4700, cache_len=4928)
+    del engine, model, gw
+    return out
+
+
+def phase_serve_xlstm(torch, refs) -> dict:
+    """xLSTM-1.3B at full width: 6 sLSTM and 42 mLSTM blocks, no FFN, through
+    the serving CLI's path; the cells in plain torch around the RMSNorm
+    kernels."""
+    engine, gw, out, launches, n_prefill, n_decode = serve_full_width(
+        torch, "serve_xlstm", XLSTM_ARGV, "xlstm_1_3b", requests=8, max_new=16, rps=4.0)
+    cfg, model = engine.cfg, engine.model
+    expect, formula = xlstm_launches(cfg, n_prefill, n_decode)
+    check_launches("serve_xlstm", launches, expect,
+                   f"{n_prefill} prefills and {n_decode} decode steps: {formula}")
+    out["launches"] = launches
+    out["launch_formula"] = formula
+    # a decode step's floor: the weights once, then the mLSTM states (C and n,
+    # fp32, 4 slots) read and written
+    n_mlstm = sum(sp.mixer == "mlstm" for sp in cfg.superblock) * cfg.num_superblocks
+    H = cfg.num_heads
+    hd = cfg.d_model // H
+    weights_ms = 2 * out["params"] / HBM_BPS * 1e3
+    state_ms = 2 * n_mlstm * 4 * H * (hd * hd + hd) * 4 / HBM_BPS * 1e3
+    out["serve"].update(decode_floor_ms=weights_ms + state_ms, weights_floor_ms=weights_ms,
+                        state_floor_ms=state_ms)
+    log(f"[serve_xlstm] decode-step floor: weights 2 x {out['params']:,} B / 3.35 TB/s = "
+        f"{weights_ms:.3f} ms + mLSTM states read and written {state_ms:.3f} ms = "
+        f"{weights_ms + state_ms:.3f} ms; measured mean "
+        f"{out['serve']['decode_step_ms_mean']:.3f} ms")
+    out["gateway"] = check_gateway("serve_xlstm", engine, gw, rps=4.0)
+    out["logits"] = logits_gate(torch, model, refs, xlstm_faults(torch, refs), cache_len=384,
+                                prompt_len=241, steps=4, fp32_kernels=True)
+    out["profile"] = profile_decode(torch, model, slots=4, pos=300, cache_len=384)
     del engine, model, gw
     return out
 
@@ -2739,6 +3267,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     timing["ssm_scan"] = phase_time_ssm(torch, ssm_scan, ssm_scan_reference)
     torch.cuda.empty_cache()
+    timing["serve_local"] = phase_time_gemma2(torch, F, flash_attention, decode_attention,
+                                              flash_attention_reference,
+                                              decode_attention_reference)
+    torch.cuda.empty_cache()
     end_phase("time")
     serve = phase_serve(torch, ops, model_refs)
     gc.collect()  # the StarCoder engine goes before jamba's 52 GB of weights come
@@ -2748,6 +3280,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     end_phase("serve_hybrid")
+    serve_local = phase_serve_local(torch, model_refs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    end_phase("serve_local")
+    serve_xlstm = phase_serve_xlstm(torch, model_refs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    end_phase("serve_xlstm")
     fleet = phase_fleet(torch)
     torch.cuda.empty_cache()
     end_phase("fleet")
@@ -2804,6 +3344,11 @@ def main() -> int:
                        prefill_library_ms=None, prefill_yardstick_ms=p["library_ms"])
         if name in ("rmsnorm", "rmsnorm_add", "flash_attention", "decode_attention"):
             row["measure_launches"] = measure["launches"][name]  # the full-width measured gate
+            row["serve_local_launches"] = serve_local["launches"][name]  # gemma2-9B
+        if name in ("rmsnorm", "rmsnorm_add"):
+            row["serve_xlstm_launches"] = serve_xlstm["launches"][name]  # xLSTM-1.3B
+        if name in ("flash_attention", "decode_attention"):  # gemma2's hd-256 shapes
+            row["serve_local_timing"] = timing["serve_local"][name]
         if name in ("rmsnorm", "rmsnorm_add", "flash_attention", "decode_attention",
                     "decision_scan"):  # the obs phase: the demo's engine, the traced loop
             row["obs_launches"] = obs["launches"][name]
@@ -2825,7 +3370,8 @@ def main() -> int:
                        prefill_bound_ms=p["bound_ms"], prefill_bound_by=p["bound_by"],
                        prefill_eager_ms=p["eager_ms"])
         kernels.append(row)
-    RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid, fleet=fleet,
+    RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid,
+                  serve_local=serve_local, serve_xlstm=serve_xlstm, fleet=fleet,
                   cluster=cluster, tails=tails, meanfield_plan=meanfield_plan, measure=measure,
                   obs=obs)
     out_dir = ROOT / "chiprun_out"

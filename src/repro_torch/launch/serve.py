@@ -4,7 +4,9 @@ The port of ``repro.launch.serve``. The engine half: a model at full width
 (random weights from seed 0) serves ``--requests`` requests arriving at
 ``--rps`` on the CUDA card, through the port's RMSNorm, flash-attention and
 decode-attention kernels, and for a hybrid model (jamba) its selective-scan
-kernel. ``--reduced`` swaps in the tiny same-family config the CPU tests use.
+kernel; gemma2's local layers decode from a ring of W slots through the
+same decode kernel, and xLSTM runs its recurrent cells in plain torch
+around the RMSNorm kernels. ``--reduced`` swaps in the tiny same-family config the CPU tests use.
 ``--superblocks N`` keeps the first N superblocks at full width, a depth cut
 for a model that one card cannot hold (the override of the reference's
 ``launch/perf_probe.py``).
@@ -30,8 +32,14 @@ Usage:
       --schedule 20,10,2,20
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v0_1_52b --superblocks 2 \
       --requests 8 --rps 4 --prompt-len 256 --prompt-jitter 64 --max-new 16 --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_9b --requests 8 --rps 2 \
+      --prompt-len 4608 --prompt-jitter 256 --max-new 32 --slots 4 --max-seq 4928
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1_3b --requests 8 --rps 4 \
+      --prompt-len 256 --prompt-jitter 64 --max-new 16 --slots 4 --max-seq 384
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v0_1_52b --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_9b --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1_3b --reduced --device cpu
 """
 
 from __future__ import annotations

@@ -3,17 +3,19 @@
 The port's counterpart of ``repro.models.attention``:
   * full-sequence (prefill): projections, RoPE, then the flash-attention
     kernel wrapper (the reference ran XLA's query-chunked attention here);
-  * decode: one query token against the append cache, through the
-    decode-attention kernel wrapper. The cache is preallocated and the new
-    token's K/V are written into it in place, where the reference built a new
-    cache with ``dynamic_update_slice``.
-Sliding-window (ring-buffer) decode (ROADMAP A5) and cross-attention for
-enc-dec (ROADMAP A9) are not ported yet.
+  * decode: one query token against the cache, through the decode-attention
+    kernel wrapper. Global layers use an append cache; local (sliding-window)
+    layers a ring buffer of min(cache_len, W) slots, slot = pos % W. The
+    cache is preallocated and the new token's K/V are written into it in
+    place, where the reference built a new cache with
+    ``dynamic_update_slice``.
+Cross-attention for enc-dec (ROADMAP A9) is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -29,10 +31,6 @@ __all__ = [
     "attn_decode",
     "prefill_cache_from_kv",
 ]
-
-LOCAL_DECODE_TODO = ("sliding-window (ring-buffer) decode is not ported yet; "
-                     "ROADMAP A5 (gemma2 local attention) ports it")
-
 
 def attn_template(cfg: ModelConfig) -> dict:
     d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
@@ -79,21 +77,33 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
 
 
 def prefill_cache_from_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, *, local: bool):
-    """Convert full-sequence K/V into the decode cache layout: the identity
-    for the global append cache. (The reference's local ring buffer comes
-    with sliding-window decode.)"""
-    if local:
-        raise NotImplementedError(LOCAL_DECODE_TODO)
-    return {"k": k, "v": v}
+    """Convert full-sequence K/V into the decode cache layout.
+
+    Global: the identity (append cache, S slots). Local: a ring buffer of the
+    last W positions, position t in slot t % W: zero-padded to W slots when
+    S <= W, else the last W positions rolled by (S - W) % W."""
+    if not local:
+        return {"k": k, "v": v}
+    W = cfg.window_size
+    S = k.shape[1]
+    if S <= W:
+        return {"k": F.pad(k, (0, 0, 0, 0, 0, W - S)), "v": F.pad(v, (0, 0, 0, 0, 0, W - S))}
+    shift = (S - W) % W
+    return {"k": torch.roll(k[:, -W:], shift, dims=1),
+            "v": torch.roll(v[:, -W:], shift, dims=1)}
 
 
 def attn_decode(p, x: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig, *,
                 local: bool = False, rope_cs=None):
     """x: (B, 1, d); pos: the absolute position of this token, shared by the
-    whole batch. Writes the token's K/V into ``cache`` at ``pos`` in place
-    and returns (y, cache)."""
-    if local:
-        raise NotImplementedError(LOCAL_DECODE_TODO)
+    whole batch. Writes the token's K/V into ``cache`` in place, at slot
+    ``pos`` (global) or ``pos % W`` (local ring), and returns (y, cache).
+
+    A ring needs no mask of its own: the reference attends slot i iff
+    pos - ((pos - i) mod W) >= 0, which for every pos below the cache's
+    capacity is the set i <= pos clipped to the ring, the set that
+    ``decode_attention`` attends (min(pos + 1, slots) keys). Softmax does
+    not depend on the keys' order, and the cached K already carry RoPE."""
     pos = int(pos)
     B = x.shape[0]
     K, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
@@ -105,8 +115,9 @@ def attn_decode(p, x: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig, *,
             torch.tensor([pos], device=x.device), hd, cfg.rope_theta)
         q = rope_rotate(q, cos, sin)
         k_new = rope_rotate(k_new, cos, sin)
-    cache["k"][:, pos] = k_new[:, 0]
-    cache["v"][:, pos] = v_new[:, 0]
+    slot = pos % cfg.window_size if local else pos
+    cache["k"][:, slot] = k_new[:, 0]
+    cache["v"][:, slot] = v_new[:, 0]
     out = decode_attention(q, cache["k"], cache["v"], pos, softcap=cfg.attn_softcap)
     y = out.reshape(B, 1, H * hd) @ p["wo"]
     return y, cache

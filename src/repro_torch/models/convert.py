@@ -5,8 +5,9 @@ the conversion is a copy: the reference's parameter tree
 ``{"embed": {...}, "blocks": (dict stacked over num_superblocks, ...),
 "final_norm"}``, given as numpy arrays, becomes a ``state_dict`` for
 ``models.lm.LM``, whose layer n is superblock n // P, position n % P. The
-flattening is generic over the leaves, so attention, mamba, MLP and MoE
-blocks carry across alike, each leaf in its own dtype.
+flattening is generic over the leaves, so attention (global or local),
+mamba, mLSTM, sLSTM, MLP and MoE blocks carry across alike, each leaf in its
+own dtype.
 """
 
 from __future__ import annotations
@@ -52,9 +53,10 @@ def params_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
 
 def caches_from_jax(caches: Any, device: str | torch.device = "cpu") -> tuple:
     """The reference's decode caches (a tuple over superblock positions of
-    dicts stacked over n_sb: attention {"k", "v"} (n_sb, B, S, K, hd), mamba
-    {"conv", "h"} with ``h`` float32; numpy leaves) in the port's layout,
-    which is the same, each leaf keeping its dtype."""
+    dicts stacked over n_sb: attention {"k", "v"} (n_sb, B, S, K, hd), a
+    local ring's S being min(S, W); mamba {"conv", "h"}; mLSTM {"C", "n"};
+    sLSTM {"c", "n", "h", "m"}; the recurrent states float32; numpy leaves)
+    in the port's layout, which is the same, each leaf keeping its dtype."""
     return tuple({k: tensor_from_numpy(v).to(device) for k, v in c.items()} for c in caches)
 
 

@@ -1,26 +1,33 @@
 """Decoder-only LM over a superblock stack, as an ``nn.Module``.
 
-The port's counterpart of ``repro.models.lm`` for decoder-only models whose
-layers mix with global attention or mamba and follow with an MLP, a routed
-MoE or a MoE beside a dense MLP: ``starcoder2_3b``, ``starcoder2_15b``,
-``deepseek_7b``, ``internvl2_1b`` (token path), ``jamba_v0_1_52b``,
-``dbrx_132b`` and ``arctic_480b``. The reference scans its stacked layers;
-the port holds one module per layer (``layers.{n}``, with
-n = superblock * len(superblock) + position) and loops over them.
+The port's counterpart of ``repro.models.lm`` for every decoder-only config:
+``starcoder2_3b``, ``starcoder2_15b``, ``deepseek_7b``, ``internvl2_1b``
+(token path), ``gemma2_9b``, ``jamba_v0_1_52b``, ``dbrx_132b``,
+``arctic_480b`` and ``xlstm_1_3b``. A layer mixes with global attention,
+sliding-window attention (``attn_local``), mamba, an mLSTM or an sLSTM, and
+follows with an MLP, a routed MoE, a MoE beside a dense MLP, or nothing
+(``none``: no norm2, the mixer's output is the residual). The reference
+scans its stacked layers; the port holds one module per layer
+(``layers.{n}``, with n = superblock * len(superblock) + position) and loops
+over them.
 
 Modes:
   prefill      — full sequence, returns last-position logits + decode caches
   decode_step  — one token per sequence, reads and updates the caches in place
 
 Each residual add that feeds a norm is fused into it (``rms_norm_add``):
-the mixer's add into ``norm2``, the FFN's add into the next layer's
-``norm1`` and, at decode, into the final norm. The arithmetic is the
-reference's add-then-norm, one launch fewer per add.
+the mixer's add into ``norm2``, the FFN's add (or, in a block without one,
+the mixer's) into the next layer's ``norm1`` and, at decode, into the final
+norm. The arithmetic is the reference's add-then-norm, one launch fewer per
+add.
 
 Caches keep the reference's layout: a tuple over superblock positions of
-dicts stacked over num_superblocks — {"k", "v"} (n_sb, B, S, K, hd) for an
-attention position, {"conv" (n_sb, B, d_conv - 1, d_inner), "h" (n_sb, B,
-d_inner, d_state) float32} for a mamba position.
+dicts stacked over num_superblocks — {"k", "v"} (n_sb, B, S, K, hd) for a
+global attention position and (n_sb, B, min(S, W), K, hd) ring buffers for a
+local one, {"conv" (n_sb, B, d_conv - 1, d_inner), "h" (n_sb, B, d_inner,
+d_state)} for a mamba position, {"C" (n_sb, B, H, hd, hd), "n" (n_sb, B, H,
+hd)} for an mLSTM and {"c", "n", "h", "m"} (n_sb, B, d) for an sLSTM, the
+recurrent states in float32.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from repro_torch.device import resolve_device
 from . import attention as A
 from . import moe as M
 from . import ssm as SSM
+from . import xlstm as XL
 from .layers import (embed_template, mlp_apply, mlp_template, norm_template, rms_norm,
                      rms_norm_add, rope_tables, softcap)
 from .params import ParamTree, count_params, init_tensor, stack, torch_dtype, tree_map
@@ -49,15 +57,8 @@ __all__ = [
     "num_params",
 ]
 
-# Mixers and FFNs not ported yet, with the ROADMAP item that ports each.
-_NOT_PORTED = {
-    "attn_local": "sliding-window attention decode (gemma2): ROADMAP A5",
-    "mlstm": "xLSTM cells: ROADMAP A8",
-    "slstm": "xLSTM cells: ROADMAP A8",
-    "none": "xLSTM cells: ROADMAP A8",
-}
-_MIXERS = ("attn", "mamba")
-_FFNS = ("mlp", "moe", "moe_dense")
+_MIXERS = ("attn", "attn_local", "mamba", "mlstm", "slstm")
+_FFNS = ("mlp", "moe", "moe_dense", "none")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -67,10 +68,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not ported yet "
                                   "(ROADMAP A9)")
     for spec in cfg.superblock:
-        for kind in (spec.mixer, spec.ffn):
-            if kind in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"{cfg.name}: {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
         if spec.mixer not in _MIXERS or spec.ffn not in _FFNS:
             raise ValueError(f"{cfg.name}: unknown layer {spec}")
 
@@ -78,10 +75,16 @@ def check_supported(cfg: ModelConfig) -> None:
 def _block_template(cfg: ModelConfig, spec: LayerSpec) -> dict:
     d = cfg.d_model
     t: dict[str, Any] = {"norm1": norm_template(d)}
-    if spec.mixer == "attn":
+    if spec.mixer in ("attn", "attn_local"):
         t["attn"] = A.attn_template(cfg)
-    else:
+    elif spec.mixer == "mamba":
         t["mamba"] = SSM.mamba_template(cfg)
+    elif spec.mixer == "mlstm":
+        t["mlstm"] = XL.mlstm_template(cfg)
+    else:
+        t["slstm"] = XL.slstm_template(cfg)
+    if spec.ffn == "none":
+        return t
     t["norm2"] = norm_template(d)
     if spec.ffn == "mlp":
         t["mlp"] = mlp_template(cfg)
@@ -109,12 +112,21 @@ def num_params(cfg: ModelConfig) -> int:
     return count_params(model_template(cfg))
 
 
+def _layer_cache_template(cfg: ModelConfig, spec: LayerSpec, batch: int, cache_len: int) -> dict:
+    if spec.mixer in ("attn", "attn_local"):
+        return A.kv_cache_template(cfg, batch, cache_len, local=spec.mixer == "attn_local")
+    if spec.mixer == "mamba":
+        return SSM.mamba_cache_template(cfg, batch)
+    if spec.mixer == "mlstm":
+        return XL.mlstm_cache_template(cfg, batch)
+    return XL.slstm_cache_template(cfg, batch)
+
+
 def cache_template(cfg: ModelConfig, batch: int, cache_len: int) -> tuple:
     """Decode-cache template: tuple over superblock positions, leaves stacked
     over num_superblocks."""
     check_supported(cfg)
-    per_pos = tuple(A.kv_cache_template(cfg, batch, cache_len, local=False)
-                    if spec.mixer == "attn" else SSM.mamba_cache_template(cfg, batch)
+    per_pos = tuple(_layer_cache_template(cfg, spec, batch, cache_len)
                     for spec in cfg.superblock)
     return stack(per_pos, cfg.num_superblocks)
 
@@ -183,7 +195,10 @@ class LM(nn.Module):
 
     def _ffn(self, spec: LayerSpec, p: Any, x: torch.Tensor, y: torch.Tensor):
         """The mixer's residual add fused into norm2, then the FFN. Returns
-        (x, f): the layer's output is x + f, left for the next norm to add."""
+        (x, f): the layer's output is x + f, left for the next norm to add.
+        A block without an FFN hands the mixer's y on as f."""
+        if spec.ffn == "none":
+            return x, y
         x, h = rms_norm_add(x, y, p["norm2"], self.cfg.norm_eps)
         if spec.ffn == "mlp":
             return x, mlp_apply(p["mlp"], h, self.cfg)
@@ -200,7 +215,8 @@ class LM(nn.Module):
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor):
         """tokens: (B, S) ids. Returns (last-position logits (B, 1, V), caches
-        holding the S positions and the mamba layers' states)."""
+        holding the S positions (a local layer's last W, as a ring) and the
+        recurrent layers' states)."""
         cfg = self.cfg
         S = tokens.shape[1]
         x, f = self._embed(tokens), None
@@ -209,12 +225,16 @@ class LM(nn.Module):
         parts: list[dict[str, list[torch.Tensor]]] = [{} for _ in range(P)]
         for n, (spec, p) in enumerate(zip(self.layer_specs, self.layers)):
             x, h = self._norm1(p, x, f)
-            if spec.mixer == "attn":
-                y, (k, v) = A.attn_forward(p["attn"], h, cfg, causal=True, return_kv=True,
-                                           rope_cs=rope_cs)
-                c = A.prefill_cache_from_kv(k, v, cfg, local=False)
-            else:
+            if spec.mixer in ("attn", "attn_local"):
+                local = spec.mixer == "attn_local"
+                y, (k, v) = A.attn_forward(p["attn"], h, cfg, causal=True, local=local,
+                                           return_kv=True, rope_cs=rope_cs)
+                c = A.prefill_cache_from_kv(k, v, cfg, local=local)
+            elif spec.mixer == "mamba":
                 y, c = SSM.mamba_forward(p["mamba"], h, cfg, return_cache=True)
+            else:
+                forward = XL.mlstm_forward if spec.mixer == "mlstm" else XL.slstm_forward
+                y, c = forward(p[spec.mixer], h, cfg, return_cache=True)
             for name, leaf in c.items():
                 parts[n % P].setdefault(name, []).append(leaf)
             x, f = self._ffn(spec, p, x, y)
@@ -226,8 +246,9 @@ class LM(nn.Module):
     @torch.inference_mode()
     def decode_step(self, token: torch.Tensor, pos: int, caches: tuple):
         """token: (B, 1) ids; pos: the absolute position shared by the batch.
-        Writes position ``pos`` of the attention caches and the new mamba
-        states into ``caches`` in place and returns (logits (B, 1, V), caches)."""
+        Writes position ``pos`` of the attention caches (slot pos % W of a
+        ring) and the new recurrent states into ``caches`` in place and
+        returns (logits (B, 1, V), caches)."""
         cfg = self.cfg
         pos = int(pos)
         x, f = self._embed(token), None
@@ -237,12 +258,16 @@ class LM(nn.Module):
             c, sb = caches[n % P], n // P
             layer_cache = {name: leaf[sb] for name, leaf in c.items()}
             x, h = self._norm1(p, x, f)
-            if spec.mixer == "attn":
-                y, _ = A.attn_decode(p["attn"], h, layer_cache, pos, cfg, rope_cs=rope_cs)
-            else:
+            if spec.mixer in ("attn", "attn_local"):
+                y, _ = A.attn_decode(p["attn"], h, layer_cache, pos, cfg,
+                                     local=spec.mixer == "attn_local", rope_cs=rope_cs)
+            elif spec.mixer == "mamba":
                 y, new = SSM.mamba_decode(p["mamba"], h, layer_cache, cfg)
                 for name, leaf in new.items():
                     layer_cache[name].copy_(leaf)
+            else:
+                decode = XL.mlstm_decode if spec.mixer == "mlstm" else XL.slstm_decode
+                y, _ = decode(p[spec.mixer], h, layer_cache, cfg)
             x, f = self._ffn(spec, p, x, y)
         _, h = rms_norm_add(x, f, self.final_norm, cfg.norm_eps)
         return self._logits(h), caches

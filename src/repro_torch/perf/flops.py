@@ -1,8 +1,8 @@
 """Parameter counts for the cost models: the port's copy of
 ``repro.perf.flops.param_counts``, over the port's ``models.lm.num_params``.
 
-A config the port does not serve yet (gemma2, xLSTM, encoder-decoder) makes
-``num_params`` raise ``NotImplementedError`` naming its ROADMAP item, and
+The one config the port does not serve yet (the encoder-decoder, seamless)
+makes ``num_params`` raise ``NotImplementedError`` naming ROADMAP A9, and
 ``param_counts`` passes that on.
 """
 

@@ -223,7 +223,9 @@ class Engine:
         the engine's caches, in place, by the reference's rule:
         sequence-bearing leaves (dim 2 is the cache capacity, which differs
         from the prompt's length) copy the prompt's prefix; state leaves
-        (mamba ``conv`` and ``h``) copy wholesale."""
+        (mamba ``conv`` and ``h``, the xLSTM states) and a local ring whose
+        W slots the capacity holds copy wholesale; a capacity below W takes
+        the ring's first slots."""
         for full_pos, one_pos in zip(self.caches, one):
             for name, full in full_pos.items():
                 part = one_pos[name]

@@ -28,7 +28,12 @@ point 1e-12 (closed forms over a few dozen rows, the same iteration count);
 the measurement harness's simulated trace on the card equal to the CPU's bit
 for bit (its durations are the timer's seeded draws), and so its engine's
 spans; the closed loop's decide spans and ``audit_cluster`` rows on the card
-against the CPU's: counts and targets exact, latencies and terms 1e-9.
+against the CPU's: counts and targets exact, latencies and terms 1e-9;
+gemma2's hd-256 attention shapes with q drawn past the soft-cap, to the
+same bf16 tolerances and to rel-L2 1e-2 over blocks of rows (the kernel with
+no cap must fail it), and a reduced gemma2 engine in bf16 on the card
+followed by the CPU's: logits at every step to the bf16 tolerance, tokens
+equal wherever the CPU's top two logits stand further apart than it.
 """
 
 import numpy as np
@@ -739,3 +744,131 @@ def test_mamba_layer_on_the_card_matches_its_plain_path(gen):
     torch.testing.assert_close(y.float(), ry.float(), **BF16)
     torch.testing.assert_close(y1.float(), ry1.float(), **BF16)
     torch.testing.assert_close(cache1["h"], rcache1["h"], **SCAN_H)
+
+
+# ---------------------------------------------------------------------------
+# gemma2: head dim 256, 16 query heads on 8 kv heads, window 4096, soft-cap 50
+
+
+# q is drawn at 40x: the scaled scores (std 40 at hd 256) pass the cap of 50
+# in a fifth of their entries and each output row, carried by a few keys,
+# stays of order 1 (with q ~ N(0, 1) the cap does nothing and most rows
+# average ~1,500 keys to |out| ~ 0.03, the size of the bf16 atol); the outputs
+# are also held by rel-L2 over blocks of 64 query rows of one head (each row
+# in decode), and the kernel with no cap must fail that check
+CAP_Q_SCALE, CAP_REL_L2 = 40.0, 1e-2  # kernels 3.1e-3 to 3.6e-3, faults 3.6e-2 and up
+
+
+def capped_within(got, want, tol, rows):
+    """Elementwise within ``tol`` and within CAP_REL_L2 over blocks of
+    ``rows`` rows (dim 1) of one batch entry and head."""
+    g, w = got.float(), want.float()
+    B, S, H, D = w.shape
+    pad = -S % rows
+
+    def blocks(t):
+        return torch.nn.functional.pad(t.square(), (0, 0, 0, 0, 0, pad)).view(
+            B, -1, rows, H, D).sum((2, 4))
+
+    rel = float((blocks(g - w) / blocks(w)).sqrt().max())
+    return bool(((g - w).abs() <= tol["atol"] + tol["rtol"] * w.abs()).all()) and rel <= CAP_REL_L2
+
+
+@pytest.mark.parametrize("Sq,window", [(4864, 4096), (4864, 0), (4353, 4096)])
+def test_flash_attention_gemma2_prefill(gen, Sq, window):
+    """The serve_local cell's longest prompt in a local layer (the soft-cap,
+    then the window's edge) and in a global one, and a ragged prompt; the
+    kernel with no cap, or with the window one key wider, fails the check."""
+    q = randn(gen, 1, Sq, 16, 256, dtype=torch.float32).mul(CAP_Q_SCALE).bfloat16()
+    k, v = randn(gen, 1, Sq, 8, 256), randn(gen, 1, Sq, 8, 256)
+    ref = flash_attention_reference(q, k, v, window=window, softcap=50.0)
+    out = flash_attention(q, k, v, window=window, softcap=50.0)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16)
+    assert capped_within(out, ref, BF16, 64)
+    assert not capped_within(flash_attention(q, k, v, window=window), ref, BF16, 64)
+    if window:
+        wider = flash_attention(q, k, v, window=window + 1, softcap=50.0)
+        assert not capped_within(wider, ref, BF16, 64)
+
+
+@pytest.mark.parametrize("S,pos", [(4096, 4095), (4096, 4096), (4096, 4700), (4928, 4700)])
+def test_decode_attention_gemma2(gen, S, pos):
+    """4 slots against a local layer's 4096-slot ring before, at and past its
+    wrap (min(pos + 1, 4096) slots attended), and a global layer's 4928-slot
+    append cache; the kernel with no cap fails the check."""
+    q = randn(gen, 4, 1, 16, 256, dtype=torch.float32).mul(CAP_Q_SCALE).bfloat16()
+    kc, vc = randn(gen, 4, S, 8, 256), randn(gen, 4, S, 8, 256)
+    ref = decode_attention_reference(q, kc, vc, pos, softcap=50.0)
+    out = decode_attention(q, kc, vc, pos, softcap=50.0)
+    torch.testing.assert_close(out.float(), ref.float(), **DECODE_BF16)
+    assert capped_within(out, ref, DECODE_BF16, 1)
+    assert not capped_within(decode_attention(q, kc, vc, pos), ref, DECODE_BF16, 1)
+
+
+def test_gemma2_engine_on_the_card_follows_cpu_across_the_wrap(gen):
+    """Reduced gemma2 (window 8) in bf16, the same weights on the card and on
+    the CPU, both engines on one deterministic timer over prompts of 8-16
+    tokens with two slots busy: the ring wraps in prefill and in decode.
+    The CPU engine takes the card's logits for its argmax (so both emit the
+    card's tokens: a bf16 near-tie may go either way) and holds its own
+    logits at every prefill and decode step to the card's within BF16; where
+    its own top two logits stand further apart than that, its own token is
+    the card's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.workload import PoissonWorkload, WorkloadConfig
+
+    cfg = dataclasses.replace(get_config("gemma2_9b").reduced(seq_chunk=8), dtype="bfloat16")
+    card_model, cpu_model = LM(cfg, device="cuda"), LM(cfg, device="cpu")
+    cpu_model.load_state_dict(card_model.state_dict())
+
+    def timer(phase, run, *, tokens, occupancy):
+        return run(), (2e-3 if phase == "prefill" else 1e-3) + 1e-4 * tokens
+
+    card_logits, checked = [], {"steps": 0, "clear": 0}
+
+    def recording(fn):
+        def run(*args):
+            logits, caches = fn(*args)
+            card_logits.append(logits.float().cpu())
+            return logits, caches
+        return run
+
+    def following(fn):
+        def run(*args):
+            logits, caches = fn(*args)
+            want = card_logits[checked["steps"]]
+            got = logits.float()
+            torch.testing.assert_close(got, want, **BF16)
+            top2 = got.topk(2, dim=-1).values
+            tol = BF16["atol"] + BF16["rtol"] * top2[..., 0].abs()
+            clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+            assert bool(((got.argmax(-1) == want.argmax(-1)) | ~clear).all())
+            checked["steps"] += 1
+            checked["clear"] += int(clear.sum())
+            return want.to(logits.dtype), caches
+        return run
+
+    card_model.prefill = recording(card_model.prefill)
+    card_model.decode_step = recording(card_model.decode_step)
+    cpu_model.prefill = following(cpu_model.prefill)
+    cpu_model.decode_step = following(cpu_model.decode_step)
+    wl = WorkloadConfig(arrival_rate=400.0, prompt_len=12, prompt_len_jitter=4, max_new_tokens=8,
+                        new_tokens_geometric_p=0.3, seed=3, vocab=cfg.vocab_size)
+    before = decode_attention.launches
+    engines = {}
+    for device, model in (("cuda", card_model), ("cpu", cpu_model)):
+        engines[device] = Engine(cfg, model, ServeConfig(slots=2, max_seq=32), timer=timer,
+                                 device=device)
+        serve.replay(engines[device], PoissonWorkload(wl).take(7))
+    card, cpu = engines["cuda"], engines["cpu"]
+    assert decode_attention.launches > before  # the card engine went through the kernel
+    assert checked["steps"] == len(card_logits) and checked["clear"] > 0
+    assert sorted((r.rid, r.tokens_out) for r in card.completed) == sorted(
+        (r.rid, r.tokens_out) for r in cpu.completed)
+    assert max(e.occupancy for e in card.service_log if e.phase == "decode") == 2
+    assert max(len(r.prompt) + len(r.tokens_out) for r in card.completed) > 2 * cfg.window_size

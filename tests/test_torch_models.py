@@ -10,6 +10,8 @@ tests/test_kernels.py budgets 2e-4 for attention inside the model as well).
 The mamba mixer is held to 1e-5 through prefill and decode (its scan runs in
 fp32 in both packages); MoE layers to 1e-5, with the same (token, slot)
 pairs dropped (the routing is compared exactly through the dropped count).
+The local (sliding-window) ring cache is held bit for bit (a pad or a roll
+of the same numbers). The xLSTM cells to 1e-4 (see ``XLSTM_TOL``).
 """
 
 import dataclasses
@@ -26,6 +28,7 @@ from repro.models import layers as JL
 from repro.models import lm as jlm
 from repro.models import moe as JM
 from repro.models import ssm as JS
+from repro.models import xlstm as JX
 from repro.models.params import init_params as jax_init_params
 from repro_torch.configs import get_config
 from repro_torch.models import attention as A
@@ -33,11 +36,18 @@ from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.convert import caches_from_jax, caches_to_numpy, params_from_jax
 
 KEY = jax.random.PRNGKey(1)
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
+# the xLSTM cells: the port's mLSTM takes 256-token chunks where the
+# reference takes its largest divisor <= 256 (one-token chunks at a prime
+# length), so the same sums run in another order and the decay factors
+# exp(b_t - b_tau) come from other cumsums; states accumulate up to exp(8)
+# input gates over the sequence
+XLSTM_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def to_torch(tree):
@@ -54,7 +64,7 @@ def cfgs(name, **kw):
 
 
 def test_configs_are_the_same_data():
-    for name in ("starcoder2_3b", "deepseek_7b", "gemma2_9b", "jamba_v0_1_52b"):
+    for name in ("starcoder2_3b", "deepseek_7b", "gemma2_9b", "jamba_v0_1_52b", "xlstm_1_3b"):
         assert repr(jax_get_config(name)) == repr(get_config(name))
 
 
@@ -149,13 +159,133 @@ def test_attn_decode(arch, pos):
         np.testing.assert_allclose(new[name].numpy(), np.asarray(jnew[name]), **LAYER_TOL)
 
 
-def test_local_decode_is_not_ported_yet():
-    _, cfg = cfgs("gemma2_9b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        A.attn_decode({}, torch.zeros(1, 1, cfg.d_model), {}, 0, cfg, local=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        A.prefill_cache_from_kv(torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 2, 16), cfg,
-                                local=True)
+@pytest.mark.parametrize("S", [5, 8, 9, 19])  # window 8: S < W, S = W, W + 1, 2W + 3
+def test_prefill_ring_cache_matches_jax(S):
+    jcfg, cfg = cfgs("gemma2_9b")
+    assert cfg.window_size == 8
+    rng = np.random.default_rng(6)
+    k = rng.standard_normal((2, S, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, S, 2, 16)).astype(np.float32)
+    out = A.prefill_cache_from_kv(torch.from_numpy(k), torch.from_numpy(v), cfg, local=True)
+    ref = JA.prefill_cache_from_kv(jnp.asarray(k), jnp.asarray(v), jcfg, local=True)
+    for name in ("k", "v"):
+        assert out[name].shape == (2, 8, 2, 16)
+        np.testing.assert_array_equal(out[name].numpy(), np.asarray(ref[name]))
+
+
+@pytest.mark.parametrize("slots,pos", [
+    (8, 0), (8, 7), (8, 8), (8, 9), (8, 19),  # a ring of W = 8: before, at and past the wrap
+    (5, 0), (5, 4),  # a cache of 5 slots, below W: positions below its capacity
+])
+def test_local_attn_decode_matches_jax(slots, pos):
+    """The ring's slot pos % W written in place, then the decode kernel's
+    wrapper over min(pos + 1, slots) keys: the reference's ring mask."""
+    jcfg, cfg = cfgs("gemma2_9b", attn_softcap=50.0)
+    p = jax_init_params(JA.attn_template(jcfg), KEY, jnp.float32)
+    rng = np.random.default_rng(11)
+    B = 3
+    x = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    shape = (B, slots, cfg.num_kv_heads, cfg.resolved_head_dim)
+    kc, vc = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    cache = {"k": torch.from_numpy(kc.copy()), "v": torch.from_numpy(vc.copy())}
+    y, new = A.attn_decode(to_torch(p), torch.from_numpy(x), cache, pos, cfg, local=True)
+    jy, jnew = JA.attn_decode(p, jnp.asarray(x), {"k": jnp.asarray(kc), "v": jnp.asarray(vc)},
+                              jnp.int32(pos), jcfg, local=True)
+    assert new is cache  # written in place
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=2e-5, atol=2e-5)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(new[name].numpy(), np.asarray(jnew[name]), **LAYER_TOL)
+        # only the token's slot changed
+        rest = np.delete(np.arange(slots), pos % cfg.window_size)
+        before = kc if name == "k" else vc
+        np.testing.assert_array_equal(new[name].numpy()[:, rest], before[:, rest])
+
+
+# ---------------------------------------------------------------------------
+# xLSTM cells
+# ---------------------------------------------------------------------------
+
+
+def _xlstm_params(jcfg, kind):
+    """The reference's init with its zero biases and head norm made random:
+    input gates past the exp(8) cap on one head, forget gates from near 0 to
+    near 1, so every term of the cell counts."""
+    template = JX.mlstm_template(jcfg) if kind == "mlstm" else JX.slstm_template(jcfg)
+    p = dict(jax_init_params(template, KEY, jnp.float32))
+    rng = np.random.default_rng(12)
+    d, H = jcfg.d_model, jcfg.num_heads
+    p["headnorm"] = jnp.asarray(rng.standard_normal(d).astype(np.float32) * 0.3)
+    if kind == "mlstm":
+        b = np.concatenate([[9.0, 1.0, -1.0, 0.0][:H], rng.standard_normal(H) * 2.0])
+        p["b_if"] = jnp.asarray(b.astype(np.float32))
+    else:
+        p["b"] = jnp.asarray(rng.standard_normal(4 * d).astype(np.float32))
+        p["r"] = jnp.asarray(rng.standard_normal(p["r"].shape).astype(np.float32) * 0.3)
+    return p
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+@pytest.mark.parametrize("S", [13, 257])  # prime: the reference's chunks fall to one token
+def test_xlstm_forward_then_decode_match_jax(kind, S):
+    jcfg, cfg = cfgs("xlstm_1_3b")
+    p = _xlstm_params(jcfg, kind)
+    tp = to_torch(p)
+    fwd, dec = ((XL.mlstm_forward, XL.mlstm_decode) if kind == "mlstm"
+                else (XL.slstm_forward, XL.slstm_decode))
+    jfwd, jdec = ((JX.mlstm_forward, JX.mlstm_decode) if kind == "mlstm"
+                  else (JX.slstm_forward, JX.slstm_decode))
+    rng = np.random.default_rng(13)
+    B = 2
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    y, cache = fwd(tp, torch.from_numpy(x), cfg, return_cache=True)
+    jy, jcache = jfwd(p, jnp.asarray(x), jcfg, return_cache=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **XLSTM_TOL)
+    assert set(cache) == set(jcache)
+    for name in cache:
+        assert cache[name].dtype == torch.float32
+        np.testing.assert_allclose(cache[name].numpy(), np.asarray(jcache[name]), **XLSTM_TOL)
+    for _ in range(3):
+        xt = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+        y, new = dec(tp, torch.from_numpy(xt), cache, cfg)
+        jy, jcache = jdec(p, jnp.asarray(xt), jcache, jcfg)
+        assert new is cache  # the states are updated in place
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), **XLSTM_TOL)
+        for name in cache:
+            np.testing.assert_allclose(cache[name].numpy(), np.asarray(jcache[name]),
+                                       **XLSTM_TOL)
+
+
+def test_xlstm_head_norms_hand_the_kernel_contiguous_rows(monkeypatch):
+    """On the card the RMSNorm kernels take contiguous rows only: the mLSTM's
+    head norm reads h after a reshape over heads, the sLSTM's h[:, None],
+    and the fused adds a mixer's output as the residual."""
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_reference, rmsnorm_reference
+    from repro_torch.models import layers
+
+    seen, fused = [], []
+
+    def checked(x, scale, eps):
+        assert x.is_contiguous()
+        seen.append(tuple(x.shape))
+        return rmsnorm_reference(x, scale, eps)
+
+    def checked_add(x, r, scale, eps):
+        assert x.is_contiguous() and r.is_contiguous()
+        fused.append(tuple(x.shape))
+        return rmsnorm_add_reference(x, r, scale, eps)
+
+    monkeypatch.setattr(layers, "rmsnorm", checked)
+    monkeypatch.setattr(layers, "rmsnorm_add", checked_add)
+    _, cfg = cfgs("xlstm_1_3b")
+    model = lm.LM(cfg, device="cpu")
+    _, caches = model.prefill(torch.arange(9)[None].repeat(2, 1))
+    model.decode_step(torch.zeros((2, 1), dtype=torch.long), 9, caches)
+    d = cfg.d_model
+    # prefill: layer 0's norm1, 16 head norms, the final norm (last position);
+    # decode: layer 0's norm1 and 16 head norms (the final norm is fused)
+    assert seen == [(2, 9, d)] * 17 + [(2, 1, d)] * 18
+    # layers 1-15's norm1 in each call, and the final norm at decode
+    assert fused == [(2, 9, d)] * 15 + [(2, 1, d)] * 16
 
 
 # ---------------------------------------------------------------------------
@@ -291,30 +421,47 @@ def _models(arch):
     return jcfg, cfg, jparams, model
 
 
+# each mixer's cache leaves
+CACHE_LEAVES = {"attn": {"k", "v"}, "attn_local": {"k", "v"}, "mamba": {"conv", "h"},
+                "mlstm": {"C", "n"}, "slstm": {"c", "n", "h", "m"}}
+
+
 def _assert_caches_match(caches, jcaches, cfg, B, S):
     """Every leaf of every superblock position, in the reference's layout:
-    attention K/V (n_sb, B, S, K, hd); mamba conv (n_sb, B, dc-1, di) and h
-    (n_sb, B, di, n) in float32."""
+    global attention K/V (n_sb, B, S, K, hd), a local ring (n_sb, B, W, K,
+    hd); mamba conv (n_sb, B, dc-1, di) and h (n_sb, B, di, n), mLSTM C (n_sb,
+    B, H, hd, hd) and n, sLSTM c, n, h, m (n_sb, B, d), the states float32."""
+    n_sb, K, hd = cfg.num_superblocks, cfg.num_kv_heads, cfg.resolved_head_dim
+    H = cfg.num_heads
     for spec, ours, (t, ref) in zip(cfg.superblock, caches_to_numpy(caches),
                                     zip(caches, jcaches)):
-        assert set(ours) == set(ref) == ({"k", "v"} if spec.mixer == "attn" else {"conv", "h"})
+        assert set(ours) == set(ref) == CACHE_LEAVES[spec.mixer]
         if spec.mixer == "attn":
-            assert ours["k"].shape == (cfg.num_superblocks, B, S, cfg.num_kv_heads,
-                                       cfg.resolved_head_dim)
+            assert ours["k"].shape == (n_sb, B, S, K, hd)
+        elif spec.mixer == "attn_local":
+            assert ours["k"].shape == (n_sb, B, cfg.window_size, K, hd)
+        elif spec.mixer == "mamba":
+            assert ours["h"].shape == (n_sb, B, cfg.mamba_d_inner, cfg.mamba_d_state)
+        elif spec.mixer == "mlstm":
+            assert ours["C"].shape == (n_sb, B, H, cfg.d_model // H, cfg.d_model // H)
         else:
-            assert t["h"].dtype == torch.float32 and np.asarray(ref["h"]).dtype == np.float32
-            assert ours["h"].shape == (cfg.num_superblocks, B, cfg.mamba_d_inner,
-                                       cfg.mamba_d_state)
+            assert ours["m"].shape == (n_sb, B, cfg.d_model)
         for name in ours:
-            np.testing.assert_allclose(ours[name], np.asarray(ref[name]), **MODEL_TOL)
+            if spec.mixer not in ("attn", "attn_local") and name != "conv":
+                assert t[name].dtype == torch.float32
+                assert np.asarray(ref[name]).dtype == np.float32
+            tol = XLSTM_TOL if spec.mixer in ("mlstm", "slstm") else MODEL_TOL
+            np.testing.assert_allclose(ours[name], np.asarray(ref[name]), **tol)
 
 
 @pytest.mark.parametrize("arch", ["starcoder2_3b", "deepseek_7b", "jamba_v0_1_52b",
-                                  "dbrx_132b", "arctic_480b"])
+                                  "dbrx_132b", "arctic_480b", "gemma2_9b", "xlstm_1_3b"])
 def test_prefill_and_decode_match_jax(arch):
     jcfg, cfg, jparams, model = _models(arch)
     assert cfg.num_superblocks == 2
-    B, S, extra = 2, 12, 3
+    # gemma2's window is 8: the 12-token prompt is rolled into the ring, and
+    # 6 decode steps write slots 4..7, then wrap to 0 and 1
+    B, S, extra = 2, 12, 6 if arch == "gemma2_9b" else 3
     tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
 
     logits, caches = model.prefill(torch.from_numpy(tokens))
@@ -323,14 +470,14 @@ def test_prefill_and_decode_match_jax(arch):
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **MODEL_TOL)
     _assert_caches_match(caches, jcaches, cfg, B, S)
 
-    # grow the attention caches as the engine would (mamba states keep their
-    # shape), then decode a few tokens on both
-    def pad(x):
-        if x.ndim != 5:
-            return x
-        return jnp.pad(x, ((0, 0), (0, 0), (0, extra), (0, 0), (0, 0)))
+    # grow the global attention caches as the engine would (a ring and the
+    # recurrent states keep their shape), then decode a few tokens on both
+    def pad(c, spec):
+        if spec.mixer != "attn":
+            return c
+        return {k: jnp.pad(x, ((0, 0), (0, 0), (0, extra), (0, 0), (0, 0))) for k, x in c.items()}
 
-    jcaches = jax.tree.map(pad, jcaches)
+    jcaches = tuple(pad(c, spec) for c, spec in zip(jcaches, cfg.superblock))
     caches = caches_from_jax(jax.tree.map(np.asarray, jcaches))
     tok = np.argmax(np.asarray(jlogits)[:, 0], axis=-1).astype(np.int32)[:, None]
     for step in range(extra):
@@ -365,6 +512,29 @@ def test_full_width_jamba_param_count_and_cache_without_allocation():
     assert tpl[4]["k"].shape == (2, 4, 512, 8, 128)
 
 
+def test_full_width_gemma2_param_count_and_caches_without_allocation():
+    cfg = get_config("gemma2_9b")
+    assert lm.num_params(cfg) == 9_241_404_928 == jlm.num_params(jax_get_config("gemma2_9b"))
+    # the serve_local cell's caches: 4 slots of 4928 positions, 21 local + 21 global layers
+    local, glob = lm.cache_template(cfg, 4, 4928)
+    assert local["k"].shape == local["v"].shape == (21, 4, 4096, 8, 256)
+    assert glob["k"].shape == glob["v"].shape == (21, 4, 4928, 8, 256)
+    assert lm.cache_template(cfg, 4, 1000)[0]["k"].shape == (21, 4, 1000, 8, 256)
+
+
+def test_full_width_xlstm_param_count_and_states_without_allocation():
+    cfg = get_config("xlstm_1_3b")
+    assert lm.num_params(cfg) == 1_239_304_528 == jlm.num_params(jax_get_config("xlstm_1_3b"))
+    tpl = lm.cache_template(cfg, 4, 384)
+    assert [sorted(c) for c in tpl] == [["c", "h", "m", "n"]] + [["C", "n"]] * 7
+    assert tpl[0]["m"].shape == (6, 4, 2048) and tpl[0]["m"].dtype == "float32"
+    assert tpl[1]["C"].shape == (6, 4, 4, 512, 512) and tpl[1]["C"].dtype == "float32"
+    assert tpl[1]["n"].shape == (6, 4, 4, 512)
+    # no norm2 in a block without an FFN: the reference's tree
+    blocks = lm.model_template(cfg)["blocks"]
+    assert sorted(blocks[0]) == ["norm1", "slstm"] and sorted(blocks[1]) == ["mlstm", "norm1"]
+
+
 def test_init_caches_keep_each_leafs_dtype():
     _, cfg = cfgs("jamba_v0_1_52b", dtype="bfloat16")
     caches = lm.LM(cfg, device="cpu").init_caches(2, 16)
@@ -373,7 +543,8 @@ def test_init_caches_keep_each_leafs_dtype():
 
 
 @pytest.mark.parametrize("arch", ["starcoder2_3b", "deepseek_7b", "starcoder2_15b",
-                                  "internvl2_1b", "jamba_v0_1_52b", "dbrx_132b", "arctic_480b"])
+                                  "internvl2_1b", "jamba_v0_1_52b", "dbrx_132b", "arctic_480b",
+                                  "gemma2_9b", "xlstm_1_3b"])
 def test_reduced_param_counts_match_jax(arch):
     jcfg, cfg = cfgs(arch)
     model = lm.LM(cfg, device="cpu")
@@ -390,9 +561,7 @@ def test_random_init_is_seeded_and_order_free():
     assert not torch.equal(sa["layers.0.attn.wq"], sa["layers.1.attn.wq"])
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("gemma2_9b", "A5"), ("xlstm_1_3b", "A8"), ("seamless_m4t_large_v2", "A9"),
-])
+@pytest.mark.parametrize("arch,item", [("seamless_m4t_large_v2", "A9")])
 def test_configs_outside_the_slice_name_their_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         lm.LM(get_config(arch).reduced(), device="cpu")

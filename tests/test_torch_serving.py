@@ -47,6 +47,18 @@ def test_hybrid_engine_matches_jax_engine_token_for_token():
     _engines_agree("jamba_v0_1_52b")
 
 
+def test_local_attention_engine_matches_jax_engine_token_for_token():
+    """Reduced gemma2 (window 8): prompts of 8-16 tokens are rolled into the
+    ring at prefill, and decode writes past the wrap at the shared position."""
+    _engines_agree("gemma2_9b")
+
+
+def test_xlstm_engine_matches_jax_engine_token_for_token():
+    """Reduced xLSTM: the mLSTM's (H, hd, hd) and the sLSTM's (d,) states
+    copied into their slot wholesale, no sequence-bearing leaf."""
+    _engines_agree("xlstm_1_3b")
+
+
 def _engines_agree(name):
     jcfg = jax_get_config(name).reduced(seq_chunk=8)
     cfg = get_config(name).reduced(seq_chunk=8)
@@ -101,6 +113,46 @@ def test_serve_cli_runs_reduced_jamba_on_cpu(capsys):
     assert all(len(r.tokens_out) == 4 for r in engine.completed)
     out = capsys.readouterr().out
     assert "jamba_v0_1_52b-smoke" in out and "superblocks: 2 of 2" in out
+
+
+def test_engine_slot_write_rings_and_xlstm_states():
+    """A local ring of W slots copies wholesale when the capacity holds W; a
+    capacity below W takes the ring's first slots (the prompt's positions,
+    then the prefill's zero pad), as the reference's prefix rule does; the
+    xLSTM states copy wholesale."""
+    for arch, max_seq, prompt in (("gemma2_9b", 32, 11), ("gemma2_9b", 6, 5),
+                                  ("xlstm_1_3b", 32, 11)):
+        cfg = get_config(arch).reduced(seq_chunk=8)
+        model = LM(cfg, device="cpu")
+        eng = Engine(cfg, model, ServeConfig(slots=3, max_seq=max_seq), device="cpu")
+        for c in eng.caches:
+            for leaf in c.values():
+                leaf.fill_(7.0)
+        _, one = model.prefill(torch.arange(prompt)[None])
+        eng._write_slot(one, 1)
+        for spec, full, part in zip(cfg.superblock, eng.caches, one):
+            for name, leaf in full.items():
+                src = part[name][:, 0]
+                if spec.mixer == "attn":  # the prompt's positions, the rest untouched
+                    assert torch.equal(leaf[:, 1, :prompt], src)
+                    assert bool((leaf[:, 1, prompt:] == 7.0).all())
+                elif spec.mixer == "attn_local" and max_seq < cfg.window_size:
+                    assert leaf.shape[2] == max_seq and src.shape[1] == cfg.window_size
+                    assert torch.equal(leaf[:, 1], src[:, :max_seq])
+                    assert bool((leaf[:, 1, prompt:] == 0.0).all())
+                else:
+                    assert torch.equal(leaf[:, 1], src)
+                assert bool((leaf[:, 0] == 7.0).all()) and bool((leaf[:, 2] == 7.0).all())
+
+
+@pytest.mark.parametrize("arch", ["gemma2_9b", "xlstm_1_3b"])
+def test_serve_cli_runs_reduced_gemma2_and_xlstm_on_cpu(arch, capsys):
+    engine, gw = serve.run(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "4",
+                            "--slots", "2", "--max-new", "5"])
+    assert len(engine.completed) == 4 and len(gw.decisions) == 4
+    assert all(len(r.tokens_out) == 5 for r in engine.completed)
+    assert all(len(r.prompt) > engine.cfg.window_size for r in engine.completed)  # 12 > 8
+    assert f"{arch}-smoke" in capsys.readouterr().out
 
 
 def test_serve_cli_cuts_depth_by_superblocks(capsys):
