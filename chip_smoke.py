@@ -39,7 +39,11 @@ Phases; any failure exits non-zero before the result lines are printed:
      cache at pos 4700), each beside planted faults the check must refuse
      (the kernel with no cap; with the window one key wider; the plain
      attention capping after the mask), and RMSNorm at gemma2's and xLSTM's
-     widths (d 3584 and 2048);
+     widths (d 3584 and 2048); seamless's hd-64 attention (16 on 16): flash
+     unmasked over (4, 1500) and a ragged (1, 613), cross prefill (4, 2 on
+     1500), (1, 37 on 613) and more queries than keys (2, 300 on 100), a
+     causal or windowed Sq > Skv refused, decode over 4 x 1500 frames at
+     pos 1499 and 612;
   3. time: each kernel's device time per call (CUDA-graph replay between CUDA
      events; StarCoder2's and jamba's attention shapes) beside its plain
      version, one PyTorch library call for the same
@@ -59,7 +63,9 @@ Phases; any failure exits non-zero before the result lines are printed:
      attention at the serve_local cell's shapes (flash over 4608 tokens,
      causal and windowed; decode at pos 4700 on the append cache and the
      ring) beside SDPA (no soft-cap) and a compiled flex_attention with the
-     soft-cap, where it builds;
+     soft-cap, where it builds; then seamless's (hd 64): flash unmasked over
+     the encoder's (4, 1500) and a cross prefill (4, 2 on 1500), decode on
+     4 x 1500 cross frames and a 66-slot self cache at pos 34, beside SDPA;
   4. serve: StarCoder2-3B at full width (bf16, random weights from seed 0)
      serving 16 Poisson requests through the serving CLI's own path
      (``repro_torch.launch.serve.run``), with the launch counters reset just
@@ -105,6 +111,20 @@ Phases; any failure exits non-zero before the result lines are printed:
      the control must pass and norms storing through bf16 must fail; the
      bf16 paths' difference reported), and a profiler trace of decode steps
      against the floor (weights and the mLSTM states read and written);
+  4e. encdec: seamless-M4T-large-v2 at full width (24 + 24 layers, 2.03 B
+     parameters, nothing cut) through ``LM.encode``, ``LM.prefill(...,
+     enc_embeds=)`` and ``LM.decode_step`` (the engine refuses an
+     encoder-decoder, as the reference's cannot serve one: ROADMAP C11):
+     4 utterances of 1500 stub frames (30 s at 50 frames/s) with 2-token
+     prompts and 64 greedy steps, then one of 613 frames and 4 steps, launch
+     counts reset just before and read just after and exact (per prefill 72
+     flash, 3 rmsnorm, 119 fused; per step 48 decode, 1 and 72), ids past
+     the vocabulary counted (C6); encode + prefill and decode steps timed
+     and profiled beside their floors, peak memory; the logits gate of
+     serve_local over 1500 frames (kernel path within 1.5x the plain bf16
+     path's error against the fp32 plain path; the control passes; rotary
+     on the cross-attention, a causal encoder and cross decode over half
+     the frames must fail);
   5. fleet: the fleet path at its users' sizes, counters reset just before and
      read just after: ``repro_torch.launch.fleet_sweep.run_sweep`` over a
      131,072-row grid with bandwidth crossovers (spot rows held against the
@@ -162,8 +182,9 @@ Phases; any failure exits non-zero before the result lines are printed:
      ``--device cpu`` run's; the reduced engine's launch counts exact);
  11. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
      entry; the serving kernels also with their launches in the measure
-     phase's full-width simulated run and in serve_local, the RMSNorm entries
-     in serve_xlstm, flash and decode with their gemma2 timing rows, and they
+     phase's full-width simulated run, in serve_local and in encdec, the
+     RMSNorm entries in serve_xlstm, flash and decode with their gemma2 and
+     seamless timing rows, and they
      and the decision scan with their launches in the obs phase), the card's
      name and power limit as nvidia-smi gives them, and the final
      ``{"ok": true, ...}`` line.
@@ -385,7 +406,12 @@ def phase_check(torch, ops, refs) -> Checker:
                          ((5, 16), torch.float32),
                          # gemma2 (d 3584) and xLSTM (d 2048): decode and prefill rows
                          ((4, 3584), torch.bfloat16), ((4864, 3584), torch.bfloat16),
-                         ((4, 2048), torch.bfloat16), ((320, 2048), torch.bfloat16)]:
+                         ((4, 2048), torch.bfloat16), ((320, 2048), torch.bfloat16),
+                         # seamless (d 1024: one warp a row, four rows a CTA): decode
+                         # rows, the 2-token prompts, the encoder over 4 x 1500 frames,
+                         # the ragged utterance
+                         ((4, 1024), torch.bfloat16), ((8, 1024), torch.bfloat16),
+                         ((6000, 1024), torch.bfloat16), ((613, 1024), torch.bfloat16)]:
         def case(shape=shape, dtype=dtype):
             x = randn(*shape, dtype=dtype, scale=3.0)
             sc = randn(shape[-1], dtype=dtype, scale=0.2)  # non-zero: (1+scale) matters
@@ -426,6 +452,18 @@ def phase_check(torch, ops, refs) -> Checker:
         (1, 6, 6, 24, 2, 128, True, 0, 0.0),
         (1, 8, 8, 24, 2, 128, True, 0, 0.0),
         (1, 10, 10, 24, 2, 128, True, 0, 0.0),
+        # seamless (16 on 16, hd 64), unmasked: the encoder over four 30 s
+        # utterances and over a ragged one; cross-attention at prefill, a
+        # 2-token prompt on 1500 frames, 37 tokens on 613, 300 on 100 (more
+        # queries than keys)
+        (4, 1500, 1500, 16, 16, 64, False, 0, 0.0),
+        (1, 613, 613, 16, 16, 64, False, 0, 0.0),
+        (4, 2, 1500, 16, 16, 64, False, 0, 0.0),
+        (1, 37, 613, 16, 16, 64, False, 0, 0.0),
+        (2, 300, 100, 16, 16, 64, False, 0, 0.0),
+        # seamless's decoder self-attention at prefill: the 2-token prompts
+        (4, 2, 2, 16, 16, 64, True, 0, 0.0),
+        (1, 2, 2, 16, 16, 64, True, 0, 0.0),
     ]
     for B, Sq, Skv, H, K, hd, causal, window, cap in flash_cases:
         what = f"q ({B},{Sq},{H},{hd}) kv ({Skv},{K}) c{int(causal)} w{window} cap{cap:g}"
@@ -456,6 +494,18 @@ def phase_check(torch, ops, refs) -> Checker:
         FAILURES.append("flash_attention accepted float32")
     ck.run("flash_attention", "float32 refused", refuses_fp32)
 
+    def refuses_masked_sq_past_skv():  # only unmasked attention takes Sq > Skv
+        q, k = randn(2, 300, 16, 64), randn(2, 100, 16, 64)
+        for kw in (dict(causal=True), dict(causal=False, window=64)):
+            try:
+                flash_attention(q, k, k, **kw)
+            except ValueError:
+                what = f"Sq 300 > Skv 100 with {kw} raises"
+                log(f"[check] {'flash_attention':16s} {what:52s} ok")
+                continue
+            FAILURES.append(f"flash_attention accepted Sq 300 > Skv 100 with {kw}")
+    ck.run("flash_attention", "masked Sq > Skv refused", refuses_masked_sq_past_skv)
+
     # decode attention: (B, S, H, K, hd, pos, softcap, dtype)
     decode_cases = [
         (4, 1024, 24, 2, 128, 700, 0.0, torch.bfloat16),  # slice: 4 slots, pos 700 of 1024
@@ -475,6 +525,17 @@ def phase_check(torch, ops, refs) -> Checker:
         (1, 64, 24, 2, 128, 0, 0.0, torch.bfloat16),  # the measure phase: 1 slot of 64
         (1, 64, 24, 2, 128, 5, 0.0, torch.bfloat16),
         (1, 64, 24, 2, 128, 15, 0.0, torch.bfloat16),
+        # seamless's cross decode: 4 slots on 1500 frames (16 on 16, hd 64),
+        # every frame and a partial run
+        (4, 1500, 16, 16, 64, 1499, 0.0, torch.bfloat16),
+        (4, 1500, 16, 16, 64, 612, 0.0, torch.bfloat16),
+        (1, 613, 16, 16, 64, 612, 0.0, torch.bfloat16),  # the ragged utterance
+        # seamless's self decode: 4 slots of 66 (2 prompt + 64 steps) at the
+        # first, the profiled and the last step; the ragged call's 6 slots
+        (4, 66, 16, 16, 64, 2, 0.0, torch.bfloat16),
+        (4, 66, 16, 16, 64, 34, 0.0, torch.bfloat16),
+        (4, 66, 16, 16, 64, 65, 0.0, torch.bfloat16),
+        (1, 6, 16, 16, 64, 5, 0.0, torch.bfloat16),
     ]
     for B, S, H, K, hd, pos, cap, dtype in decode_cases:
         what = f"q ({B},1,{H},{hd}) cache ({S},{K}) pos {pos} cap{cap:g} {str(dtype)[6:]}"
@@ -639,6 +700,20 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def time_row(torch, name, shape, kernel, plain, library, nbytes, nops, peak) -> dict:
+    """Kernel, plain version and one library call for the same function:
+    device time per call by CUDA-graph replay, the bound, and the kernel's
+    and the library's eager time per call from Python."""
+    b_ms, b_by = bound(nbytes, nops, peak)
+    r = dict(shape=shape, ms=device_ms(torch, kernel), plain_ms=device_ms(torch, plain),
+             library_ms=device_ms(torch, library), bound_ms=b_ms, bound_by=b_by,
+             eager_ms=eager_ms(torch, kernel), library_eager_ms=eager_ms(torch, library))
+    log(f"[time] {name:16s} {shape:44s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
+        f"  library {r['library_ms']:.4f} ms  bound {b_ms:.5f} ms ({b_by});  eager from "
+        f"Python: kernel {r['eager_ms']:.4f} ms, library {r['library_eager_ms']:.4f} ms")
+    return r
+
+
 def phase_time(torch, F, ops, refs) -> dict:
     """Kernel, plain and library times at the main path's shapes: device time
     per call (CUDA-graph replay) and, for the kernel, the eager time per call
@@ -654,14 +729,8 @@ def phase_time(torch, F, ops, refs) -> dict:
     rows = {}
 
     def record(name, shape, kernel, plain, library, nbytes, nops, peak):
-        b_ms, b_by = bound(nbytes, nops, peak)
-        r = dict(shape=shape, ms=device_ms(torch, kernel), plain_ms=device_ms(torch, plain),
-                 library_ms=device_ms(torch, library), bound_ms=b_ms, bound_by=b_by,
-                 eager_ms=eager_ms(torch, kernel), library_eager_ms=eager_ms(torch, library))
-        rows.setdefault(name, []).append(r)
-        log(f"[time] {name:16s} {shape:44s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
-            f"  library {r['library_ms']:.4f} ms  bound {b_ms:.5f} ms ({b_by});  eager from "
-            f"Python: kernel {r['eager_ms']:.4f} ms, library {r['library_eager_ms']:.4f} ms")
+        rows.setdefault(name, []).append(
+            time_row(torch, name, shape, kernel, plain, library, nbytes, nops, peak))
 
     d = 3072
     for n in (4, 256):  # decode rows (4 slots), prefill rows (a 256-token prompt)
@@ -825,6 +894,53 @@ def phase_time_gemma2(torch, F, flash_attention, decode_attention, flash_ref, de
     return rows
 
 
+# seamless in the encdec phase: 16 query heads on 16 kv heads, head dim 64;
+# 4 utterances of 1500 frames, 2-token prompts, decode at pos 34 of 66
+SEAMLESS_H, SEAMLESS_HD, SEAMLESS_B, SEAMLESS_SE = 16, 64, 4, 1500
+SEAMLESS_PROMPT, SEAMLESS_STEPS, SEAMLESS_PROFILE_POS = 2, 64, 34
+
+
+def phase_time_seamless(torch, F, flash_attention, decode_attention, flash_ref,
+                        decode_ref) -> dict:
+    """The encdec phase's attention at hd 64 (16 on 16), device time per call
+    by CUDA-graph replay beside the plain version, SDPA and the bound: flash
+    unmasked over the encoder's (4, 1500) and over a cross prefill of 2
+    queries on 1500 frames; decode over 1500 cross frames (pos 1499) and the
+    decoder's self cache at pos 34 of 66."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(55)
+    B, H, hd, Se = SEAMLESS_B, SEAMLESS_H, SEAMLESS_HD, SEAMLESS_SE
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows: dict[str, list] = {"flash_attention": [], "decode_attention": []}
+    for Sq, what in ((Se, "encoder"), (SEAMLESS_PROMPT, "cross prefill")):
+        q, k, v = randn(B, Sq, H, hd), randn(B, Se, H, hd), randn(B, Se, H, hd)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        rows["flash_attention"].append(time_row(
+            torch, "flash_attention", f"{what} q ({B},{Sq},{H},{hd}) kv ({Se},{H}) unmasked",
+            lambda q=q, k=k, v=v: flash_attention(q, k, v, causal=False),
+            lambda q=q, k=k, v=v: flash_ref(q, k, v, causal=False),
+            lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(qt, kt, vt),
+            nbytes=2 * (2 * B * Sq * H * hd + 2 * B * Se * H * hd),
+            nops=4 * B * H * hd * Sq * Se, peak=BF16_OPS))
+    cache_len = SEAMLESS_PROMPT + SEAMLESS_STEPS
+    for S, pos, what in ((Se, Se - 1, "cross"), (cache_len, SEAMLESS_PROFILE_POS, "self")):
+        q, kc, vc = randn(B, 1, H, hd), randn(B, S, H, hd), randn(B, S, H, hd)
+        n = pos + 1
+        qt, kt, vt = q.transpose(1, 2), kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2)
+        rows["decode_attention"].append(time_row(
+            torch, "decode_attention", f"{what} q ({B},1,{H},{hd}) cache ({B},{S},{H},{hd}) "
+            f"pos {pos}",
+            lambda q=q, kc=kc, vc=vc, pos=pos: decode_attention(q, kc, vc, pos),
+            lambda q=q, kc=kc, vc=vc, pos=pos: decode_ref(q, kc, vc, pos),
+            lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(qt, kt, vt),
+            nbytes=2 * (2 * B * H * hd + 2 * B * n * H * hd), nops=4 * B * H * hd * n,
+            peak=BF16_OPS))
+    return rows
+
+
 def norm_plan_variants(torch, x, r, sc) -> list[dict]:
     """The RMSNorm plan's neighbours at x's shape: a warp per row up to a CTA
     per row, one to four rows per CTA, each entry held to the plain version
@@ -871,19 +987,23 @@ KERNEL_SITES = {"rmsnorm": "layers", "rmsnorm_add": "layers", "flash_attention":
 @contextlib.contextmanager
 def plain_path(refs: dict):
     """Route the model through the plain versions (for the logits check only):
-    ``refs`` maps each name of ``KERNEL_SITES`` to its plain version."""
+    ``refs`` maps each name of ``KERNEL_SITES`` to its plain version, and may
+    also swap a model function by its "module.name" under
+    ``repro_torch.models`` (a planted fault)."""
     import importlib
 
+    sites = {name: (KERNEL_SITES[name], name) if "." not in name else name.split(".")
+             for name in {**KERNEL_SITES, **refs}}
     mods = {name: importlib.import_module(f"repro_torch.models.{mod}")
-            for name, mod in KERNEL_SITES.items()}
-    saved = {name: getattr(mod, name) for name, mod in mods.items()}
-    for name, mod in mods.items():
-        setattr(mod, name, refs[name])
+            for name, (mod, _) in sites.items()}
+    saved = {name: getattr(mods[name], attr) for name, (_, attr) in sites.items()}
+    for name, (_, attr) in sites.items():
+        setattr(mods[name], attr, refs[name])
     try:
         yield
     finally:
-        for name, mod in mods.items():
-            setattr(mod, name, saved[name])
+        for name, (_, attr) in sites.items():
+            setattr(mods[name], attr, saved[name])
 
 
 def serving_launches(L: int, prefills: int, decodes: int) -> dict[str, int]:
@@ -1192,24 +1312,32 @@ def in_fp32(torch, model):
             torch.cuda.empty_cache()
 
 
-def path_logits(model, prompt, toks, cache_len: int, refs: dict | None = None) -> list:
-    """The logits of a prefill of ``prompt``, then of a decode step for each
-    of ``toks`` from that prefill's caches: through the kernels, or through
-    ``refs`` in their place."""
+def path_logits(model, prompt, toks, cache_len: int, refs: dict | None = None,
+                enc_embeds=None) -> list:
+    """The logits of a prefill of ``prompt`` (an encoder-decoder's over
+    ``enc_embeds``), then of a decode step for each of ``toks`` from that
+    prefill's caches: through the kernels, or through ``refs`` in their
+    place."""
     L = prompt.shape[1]
     with plain_path(refs) if refs else contextlib.nullcontext():
-        logits, caches = model.prefill(prompt)
-        full = model.init_caches(1, cache_len)
+        if enc_embeds is None:
+            logits, caches = model.prefill(prompt)
+            full = model.init_caches(1, cache_len)
+        else:
+            logits, caches = model.prefill(prompt, enc_embeds=enc_embeds)
+            full = model.init_caches(1, cache_len, enc_len=enc_embeds.shape[1])
         fill_caches(full, caches, L)
         del caches
         return [logits] + [model.decode_step(t, L + i, full)[0] for i, t in enumerate(toks)]
 
 
 def logits_gate(torch, model, refs, faults: dict, *, cache_len: int, prompt_len: int,
-                steps: int, fp32_kernels: bool) -> dict:
+                steps: int, fp32_kernels: bool, enc_len: int = 0) -> dict:
     """The served model's kernel path held against its plain path above the
-    model's own rounding noise: a ragged prompt, then ``steps`` decode steps
-    (tokens from a seed). Beside the kernel path run a control (the plain
+    model's own rounding noise: a ragged prompt (for an encoder-decoder over
+    ``enc_len`` frame embeddings drawn in bf16 from the seed, the same for
+    every path), then ``steps`` decode steps (tokens from a seed). Beside
+    the kernel path run a control (the plain
     path with its RMSNorm sums in another order, ``resummed_norms``: a
     correct kernel's kind of difference) and planted ``faults`` (name ->
     plain versions to swap in); the gate must pass the kernel path and the
@@ -1231,6 +1359,9 @@ def logits_gate(torch, model, refs, faults: dict, *, cache_len: int, prompt_len:
     prompt = torch.randint(0, cfg.vocab_size, (1, L), generator=gen, device=dev)
     toks = [torch.randint(0, cfg.vocab_size, (1, 1), generator=gen, device=dev)
             for _ in range(steps)]
+    enc = None
+    if enc_len:
+        enc = torch.randn((1, enc_len, cfg.d_model), generator=gen, device=dev).bfloat16()
     variants = {"control": {**refs, **resummed_norms(torch)}}
     variants.update({f"fault: {name}": {**refs, **swap} for name, swap in faults.items()})
 
@@ -1238,7 +1369,8 @@ def logits_gate(torch, model, refs, faults: dict, *, cache_len: int, prompt_len:
         return float((got.float() - want.float()).norm() / want.float().norm())
 
     def run_all(paths):
-        return {name: path_logits(model, prompt, toks, cache_len, r) for name, r in paths.items()}
+        return {name: path_logits(model, prompt, toks, cache_len, r, enc)
+                for name, r in paths.items()}
 
     bf16 = run_all({"kernel": None, "plain": refs})
     worst = max(rel_l2(g, w) for g, w in zip(bf16["kernel"], bf16["plain"]))
@@ -1260,7 +1392,7 @@ def logits_gate(torch, model, refs, faults: dict, *, cache_len: int, prompt_len:
     else:
         bf16.update(run_all(variants))
         with in_fp32(torch, model):
-            ref = path_logits(model, prompt, toks, cache_len, refs)
+            ref = path_logits(model, prompt, toks, cache_len, refs, enc)
         plain = [rel_l2(p, r) for p, r in zip(bf16["plain"], ref)]
         limit = FP32_ERROR_RATIO
         measure = "worst ratio of its rel_l2 to the fp32 path to the plain bf16 path's"
@@ -1746,6 +1878,213 @@ def phase_serve_xlstm(torch, refs) -> dict:
                                 prompt_len=241, steps=4, fp32_kernels=True)
     out["profile"] = profile_decode(torch, model, slots=4, pos=300, cache_len=384)
     del engine, model, gw
+    return out
+
+
+# ---------------------------------------------------------------------------
+# seamless: the encoder-decoder at full width through the model's entry points
+
+
+def encdec_faults(torch) -> dict:
+    """The planted faults seamless's logits gate must refuse, each a swap of
+    a model function: rotary on the cross-attention (k at its frame
+    positions 0..Se-1, so in the cache too; q at its positions in the call,
+    0 for decode's lone query, as the reference's attention numbers one); a
+    causal mask in the encoder; cross decode attending only the first half
+    of the frames."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import rope_apply
+
+    cross_kv, cross_attn, attn_forward = A.cross_kv, A.cross_attn_forward, A.attn_forward
+
+    def rope(t, cfg):
+        return rope_apply(t, torch.arange(t.shape[1], device=t.device), cfg.rope_theta)
+
+    def roped_kv(p, enc_out, cfg):
+        k, v = cross_kv(p, enc_out, cfg)
+        return rope(k, cfg), v
+
+    def roped_cross(p, x, k, v, cfg, *, decode=False):
+        B, S, _ = x.shape
+        q = rope((x @ p["wq"]).view(B, S, cfg.num_heads, cfg.resolved_head_dim), cfg)
+        out = (A.decode_attention(q, k, v, k.shape[1] - 1) if decode
+               else A.flash_attention(q, k, v, causal=False))
+        return out.reshape(B, S, -1) @ p["wo"]
+
+    def causal(p, x, cfg, **kw):
+        return attn_forward(p, x, cfg, **{**kw, "causal": True})
+
+    def half_frames(p, x, k, v, cfg, *, decode=False):
+        if decode:
+            k, v = k[:, :k.shape[1] // 2], v[:, :v.shape[1] // 2]
+        return cross_attn(p, x, k, v, cfg, decode=decode)
+
+    return {"rotary on the cross-attention's q and k": {"attention.cross_kv": roped_kv,
+                                                        "attention.cross_attn_forward":
+                                                            roped_cross},
+            "a causal mask in the encoder": {"attention.attn_forward": causal},
+            "cross decode over the first half of the frames": {
+                "attention.cross_attn_forward": half_frames}}
+
+
+def encdec_launches(cfg, prefills: int, decodes: int) -> tuple[dict[str, int], str]:
+    """Every kernel's launches for that many encode + prefill calls and
+    decode steps of an encoder-decoder with Le encoder and L decoder layers,
+    and the formula. Per prefill: rmsnorm 3 (the encoder's and the decoder's
+    first norm1, the final norm of the last position), rmsnorm_add 2Le (the
+    encoder's norm2s, its later norm1s and its final norm) + 3L - 1 (norm_cross,
+    norm2, the later norm1s), flash Le + 2L (encoder, self, cross); per step:
+    rmsnorm 1, rmsnorm_add 3L (the final norm fused), decode 2L (self, cross)."""
+    Le, L = cfg.encoder_layers, cfg.num_layers
+    counts = {"rmsnorm": 3 * prefills + decodes,
+              "rmsnorm_add": (2 * Le + 3 * L - 1) * prefills + 3 * L * decodes,
+              "flash_attention": (Le + 2 * L) * prefills, "decode_attention": 2 * L * decodes,
+              "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0}
+    formula = (f"per encode + prefill 3 rmsnorm, 2Le + 3L - 1 = {2 * Le + 3 * L - 1} "
+               f"rmsnorm_add, Le + 2L = {Le + 2 * L} flash; per decode step 1 rmsnorm, 3L = "
+               f"{3 * L} rmsnorm_add, 2L = {2 * L} decode (Le = {Le}, L = {L})")
+    return counts, formula
+
+
+def greedy(model, prompt, frames, steps: int, sync=None) -> tuple[list, list, list, float]:
+    """Encode + prefill, caches of prompt + steps positions and every frame,
+    then ``steps`` greedy decode steps (argmax over the padded vocabulary, as
+    the reference's engine takes it). Returns (every step's logits, the
+    tokens, the caches, the mean step's ms), left on the card: without
+    ``sync`` nothing here waits for it and the step time is nan; with it
+    (``torch.cuda.synchronize``) the decode loop runs between two syncs."""
+    P = prompt.shape[1]
+    logits, part = model.prefill(prompt, enc_embeds=frames)
+    caches = model.init_caches(prompt.shape[0], P + steps, enc_len=frames.shape[1])
+    fill_caches(caches, part, P)
+    del part
+    out, toks = [logits], [logits[:, -1].argmax(-1)]
+    if sync:
+        sync()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, caches = model.decode_step(toks[-1][:, None], P + i, caches)
+        out.append(logits)
+        toks.append(logits[:, -1].argmax(-1))
+    if not sync:
+        return out, toks, caches, float("nan")
+    sync()
+    return out, toks, caches, (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+
+
+def phase_encdec(torch, refs) -> dict:
+    """seamless_m4t_large_v2 at full width (24 encoder + 24 decoder layers,
+    nothing cut) through ``LM.encode``, ``LM.prefill(..., enc_embeds=)`` and
+    ``LM.decode_step``, as the reference's ``make_prefill_step`` and
+    ``make_decode_step`` call them (its engine cannot serve an
+    encoder-decoder: ROADMAP C11). Four 30 s utterances (1500 frames at the
+    encoder's 50 frames/s, stub embeddings from a seed), 2-token prompts
+    (</s>, id 3, and a tag id from the seed), 64 greedy steps; then one
+    ragged utterance of 613 frames and 4 steps; launch counts exact over
+    both; the logits gate with three planted faults; encode + prefill and
+    decode steps beside their floors; peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM, num_params
+
+    cfg = get_config("seamless_m4t_large_v2")
+    B, Se, P, steps = SEAMLESS_B, SEAMLESS_SE, SEAMLESS_PROMPT, SEAMLESS_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    out: dict = {"params": n_params, "build_s": time.perf_counter() - t0}
+    log(f"[encdec] {cfg.name}: {cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers, "
+        f"{n_params:,} params ({2 * n_params / 1e9:.2f} GB bf16, nothing cut), built on the card "
+        f"in {out['build_s']:.2f} s")
+    if n_params != num_params(cfg):
+        FAILURES.append(f"encdec: {n_params} params, the template says {num_params(cfg)}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+
+    def utterances(n, frames):
+        emb = torch.randn((n, frames, cfg.d_model), generator=gen, device="cuda").bfloat16()
+        tags = torch.randint(0, cfg.vocab_size, (n, 1), generator=gen, device="cuda")
+        return torch.cat([torch.full_like(tags, 3), tags], 1), emb
+
+    prompt, frames = utterances(B, Se)
+    r_prompt, r_frames = utterances(1, 613)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, toks, _, _ = greedy(model, prompt, frames, steps)
+    r_logits, r_toks, _, _ = greedy(model, r_prompt, r_frames, 4)
+    torch.cuda.synchronize()
+    out["main_wall_s"] = time.perf_counter() - t0
+    launches = read_counts()
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    expect, formula = encdec_launches(cfg, 2, steps + 4)
+    check_launches("encdec", launches, expect, f"2 encode + prefill calls and {steps} + 4 "
+                   f"decode steps: {formula}")
+    out.update(launches=launches, launch_formula=formula)
+    ok = all(bool(torch.isfinite(lg).all()) and lg.shape[1:] == (1, cfg.padded_vocab)
+             for lg in logits + r_logits)
+    ids = torch.cat([torch.stack(toks).flatten(), torch.stack(r_toks).flatten()]).cpu()
+    past = int((ids >= cfg.vocab_size).sum())
+    out.update(tokens=int(ids.numel()), ids_past_vocab=past, logits_finite=ok)
+    log(f"[encdec] {B} utterances of {Se} frames, prompts of {P} tokens, {steps} greedy steps; "
+        f"then 1 of 613 frames and 4 steps: {out['main_wall_s']:.2f} s wall; logits finite, "
+        f"shape (B, 1, {cfg.padded_vocab}): {ok}; {ids.numel()} tokens, {past} at or above the "
+        f"vocabulary's {cfg.vocab_size} (argmax over the padded {cfg.padded_vocab}, ROADMAP C6); "
+        f"peak memory {out['peak_mem_gib']:.2f} GiB")
+    if not ok or not bool(((ids >= 0) & (ids < cfg.padded_vocab)).all()):
+        FAILURES.append("encdec: logits not finite or misshapen, or ids outside the padded vocab")
+
+    # encode + prefill: host clock around synchronised calls, and a profile
+    # against the compute floor (the decoder's 2-token prefill left out)
+    calls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(prompt, enc_embeds=frames)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0) * 1e3)
+    Le, L, d = cfg.encoder_layers, cfg.num_layers, cfg.d_model
+    H, hd, K = cfg.num_heads, cfg.resolved_head_dim, cfg.num_kv_heads
+    enc_w = sum(p.numel() for p in model.encoder.layers.parameters() if p.dim() == 2)
+    flops = {"encoder matmuls": 2 * enc_w * B * Se,
+             "encoder attention": 4 * B * Se * Se * H * hd * Le,
+             "cross K/V projections": 2 * 2 * d * K * hd * B * Se * L}
+    floor_ms = sum(flops.values()) / BF16_OPS * 1e3
+    out["prefill"] = dict(wall_ms=calls, floor_ms=floor_ms, flops=flops)
+    log(f"[encdec] encode + prefill ({B} x {Se} frames, {P} tokens): "
+        + ", ".join(f"{c:.3f}" for c in calls) + " ms (host clock, synchronised); compute floor "
+        + " + ".join(f"{k} {v / 1e12:.3f}" for k, v in flops.items())
+        + f" TFLOP = {sum(flops.values()) / 1e12:.3f} TFLOP / 989 TFLOP/s = {floor_ms:.3f} ms")
+    out["prefill"]["profile"] = profile_calls(
+        torch, f"{cfg.name} encode + prefill, {B} x {Se} frames",
+        lambda: model.prefill(prompt, enc_embeds=frames), n=2)
+
+    # decode steps: the mean of 64 from the host clock (the greedy run once
+    # more, outside the counted window), a profile at pos 34 beside the floor
+    # (weights read: the decoder without the cross wk / wv, which only
+    # prefill reads, and the unembedding; cross and self K/V reads)
+    _, toks, caches, step_ms = greedy(model, prompt, frames, steps, sync=torch.cuda.synchronize)
+    tok = toks[-1][:, None]
+    pos = SEAMLESS_PROFILE_POS
+    dec_w = sum(p.numel() for n, p in model.layers.named_parameters()
+                if not n.endswith(("cross.wk", "cross.wv")))
+    dec_w += model.embed["unembed"].numel() + model.final_norm.numel()
+    kv_row = 2 * B * K * hd * 2  # K and V, every slot, bf16
+    floor = {"weights": 2 * dec_w / HBM_BPS * 1e3, "cross K/V": L * Se * kv_row / HBM_BPS * 1e3,
+             "self K/V": L * (pos + 1) * kv_row / HBM_BPS * 1e3}
+    prof = profile_calls(torch, f"{cfg.name} decode step at pos {pos}, {B} slots",
+                         lambda: model.decode_step(tok, pos, caches))
+    out["decode"] = dict(step_ms=step_ms, floor_ms=floor, floor_total_ms=sum(floor.values()),
+                         weights=dec_w, profile=prof)
+    log(f"[encdec] decode step {step_ms:.3f} ms mean over {steps} (host clock, synchronised at "
+        f"the ends); floor at pos {pos}: weights 2 x {dec_w:,} B / 3.35 TB/s = "
+        f"{floor['weights']:.3f} ms + cross K/V {floor['cross K/V']:.3f} ms + self K/V "
+        f"{floor['self K/V']:.4f} ms = {sum(floor.values()):.3f} ms")
+    del caches
+    out["logits"] = logits_gate(torch, model, refs, encdec_faults(torch), cache_len=8,
+                                prompt_len=P, steps=4, fp32_kernels=False, enc_len=Se)
+    del model
     return out
 
 
@@ -3271,6 +3610,9 @@ def main() -> int:
                                               flash_attention_reference,
                                               decode_attention_reference)
     torch.cuda.empty_cache()
+    timing["encdec"] = phase_time_seamless(torch, F, flash_attention, decode_attention,
+                                           flash_attention_reference, decode_attention_reference)
+    torch.cuda.empty_cache()
     end_phase("time")
     serve = phase_serve(torch, ops, model_refs)
     gc.collect()  # the StarCoder engine goes before jamba's 52 GB of weights come
@@ -3288,6 +3630,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     end_phase("serve_xlstm")
+    encdec = phase_encdec(torch, model_refs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    end_phase("encdec")
     fleet = phase_fleet(torch)
     torch.cuda.empty_cache()
     end_phase("fleet")
@@ -3349,6 +3695,10 @@ def main() -> int:
             row["serve_xlstm_launches"] = serve_xlstm["launches"][name]  # xLSTM-1.3B
         if name in ("flash_attention", "decode_attention"):  # gemma2's hd-256 shapes
             row["serve_local_timing"] = timing["serve_local"][name]
+        if name in ("rmsnorm", "rmsnorm_add", "flash_attention", "decode_attention"):
+            row["encdec_launches"] = encdec["launches"][name]  # seamless
+        if name in ("flash_attention", "decode_attention"):  # seamless's hd-64 shapes
+            row["encdec_timing"] = timing["encdec"][name]
         if name in ("rmsnorm", "rmsnorm_add", "flash_attention", "decode_attention",
                     "decision_scan"):  # the obs phase: the demo's engine, the traced loop
             row["obs_launches"] = obs["launches"][name]
@@ -3371,7 +3721,7 @@ def main() -> int:
                        prefill_eager_ms=p["eager_ms"])
         kernels.append(row)
     RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid,
-                  serve_local=serve_local, serve_xlstm=serve_xlstm, fleet=fleet,
+                  serve_local=serve_local, serve_xlstm=serve_xlstm, encdec=encdec, fleet=fleet,
                   cluster=cluster, tails=tails, meanfield_plan=meanfield_plan, measure=measure,
                   obs=obs)
     out_dir = ROOT / "chiprun_out"

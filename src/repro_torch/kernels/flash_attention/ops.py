@@ -2,8 +2,11 @@
 hand-written Hopper kernel (``csrc/flash_attention.cu``) for a CUDA tensor.
 
 Takes the model's (B, S, heads, hd) layout; the kernel reads it through
-strides, so nothing is transposed. ``flash_attention.launches`` counts the
-kernel's launches (CPU calls never touch it).
+strides, so nothing is transposed. Causal and windowed attention take the
+queries as the last Sq of the Skv positions (Sq <= Skv); unmasked attention
+(an encoder's, or cross-attention) takes any Sq and Skv.
+``flash_attention.launches`` counts the kernel's launches (CPU calls never
+touch it).
 """
 
 from __future__ import annotations
@@ -43,8 +46,10 @@ def flash_attention(
     if tuple(v.shape) != tuple(k.shape) or Bk != B or hdk != hd or K == 0 or H % K:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          "are not (B, Sq, H, hd), (B, Skv, K, hd) with K dividing H")
-    if Sq > Skv:
-        raise ValueError(f"queries are the tail of the keys: Sq {Sq} > Skv {Skv}")
+    if Sq > Skv and (causal or window):  # unmasked, every key is visible to every query
+        raise ValueError(f"causal or windowed attention takes the queries as the tail of the "
+                         f"keys: Sq {Sq} > Skv {Skv} is refused (only unmasked attention, "
+                         "causal=False and window=0, takes more queries than keys)")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if hd not in HEAD_DIMS:

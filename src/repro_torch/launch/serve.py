@@ -9,7 +9,8 @@ same decode kernel, and xLSTM runs its recurrent cells in plain torch
 around the RMSNorm kernels. ``--reduced`` swaps in the tiny same-family config the CPU tests use.
 ``--superblocks N`` keeps the first N superblocks at full width, a depth cut
 for a model that one card cannot hold (the override of the reference's
-``launch/perf_probe.py``).
+``launch/perf_probe.py``). An encoder-decoder (``seamless_m4t_large_v2``)
+is refused with the engine's message (ROADMAP C11).
 
 The gateway half: the engine's profiled service (mean over its warm prefill
 and decode calls, paper §4.2) becomes the device tier of the offload
@@ -191,7 +192,10 @@ def run(argv=None) -> tuple[Engine, OffloadGateway]:
         cfg = dataclasses.replace(cfg, num_superblocks=args.superblocks)
     device = resolve_device(args.device)
     model = LM(cfg, device=device)
-    engine = Engine(cfg, model, ServeConfig(slots=args.slots, max_seq=max_seq), device=device)
+    try:
+        engine = Engine(cfg, model, ServeConfig(slots=args.slots, max_seq=max_seq), device=device)
+    except NotImplementedError as exc:  # an encoder-decoder (ROADMAP C11)
+        ap.error(str(exc))
     requests = PoissonWorkload(WorkloadConfig(
         arrival_rate=args.rps, prompt_len=args.prompt_len,
         prompt_len_jitter=args.prompt_jitter, max_new_tokens=args.max_new,

@@ -8,8 +8,11 @@ The port's counterpart of ``repro.models.attention``:
     layers a ring buffer of min(cache_len, W) slots, slot = pos % W. The
     cache is preallocated and the new token's K/V are written into it in
     place, where the reference built a new cache with
-    ``dynamic_update_slice``.
-Cross-attention for enc-dec (ROADMAP A9) is not ported yet.
+    ``dynamic_update_slice``;
+  * cross-attention (encoder-decoder): decoder queries against the encoder
+    output's K/V (``cross_kv``), with no rotary on either side; at prefill
+    through the flash kernel unmasked (any number of queries and keys), at
+    decode through the decode kernel over every cached frame.
 """
 
 from __future__ import annotations
@@ -30,7 +33,10 @@ __all__ = [
     "attn_forward",
     "attn_decode",
     "prefill_cache_from_kv",
+    "cross_kv",
+    "cross_attn_forward",
 ]
+
 
 def attn_template(cfg: ModelConfig) -> dict:
     d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
@@ -121,3 +127,27 @@ def attn_decode(p, x: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig, *,
     out = decode_attention(q, cache["k"], cache["v"], pos, softcap=cfg.attn_softcap)
     y = out.reshape(B, 1, H * hd) @ p["wo"]
     return y, cache
+
+
+def cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The encoder output's cross-attention K and V, (B, Se, K, hd) each: no
+    rotary (the reference rotates only self-attention's keys)."""
+    B, Se, _ = enc_out.shape
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return (enc_out @ p["wk"]).view(B, Se, K, hd), (enc_out @ p["wv"]).view(B, Se, K, hd)
+
+
+def cross_attn_forward(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
+                       cfg: ModelConfig, *, decode: bool = False):
+    """x: (B, Sq, d) against the encoder's K/V (B, Se, K, hd); every query
+    sees every frame, and q carries no rotary. At prefill the flash kernel
+    runs unmasked, so Sq may exceed Se; at decode (Sq = 1) the decode kernel
+    attends all Se cached frames (pos Se - 1) and leaves the cache as it is."""
+    B, S, _ = x.shape
+    hd, H = cfg.resolved_head_dim, cfg.num_heads
+    q = (x @ p["wq"]).view(B, S, H, hd)
+    if decode:
+        out = decode_attention(q, enc_k, enc_v, enc_k.shape[1] - 1, softcap=cfg.attn_softcap)
+    else:
+        out = flash_attention(q, enc_k, enc_v, causal=False, softcap=cfg.attn_softcap)
+    return out.reshape(B, S, H * hd) @ p["wo"]

@@ -4,10 +4,12 @@ Both packages keep weights as (in, out) matrices applied as ``x @ w``, so
 the conversion is a copy: the reference's parameter tree
 ``{"embed": {...}, "blocks": (dict stacked over num_superblocks, ...),
 "final_norm"}``, given as numpy arrays, becomes a ``state_dict`` for
-``models.lm.LM``, whose layer n is superblock n // P, position n % P. The
-flattening is generic over the leaves, so attention (global or local),
-mamba, mLSTM, sLSTM, MLP and MoE blocks carry across alike, each leaf in its
-own dtype.
+``models.lm.LM``, whose layer n is superblock n // P, position n % P; an
+encoder-decoder's ``{"encoder": {"blocks": (dict stacked over
+encoder_layers,), "final_norm"}}`` becomes ``encoder.layers.{n}`` and
+``encoder.final_norm``. The flattening is generic over the leaves, so
+attention (global or local, with or without a cross branch), mamba, mLSTM,
+sLSTM, MLP and MoE blocks carry across alike, each leaf in its own dtype.
 """
 
 from __future__ import annotations
@@ -48,15 +50,22 @@ def params_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
         for i in range(P):
             _flatten(tree["blocks"][i], f"layers.{sb * P + i}", sb, out)
     out["final_norm"] = tensor_from_numpy(tree["final_norm"])
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        for n in range(cfg.encoder_layers):
+            _flatten(enc["blocks"][0], f"encoder.layers.{n}", n, out)
+        out["encoder.final_norm"] = tensor_from_numpy(enc["final_norm"])
     return out
 
 
 def caches_from_jax(caches: Any, device: str | torch.device = "cpu") -> tuple:
     """The reference's decode caches (a tuple over superblock positions of
     dicts stacked over n_sb: attention {"k", "v"} (n_sb, B, S, K, hd), a
-    local ring's S being min(S, W); mamba {"conv", "h"}; mLSTM {"C", "n"};
-    sLSTM {"c", "n", "h", "m"}; the recurrent states float32; numpy leaves)
-    in the port's layout, which is the same, each leaf keeping its dtype."""
+    local ring's S being min(S, W), plus {"cross_k", "cross_v"} (n_sb, B,
+    enc_len, K, hd) in an encoder-decoder; mamba {"conv", "h"}; mLSTM {"C",
+    "n"}; sLSTM {"c", "n", "h", "m"}; the recurrent states float32; numpy
+    leaves) in the port's layout, which is the same, each leaf keeping its
+    dtype."""
     return tuple({k: tensor_from_numpy(v).to(device) for k, v in c.items()} for c in caches)
 
 

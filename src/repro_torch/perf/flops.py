@@ -1,9 +1,6 @@
 """Parameter counts for the cost models: the port's copy of
-``repro.perf.flops.param_counts``, over the port's ``models.lm.num_params``.
-
-The one config the port does not serve yet (the encoder-decoder, seamless)
-makes ``num_params`` raise ``NotImplementedError`` naming ROADMAP A9, and
-``param_counts`` passes that on.
+``repro.perf.flops.param_counts``, over the port's ``models.lm.num_params``
+(every config, the encoder-decoder's encoder and cross branches included).
 """
 
 from __future__ import annotations

@@ -23,6 +23,11 @@ Timing is measurement-grade:
 Caches are preallocated once and updated in place (prefill copies into the
 slot's region, decode writes one position), where the reference rebuilt its
 immutable cache arrays with ``.at[].set`` and ``dynamic_update_slice``.
+
+An encoder-decoder config is refused at construction: the reference
+engine's prefill passes no encoder input, so it cannot serve one (ROADMAP
+C11); such a model runs through ``LM.encode``, ``LM.prefill`` and
+``LM.decode_step`` directly.
 """
 
 from __future__ import annotations
@@ -106,6 +111,12 @@ class Engine:
     def __init__(self, cfg: ModelConfig, model: LM, sc: ServeConfig,
                  timer: Timer | None = None, tracer=None,
                  device: str | torch.device | None = None):
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                f"{cfg.name} is an encoder-decoder: the engine does not serve it, as the "
+                "reference's does not (ROADMAP C11: its prefill passes no encoder input, so "
+                "lm.prefill encodes None and fails). Run it through LM.encode, "
+                "LM.prefill(tokens, enc_embeds=...) and LM.decode_step")
         self.device = resolve_device(device)
         if model.device.type != self.device.type or (
                 self.device.index is not None and model.device != self.device):

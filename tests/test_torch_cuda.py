@@ -33,7 +33,13 @@ gemma2's hd-256 attention shapes with q drawn past the soft-cap, to the
 same bf16 tolerances and to rel-L2 1e-2 over blocks of rows (the kernel with
 no cap must fail it), and a reduced gemma2 engine in bf16 on the card
 followed by the CPU's: logits at every step to the bf16 tolerance, tokens
-equal wherever the CPU's top two logits stand further apart than it.
+equal wherever the CPU's top two logits stand further apart than it;
+seamless's norm and attention shapes (norms at d 1024, the unmasked
+encoder over 1500 and 613 frames, cross-attention at prefill with fewer and
+more queries than keys, the causal 2-token prompts, cross decode over 1500
+frames and self decode over 66 slots) to the same bf16 tolerances, and a
+reduced seamless in bf16 on the card against the CPU's logits through
+encode, prefill and decode.
 """
 
 import numpy as np
@@ -107,7 +113,9 @@ def test_rmsnorm(gen, dtype, tol):
 
 
 NORM_SHAPES = [(4, 1, 3072), (256, 3072), (4, 1, 4096), (256, 4096), (3, 97, 256), (5, 16),
-               (2, 7168)]
+               (2, 7168),
+               # seamless (d 1024): decode rows, 2-token prompts, 4 x 1500 frames, 613
+               (4, 1024), (8, 1024), (6000, 1024), (613, 1024)]
 
 
 @pytest.mark.parametrize("shape", NORM_SHAPES)
@@ -872,3 +880,84 @@ def test_gemma2_engine_on_the_card_follows_cpu_across_the_wrap(gen):
         (r.rid, r.tokens_out) for r in cpu.completed)
     assert max(e.occupancy for e in card.service_log if e.phase == "decode") == 2
     assert max(len(r.prompt) + len(r.tokens_out) for r in card.completed) > 2 * cfg.window_size
+
+
+# seamless (encoder-decoder): 16 query heads on 16 kv heads, head dim 64
+@pytest.mark.parametrize("B,Sq,Skv,causal", [
+    (4, 1500, 1500, False),  # the encoder over four 30 s utterances
+    (1, 613, 613, False),  # a ragged utterance: a partly filled tile
+    (4, 2, 1500, False),  # cross-attention at prefill: a 2-token prompt on 1500 frames
+    (1, 37, 613, False),
+    (2, 300, 100, False),  # more queries than keys: every key visible to every query
+    (4, 2, 2, True),  # the decoder's self-attention over the 2-token prompts
+    (1, 2, 2, True),
+])
+def test_flash_attention_seamless(gen, B, Sq, Skv, causal):
+    q, k, v = randn(gen, B, Sq, 16, 64), randn(gen, B, Skv, 16, 64), randn(gen, B, Skv, 16, 64)
+    torch.testing.assert_close(flash_attention(q, k, v, causal=causal).float(),
+                               flash_attention_reference(q, k, v, causal=causal).float(), **BF16)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 64), (True, 64)])
+def test_flash_attention_masked_refuses_more_queries_than_keys(gen, causal, window):
+    q, k = randn(gen, 2, 300, 16, 64), randn(gen, 2, 100, 16, 64)
+    with pytest.raises(ValueError, match="causal or windowed"):
+        flash_attention(q, k, k, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("B,S,pos", [
+    (4, 1500, 1499), (4, 1500, 612),  # cross decode over 1500 frames; a partial run
+    (1, 613, 612),  # cross decode over the ragged utterance
+    # self decode: 4 slots of 66 (2 prompt + 64 steps) at the first, a middle
+    # and the last step; the ragged call's one slot of 6
+    (4, 66, 2), (4, 66, 34), (4, 66, 65), (1, 6, 5),
+])
+def test_decode_attention_seamless(gen, B, S, pos):
+    q, kc, vc = randn(gen, B, 1, 16, 64), randn(gen, B, S, 16, 64), randn(gen, B, S, 16, 64)
+    torch.testing.assert_close(decode_attention(q, kc, vc, pos).float(),
+                               decode_attention_reference(q, kc, vc, pos).float(), **DECODE_BF16)
+
+
+def test_seamless_on_the_card_follows_cpu(gen):
+    """Reduced seamless in bf16 on the card, through the kernels (the counts
+    say so), against the same weights on the CPU: encode + prefill over 37
+    frames and 3 tokens, then 3 decode steps on fixed tokens. Two bf16 paths
+    round at different points, so each is held by its error against the
+    CPU's float32 run: at every step the card's rel-L2 at most twice the CPU
+    bf16 run's (the factor of FlashAttention's own tests)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    cfg = get_config("seamless_m4t_large_v2").reduced(seq_chunk=8)
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    card, cpu16, cpu32 = LM(cfg16, device="cuda"), LM(cfg16, device="cpu"), LM(cfg, device="cpu")
+    cpu16.load_state_dict(card.state_dict())
+    cpu32.load_state_dict(card.state_dict())  # bf16 to float32 is exact
+    enc = randn(gen, 2, 37, cfg.d_model)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 3), generator=gen, device="cuda")
+    steps = torch.randint(0, cfg.vocab_size, (3, 2, 1), generator=gen, device="cuda")
+
+    def run(model, device):
+        logits, part = model.prefill(tokens.to(device), enc_embeds=enc.to(device))
+        full = model.init_caches(2, 8, enc_len=37)
+        for dst, src in zip(full, part):
+            for name in dst:
+                dst[name][:, :, :src[name].shape[2]].copy_(src[name])
+        out = [logits] + [model.decode_step(t.to(device), 3 + i, full)[0]
+                          for i, t in enumerate(steps)]
+        return [o.float().cpu() for o in out]
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    before = (flash_attention.launches, decode_attention.launches)
+    got = run(card, "cuda")
+    L, Le = cfg.num_layers, cfg.encoder_layers
+    assert (flash_attention.launches - before[0], decode_attention.launches - before[1]) == (
+        Le + 2 * L, 3 * 2 * L)
+    plain, ref = run(cpu16, "cpu"), run(cpu32, "cpu")
+    for g, p, r in zip(got, plain, ref):
+        assert torch.isfinite(g).all() and g.shape == (2, 1, cfg.padded_vocab)
+        assert rel_l2(g, r) <= 2 * rel_l2(p, r), (rel_l2(g, r), rel_l2(p, r))

@@ -144,21 +144,13 @@ def _assert_close_tree(got, want, path="report"):
 # param_counts and the simulated timer
 
 
-# the config the port does not serve yet: the encoder-decoder (ROADMAP A9)
-UNSERVED = ("seamless_m4t_large_v2",)
-
-
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_counts_match_the_reference(arch, reduced):
     jcfg, cfg = jax_get_config(arch), get_config(arch)
     if reduced:
         jcfg, cfg = jcfg.reduced(seq_chunk=8), cfg.reduced(seq_chunk=8)
-    if arch in UNSERVED:  # passed on from num_params, naming the ROADMAP item
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            param_counts(cfg)
-        return
-    got = param_counts(cfg)
+    got = param_counts(cfg)  # every config, the encoder-decoder's encoder included
     assert got == jax_param_counts(jcfg) and all(type(n) is int for n in got)
 
 
