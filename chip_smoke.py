@@ -180,7 +180,18 @@ Phases; any failure exits non-zero before the result lines are printed:
      terms equal the CPU's to 1e-9), and ``obs_report --demo --device cuda``
      (its trace, Chrome export, audit and report byte for byte the
      ``--device cpu`` run's; the reduced engine's launch counts exact);
- 11. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
+ 11. paper: the paper's own models, host-heavy by nature: the latency
+     predictor (``core.predictor``) fitted on the card and on the CPU from
+     the same initial weights (the reference test's synthetic law with the
+     H100's peaks; held-out MAPE < 25% on the card, the card's held-out
+     predictions within PRED_CARD_CPU_RTOL of the CPU's; fit wall time and
+     the card's busy share reported), the paper-figure suite through
+     ``repro_torch.bench.run.run_paper_figures`` (Figs. 2-7 and the accuracy
+     suite; host numpy: the rows say nothing of the card; gated on their
+     qualitative results), and a roofline service estimate of the serve
+     cell's decode step on ``perf.hardware.H100_SXM`` beside its measured
+     device time (reported; the C12-fixed roofline fraction gated <= 1);
+ 12. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
      entry; the serving kernels also with their launches in the measure
      phase's full-width simulated run, in serve_local and in encdec, the
      RMSNorm entries in serve_xlstm, flash and decode with their gemma2 and
@@ -197,6 +208,7 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
@@ -3540,6 +3552,164 @@ def phase_obs(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the paper's own models: the latency predictor on the card, the figure suite,
+# a roofline service estimate of the serve cell's decode step
+
+# the reference test's predictor run (tests/test_system.py): 512 seeded
+# points, 448 to train, 2,500 Adam steps at 3e-3, held-out MAPE < 25%
+PRED_N, PRED_TRAIN, PRED_STEPS, PRED_LR = 512, 448, 2500, 3e-3
+PRED_MAPE_BUDGET_PCT = 25.0
+# the card's fit against the CPU's from the same initial weights: cuBLAS and
+# the CPU's GEMMs sum float32 in other orders (and CUDA's tanhf is not the
+# CPU's), a few ulps a step that drift over 2,500 Adam steps: 2.4e-5 on an
+# H100 80GB HBM3 at 700 W, so 2e-4
+PRED_CARD_CPU_RTOL = 2e-4
+# the serve cell's decode step: StarCoder2-3B, 4 slots at pos 300 (301 keys)
+ROOF_SLOTS, ROOF_KEYS = 4, 301
+
+
+def predictor_law(workload_features, seed: int = 0, n: int = PRED_N):
+    """The reference test's synthetic law with the H100's data-sheet peaks:
+    latency = max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s) with 5% noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    flops = 10 ** rng.uniform(9, 13, n)
+    pbytes = 10 ** rng.uniform(6, 10, n)
+    abytes = 10 ** rng.uniform(6, 9, n)
+    batch = rng.integers(1, 64, n)
+    seq = rng.integers(64, 4096, n)
+    lat = np.maximum(flops / BF16_OPS, pbytes / HBM_BPS) * (1 + 0.05 * rng.normal(size=n))
+    lat = np.abs(lat) + 1e-6
+    X = np.stack([workload_features(f, p, a, b, s)
+                  for f, p, a, b, s in zip(flops, pbytes, abytes, batch, seq)])
+    return X, lat
+
+
+def phase_paper(torch, serve: dict) -> dict:
+    """The latency predictor fitted on the card and on the CPU from the same
+    initial weights, the paper-figure suite through the port, and a roofline
+    service estimate of the serve cell's decode step on the H100 spec."""
+    import numpy as np
+
+    from repro_torch.bench.run import run_paper_figures
+    from repro_torch.configs import ShapeSuite, get_config
+    from repro_torch.core.predictor import LatencyPredictor, workload_features
+    from repro_torch.core.service_time import from_roofline
+    from repro_torch.perf import H100_SXM, TPU_V5E, cell_flops, report_from_counts
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    reset_counts()
+
+    # 1. the predictor on the card (device None) and on the CPU, same init
+    X, lat = predictor_law(workload_features)
+    train, held = slice(0, PRED_TRAIN), slice(PRED_TRAIN, None)
+    card = LatencyPredictor(seed=0)
+    cpu = LatencyPredictor(seed=0, device="cpu")
+    same_init = all(torch.equal(a.cpu(), b) for a, b in zip(card.state_dict().values(),
+                                                           cpu.state_dict().values()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_card = card.fit(X[train], lat[train], steps=PRED_STEPS, lr=PRED_LR)
+    torch.cuda.synchronize()
+    fit_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_cpu = cpu.fit(X[train], lat[train], steps=PRED_STEPS, lr=PRED_LR)
+    fit_cpu_s = time.perf_counter() - t0
+    p_card, p_cpu = card.predict(X[held]), cpu.predict(X[held])
+    rel = float(np.max(np.abs(p_card - p_cpu) / np.abs(p_cpu)))
+    mape_card, mape_cpu = card.mape(X[held], lat[held]), cpu.mape(X[held], lat[held])
+    ok = (card.device.type == "cuda" and card.w[0].is_cuda and same_init
+          and mape_card < PRED_MAPE_BUDGET_PCT and rel <= PRED_CARD_CPU_RTOL)
+    log(f"[paper] predictor ({PRED_TRAIN} points, {PRED_STEPS} Adam steps, lr {PRED_LR}) on "
+        f"{card.device} (device=None) from the CPU's initial weights ({same_init}): fit "
+        f"{fit_card_s:.2f} s wall (CPU {fit_cpu_s:.2f} s), final loss {loss_card:.6g} (CPU "
+        f"{loss_cpu:.6g}); held-out MAPE {mape_card:.4f}% (CPU {mape_cpu:.4f}%; budget "
+        f"{PRED_MAPE_BUDGET_PCT:g}%); held-out predictions card vs CPU max rel err {rel:.3e} "
+        f"(limit {PRED_CARD_CPU_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"paper predictor: MAPE {mape_card}, card vs CPU {rel}, init {same_init}")
+    prof = profile_calls(torch, "predictor fit, 200 Adam steps on the card",
+                         lambda: LatencyPredictor(seed=0).fit(X[train], lat[train], steps=200,
+                                                              lr=PRED_LR), n=1)
+    busy = None if prof is None else prof["device_ms"] / prof["wall_ms"]
+    out["predictor"] = dict(fit_card_s=fit_card_s, fit_cpu_s=fit_cpu_s, loss_card=loss_card,
+                            loss_cpu=loss_cpu, mape_card_pct=mape_card, mape_cpu_pct=mape_cpu,
+                            card_vs_cpu_max_rel=rel, busy_share_200_steps=busy, profile=prof)
+
+    # 2. the paper-figure suite through the port: host numpy, no device
+    fig_dir = ROOT / "chiprun_out" / "paper"
+    fig_dir.mkdir(parents=True, exist_ok=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rep = run_paper_figures(fig_dir)
+    figs_s = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"[paper] {line}")
+    mbps = rep["fig4_crossovers_mbps"]
+    checks = {
+        "fig2 mape < 3": rep["fig2_mape_pct"] < 3.0,
+        "fig3 mape < 3": rep["fig3_mape_pct"] < 3.0,
+        "accuracy mape < 3": rep["model_accuracy"]["mape_pct"] < 3.0,
+        "fig4 ordered": (mbps["tx2->rtx4070"] or 0) <= (mbps["orin->rtx4070"] or math.inf),
+        "fig5b faster net wins more": rep["fig5b_offload_wins"][20] >= rep[
+            "fig5b_offload_wins"][10],
+        "fig6 row": rep["fig6_strategies"] == ["offload", "offload", "on_device", "offload"],
+        "fig7 row": rep["fig7_targets"] == ["edge[0]", "edge[1]", "on_device"],
+    }
+    ok = all(checks.values())
+    log(f"[paper] figure suite in {figs_s:.2f} s on the host (numpy; these rows say nothing of "
+        f"the card): {checks} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"paper figures: {checks}")
+    out["figures"] = dict(report=rep, seconds=figs_s, checks=checks)
+
+    # 3. a roofline service estimate of the serve cell's decode step (bf16
+    # weights read once, the K/V of 301 positions in 4 slots read once)
+    cfg = get_config("starcoder2_3b")
+    shape = ShapeSuite("serve_decode", ROOF_KEYS, ROOF_SLOTS, "decode")
+    cf = cell_flops(cfg, shape)
+    weight_bytes = 2.0 * cf.n_params
+    kv_bytes = (2.0 * cfg.num_layers * 2 * ROOF_SLOTS * ROOF_KEYS * cfg.num_kv_heads
+                * cfg.resolved_head_dim)
+    est = from_roofline(cf.total, weight_bytes + kv_bytes, peak_flops=H100_SXM.peak_flops,
+                        hbm_bw=H100_SXM.hbm_bw)
+    report = report_from_counts(arch=cfg.name, shape=shape, mesh_name="1", n_chips=1,
+                                flops_per_dev=cf.total, bytes_per_dev=weight_bytes + kv_bytes,
+                                collectives={}, cfg=cfg, hw=H100_SXM)
+    frac = report.roofline_fraction
+    frac_c12 = frac * H100_SXM.peak_flops / TPU_V5E.peak_flops  # the reference's formula
+    measured = (serve.get("profile") or {}).get("device_ms")
+    ok = 0.0 < frac <= 1.0 and report.dominant == "memory"
+    log(f"[paper] roofline of the StarCoder2-3B decode step ({ROOF_SLOTS} slots, pos "
+        f"{ROOF_KEYS - 1}) on {H100_SXM.name}: {cf.total / 1e9:.3f} GFLOP, "
+        f"{(weight_bytes + kv_bytes) / 1e9:.4f} GB (weights {weight_bytes / 1e9:.4f}, K/V "
+        f"{kv_bytes / 1e9:.4f}); from_roofline service {est.mean_s * 1e3:.4f} ms "
+        f"({report.dominant}-bound); the serve phase's measured device step "
+        + (f"{measured:.4f} ms ({measured / (est.mean_s * 1e3):.2f}x the estimate)"
+           if measured else "not measured (no profile)")
+        + f"; roofline fraction {frac:.5f} (<= 1; the reference's formula, C12, would read "
+        f"{frac_c12:.5f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"paper roofline: fraction {frac}, dominant {report.dominant}")
+    out["roofline"] = dict(flops=cf.total, weight_bytes=weight_bytes, kv_bytes=kv_bytes,
+                           estimate_ms=est.mean_s * 1e3, measured_device_ms=measured,
+                           report=json.loads(report.to_json()), fraction_c12=frac_c12)
+
+    launches = read_counts()
+    if any(launches.values()):
+        FAILURES.append(f"paper: kernels launched {launches}")
+    log(f"[paper] kernel launches in the phase {launches} (none expected: the predictor's "
+        "matmuls and GELU are torch operations, the rest is host code)")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[paper] phase wall time {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3651,6 +3821,8 @@ def main() -> int:
     end_phase("measure")
     obs = phase_obs(torch)
     end_phase("obs")
+    paper = phase_paper(torch, serve)
+    end_phase("paper")
 
     where = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:32"),
@@ -3723,7 +3895,7 @@ def main() -> int:
     RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid,
                   serve_local=serve_local, serve_xlstm=serve_xlstm, encdec=encdec, fleet=fleet,
                   cluster=cluster, tails=tails, meanfield_plan=meanfield_plan, measure=measure,
-                  obs=obs)
+                  obs=obs, paper=paper)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(RESULT, indent=1, default=str))

@@ -3,9 +3,11 @@ model-driven adaptive offloading manager, plus the discrete-event simulator
 used as the hardware-free validation testbed.
 
 numpy-only copies of ``latency``, ``multitenant``, ``telemetry``, ``tail``,
-``manager``, ``crossover``, ``simulation`` and ``scenario``, with the same
-arithmetic: the scalar ``Scenario.analytic()`` here is the oracle the port's
-batched closed forms are held against.
+``manager``, ``crossover``, ``simulation``, ``scenario``, ``queueing``,
+``split`` and ``service_time``, with the same arithmetic: the scalar
+``Scenario.analytic()`` here is the oracle the port's batched closed forms are
+held against. ``predictor`` (the learned service-time MLP) is torch and trains
+on the card; like the reference's, it is imported from its module, not here.
 """
 
 from .latency import (
@@ -70,6 +72,21 @@ from .tail import (
     sojourn_pdf,
     sojourn_quantile,
 )
+from .queueing import (
+    QueueStats,
+    gg1_wait_upper_bound,
+    md1_wait,
+    md1_wait_aggregated,
+    mdk_wait_approx,
+    mg1_wait,
+    mm1_response,
+    mm1_wait,
+    mm1_wait_aggregated,
+    mmk_wait_erlang,
+    utilisation,
+)
+from .service_time import ServiceEstimate, fit_parallelism, from_profile, from_roofline
+from .split import LayerProfile, SplitPlan, SplitPlanner, SplitPoint, split_latency
 from .telemetry import (
     EwmaEstimator,
     SlidingRateEstimator,

@@ -10,6 +10,7 @@ encoder_layers,), "final_norm"}}`` becomes ``encoder.layers.{n}`` and
 ``encoder.final_norm``. The flattening is generic over the leaves, so
 attention (global or local, with or without a cross branch), mamba, mLSTM,
 sLSTM, MLP and MoE blocks carry across alike, each leaf in its own dtype.
+``predictor_params_from_jax`` carries the latency predictor's MLP layers.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["tensor_from_numpy", "params_from_jax", "caches_from_jax", "caches_to_numpy"]
+__all__ = ["tensor_from_numpy", "params_from_jax", "caches_from_jax", "caches_to_numpy",
+           "predictor_params_from_jax"]
 
 
 def tensor_from_numpy(a: Any) -> torch.Tensor:
@@ -39,6 +41,17 @@ def _flatten(tree: Any, prefix: str, index: int | None, out: dict) -> None:
         return
     arr = np.asarray(tree)
     out[prefix] = tensor_from_numpy(arr if index is None else arr[index])
+
+
+def predictor_params_from_jax(params: list) -> dict[str, torch.Tensor]:
+    """The reference ``LatencyPredictor.params`` (a list of ``{"w", "b"}``
+    layers, numpy leaves, w as (in, out)) as a state dict of the port's
+    ``core.predictor.LatencyPredictor`` (``w.{i}``, ``b.{i}``, the same layout)."""
+    out: dict[str, torch.Tensor] = {}
+    for i, layer in enumerate(params):
+        out[f"w.{i}"] = tensor_from_numpy(layer["w"])
+        out[f"b.{i}"] = tensor_from_numpy(layer["b"])
+    return out
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:

@@ -39,13 +39,16 @@ encoder over 1500 and 613 frames, cross-attention at prefill with fewer and
 more queries than keys, the causal 2-token prompts, cross decode over 1500
 frames and self decode over 66 slots) to the same bf16 tolerances, and a
 reduced seamless in bf16 on the card against the CPU's logits through
-encode, prefill and decode.
+encode, prefill and decode; the latency predictor fitted on the card by
+default against the CPU from the same initial weights, its held-out
+predictions to the paper phase's tolerance.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.predictor import LatencyPredictor, workload_features
 from repro_torch.fleet import (
     ScenarioBatch,
     fleet_analytic,
@@ -961,3 +964,42 @@ def test_seamless_on_the_card_follows_cpu(gen):
     for g, p, r in zip(got, plain, ref):
         assert torch.isfinite(g).all() and g.shape == (2, 1, cfg.padded_vocab)
         assert rel_l2(g, r) <= 2 * rel_l2(p, r), (rel_l2(g, r), rel_l2(p, r))
+
+
+# the latency predictor: the reference test's run (512 seeded points, 448 to
+# train, 2,500 Adam steps at 3e-3) on the card and on the CPU from the same
+# initial weights; held-out predictions to chip_smoke.py's PRED_CARD_CPU_RTOL
+PRED_CARD_CPU_RTOL = 2e-4  # 2.4e-5 measured
+
+
+def predictor_law(seed=0, n=512):
+    """The reference test's synthetic law with the H100's data-sheet peaks."""
+    rng = np.random.default_rng(seed)
+    flops = 10 ** rng.uniform(9, 13, n)
+    pbytes = 10 ** rng.uniform(6, 10, n)
+    abytes = 10 ** rng.uniform(6, 9, n)
+    batch = rng.integers(1, 64, n)
+    seq = rng.integers(64, 4096, n)
+    lat = np.maximum(flops / 989e12, pbytes / 3.35e12) * (1 + 0.05 * rng.normal(size=n))
+    lat = np.abs(lat) + 1e-6
+    X = np.stack([workload_features(f, p, a, b, s)
+                  for f, p, a, b, s in zip(flops, pbytes, abytes, batch, seq)])
+    return X, lat
+
+
+def test_predictor_fit_on_the_card_matches_cpu(gen):  # gen: skips without a card
+    X, lat = predictor_law()
+    card = LatencyPredictor(seed=0)  # device=None: the card
+    cpu = LatencyPredictor(seed=0, device="cpu")
+    assert card.device.type == "cuda" and all(p.is_cuda for p in card.parameters())
+    for a, b in zip(card.state_dict().values(), cpu.state_dict().values()):
+        assert torch.equal(a.cpu(), b)
+    card.fit(X[:448], lat[:448], steps=2500, lr=3e-3)
+    cpu.fit(X[:448], lat[:448], steps=2500, lr=3e-3)
+    a, b = card.predict(X[448:]), cpu.predict(X[448:])
+    np.testing.assert_allclose(a, b, rtol=PRED_CARD_CPU_RTOL, atol=0)
+    assert card.mape(X[448:], lat[448:]) < 25.0
+    # one row: the single-row product takes another cuBLAS kernel than the
+    # 64-row one, so its float32 sums run in another order (1.1e-6 measured)
+    one = card.predict(X[448])
+    assert type(one) is np.float32 and one == pytest.approx(float(a[0]), rel=1e-5)

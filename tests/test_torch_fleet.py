@@ -170,13 +170,22 @@ def assert_close_inf(got, want, rtol):
 CORE = ROOT / "src" / "repro_torch" / "core"
 
 
-@pytest.mark.parametrize("path", sorted(CORE.glob("*.py")), ids=lambda p: p.name)
-def test_core_copies_import_no_torch(path):
-    """The core copies stay numpy-only, like the reference they copy."""
+def _top_imports(path) -> set[str]:
+    out = set()
     for node in ast.walk(ast.parse(path.read_text())):
         names = [a.name for a in node.names] if isinstance(node, ast.Import) else \
             [node.module or ""] if isinstance(node, ast.ImportFrom) else []
-        assert not any(n.split(".")[0] == "torch" for n in names), path.name
+        out |= {n.split(".")[0] for n in names}
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(CORE.glob("*.py")), ids=lambda p: p.name)
+def test_core_copies_import_no_torch(path):
+    """The core copies stay numpy-only, like the reference they copy: torch
+    appears exactly where the reference imports jax (only the latency
+    predictor, a JAX MLP whose twin is a torch MLP trained on the card)."""
+    ref = ROOT / "src" / "repro" / "core" / path.name
+    assert ("torch" in _top_imports(path)) == ("jax" in _top_imports(ref)), path.name
 
 
 def test_scalar_analytic_equals_reference():
