@@ -78,6 +78,17 @@ def lindley_station(arrivals: torch.Tensor, services: torch.Tensor, k=1, *,
     return lindley_kserver(arrivals, services, k_rows, k_max)
 
 
+def _arrival_clock(inter: torch.Tensor) -> torch.Tensor:
+    """Arrival times: the cumsum of each row's gaps. torch scans a tensor that
+    holds a single row with CUB's device-wide scan, whose float sums depend on
+    how its tiles' look-back runs, so a lone row's clock could move by an ulp
+    between two runs of one seed; a zero second row keeps it on the row-wise
+    scan that every batch takes, and a seeded run repeats bit for bit."""
+    if inter.shape[0] == 1 and inter.device.type == "cuda":
+        return torch.cumsum(torch.cat([inter, torch.zeros_like(inter)]), dim=1)[:1]
+    return torch.cumsum(inter, dim=1)
+
+
 def _resort_by_departure(dep: torch.Tensor, orig_arrival: torch.Tensor):
     """FCFS order at the next station is by arrival there (= departure here);
     carry each job's original arrival through the permutation."""
@@ -202,7 +213,7 @@ def simulate_fleet(
             raise ValueError("fractional device parallelism_k cannot be simulated "
                              "exactly; round it or compare via fleet_analytic only")
         draw = _Draws(DRAW_NAMES["on_device"], draws, gen, shape, dev)
-        arrivals = torch.cumsum(draw("inter").div_(col(batch.lam)[:, None]), dim=1)
+        arrivals = _arrival_clock(draw("inter").div_(col(batch.lam)[:, None]))
         services = _service_samples(torch.as_tensor(batch.dev_model, device=dev),
                                     col(batch.dev_s), col(batch.dev_var), draw)
         dep = lindley_station(arrivals, services, np.maximum(k_dev, 1), k_max=k_max)
@@ -228,7 +239,7 @@ def simulate_fleet(
     req_mean = col(batch.req_bytes / bw)[:, None]
     res_mean = col(np.where(batch.return_results, batch.res_bytes, 0.0) / bw)[:, None]
     draw = _Draws(DRAW_NAMES["edge"], draws, gen, shape, dev)
-    arrivals = torch.cumsum(draw("inter").div_(col(batch.lam)[:, None]), dim=1)
+    arrivals = _arrival_clock(draw("inter").div_(col(batch.lam)[:, None]))
 
     # stage 1: device NIC (k=1, exponential mean D_req/B); k=1 departures
     # are already non-decreasing, so no resort is needed before stage 2

@@ -1003,3 +1003,50 @@ def test_predictor_fit_on_the_card_matches_cpu(gen):  # gen: skips without a car
     # 64-row one, so its float32 sums run in another order (1.1e-6 measured)
     one = card.predict(X[448])
     assert type(one) is np.float32 and one == pytest.approx(float(a[0]), rel=1e-5)
+
+
+# the kernels bench family at the reference's shapes (bench/kernel_bench.py),
+# each error within chip_smoke.py's KERNEL_BENCH_TOL: flash in bf16 against
+# the fp32 plain version (6.75e-3 measured), decode / RMSNorm / the selective
+# scan in fp32 (1.94e-7, 9.54e-7, 1.43e-6), the Lindley and decision scans
+# exact (the family's ERR_FLOOR)
+KERNEL_BENCH_TOL = {"flash_attention": 2e-2, "decode_attention": 1e-5, "ssm_scan": 1e-5,
+                    "rmsnorm": 1e-5, "lindley_scan": 1e-9, "decision_scan": 1e-9}
+
+
+def test_kernel_bench_rows_land_on_the_card(gen):  # gen: skips without a card
+    from repro_torch.bench.kernel_bench import kernel_rows
+
+    ops = {"flash_attention": flash_attention, "decode_attention": decode_attention,
+           "ssm_scan": ssm_scan, "rmsnorm": rmsnorm, "lindley_scan": lindley_scan,
+           "decision_scan": decision_scan}
+    before = {name: op.launches for name, op in ops.items()}
+    report = kernel_rows(None)  # device=None: the card
+    assert list(report) == list(KERNEL_BENCH_TOL)
+    for name, tol in KERNEL_BENCH_TOL.items():
+        assert report[name]["max_abs_err"] <= tol, (name, report[name])
+        assert ops[name].launches > before[name], name
+
+
+def test_run_experiment_on_the_card_resumes(gen, tmp_path):  # gen: skips without a card
+    from repro_torch.exp import registry, run_experiment
+
+    spec = registry()["bench-kernels"]
+    first = run_experiment(spec, results_root=tmp_path)  # device=None: the card
+    again = run_experiment(spec, results_root=tmp_path)
+    assert first.passed and not first.skipped
+    assert again.skipped and again.passed and again.run_dir == first.run_dir
+    manifest = (first.run_dir / "manifest.json").read_text()
+    assert torch.cuda.get_device_name(0) in manifest
+
+
+def test_simulate_fleet_one_row_repeats_bit_for_bit(gen):  # gen: skips without a card
+    """A lone row's arrival clock stays on the row-wise scan (torch scans a
+    one-row tensor with CUB's device-wide scan, whose float sums can move by
+    an ulp between runs): the validate gate's one-row groups repeat exactly."""
+    batch = ScenarioBatch.from_scenarios([default_scenario()])
+    first = simulate_fleet(batch, "on_device", n=40_000, seed=3)
+    for _ in range(4):
+        again = simulate_fleet(batch, "on_device", n=40_000, seed=3)
+        np.testing.assert_array_equal(again.latencies, first.latencies)
+        np.testing.assert_array_equal(again.arrivals, first.arrivals)
