@@ -206,13 +206,33 @@ Phases; any failure exits non-zero before the result lines are printed:
      nothing cut, simulated clock) through ``run_experiment``: its own gates,
      the serving kernels' launches exact, and its profile equal to the
      measure phase's where their harness configs are equal;
- 13. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
+ 13. train: InternVL2-1B at full width (24 layers, 0.63 B parameters,
+     nothing cut). Its image prefix (ROADMAP A14): 256 stub patch embeddings
+     and 3,840 text tokens through ``LM.prefill(..., prefix_embeds=)`` and 4
+     decode steps, launch counts exact, the logits gate of serve_local with
+     a planted fault (the prefix after the text). Gradients through the
+     kernels (bf16 forward kernels, fp32 torch backwards): one ``loss_fn`` +
+     backward at B 1 x S 1024 against the plain path in float32 on the same
+     weights (norm scales drawn random), every parameter's gradient within
+     1.5x the plain bf16 path's rel-L2 and the loss within 1.5x its
+     per-token RMS error, a control passing and two planted backward faults
+     (flash without the causal mask, RMSNorm without (1 + scale)) failing;
+     layer 0's wq and the embedding with nonzero gradients. Then 30 steps of
+     ``launch/train.py``'s own path at 2 x 4096 (prefix 256), lr 3e-4,
+     warmup 5, AdamW, remat "full": losses finite and falling, launches per
+     step exact (2 rmsnorm, 4L - 1 fused, 2L flash: each layer's forward
+     again under remat), peak memory under 80 GB, the step time beside the
+     model-FLOP floor, tokens/s, forward and backward on CUDA events and a
+     profile of 3 steps; and the reduced config in bf16 trained 6 steps and
+     resumed from its step-3 checkpoint, steps 4-6 bit-equal;
+ 14. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
      entry; the serving kernels also with their launches in the measure
      phase's full-width simulated run, in serve_local and in encdec, the
      RMSNorm entries in serve_xlstm, flash and decode with their gemma2 and
      seamless timing rows, and they
      and the decision scan with their launches in the obs phase; every
-     kernel with its launches in the reproduce phase), the card's
+     kernel with its launches in the reproduce phase and in the train
+     phase's 30 steps), the card's
      name and power limit as nvidia-smi gives them, and the final
      ``{"ok": true, ...}`` line.
 Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
@@ -1014,25 +1034,34 @@ KERNEL_SITES = {"rmsnorm": "layers", "rmsnorm_add": "layers", "flash_attention":
 
 
 @contextlib.contextmanager
+def swapped(attrs: dict):
+    """Swap functions by "module:name" under ``repro_torch`` (a planted fault
+    in a kernel module), restored after."""
+    import importlib
+
+    sites = [(importlib.import_module(f"repro_torch.{key.split(':')[0]}"), key.split(":")[1], fn)
+             for key, fn in attrs.items()]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    for mod, name, fn in sites:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def plain_path(refs: dict):
     """Route the model through the plain versions (for the logits check only):
     ``refs`` maps each name of ``KERNEL_SITES`` to its plain version, and may
     also swap a model function by its "module.name" under
     ``repro_torch.models`` (a planted fault)."""
-    import importlib
-
-    sites = {name: (KERNEL_SITES[name], name) if "." not in name else name.split(".")
-             for name in {**KERNEL_SITES, **refs}}
-    mods = {name: importlib.import_module(f"repro_torch.models.{mod}")
-            for name, (mod, _) in sites.items()}
-    saved = {name: getattr(mods[name], attr) for name, (_, attr) in sites.items()}
-    for name, (_, attr) in sites.items():
-        setattr(mods[name], attr, refs[name])
-    try:
-        yield
-    finally:
-        for name, (_, attr) in sites.items():
-            setattr(mods[name], attr, saved[name])
+    missing = set(KERNEL_SITES) - set(refs)
+    if missing:
+        raise ValueError(f"plain_path needs every kernel site; missing {sorted(missing)}")
+    return swapped({"models.{}:{}".format(*(name.split(".") if "." in name else
+                                            (KERNEL_SITES[name], name))): fn
+                    for name, fn in refs.items()})
 
 
 def serving_launches(L: int, prefills: int, decodes: int) -> dict[str, int]:
@@ -1342,14 +1371,17 @@ def in_fp32(torch, model):
 
 
 def path_logits(model, prompt, toks, cache_len: int, refs: dict | None = None,
-                enc_embeds=None) -> list:
+                enc_embeds=None, prefix_embeds=None) -> list:
     """The logits of a prefill of ``prompt`` (an encoder-decoder's over
-    ``enc_embeds``), then of a decode step for each of ``toks`` from that
-    prefill's caches: through the kernels, or through ``refs`` in their
-    place."""
-    L = prompt.shape[1]
+    ``enc_embeds``; after ``prefix_embeds`` where given), then of a decode
+    step for each of ``toks`` from that prefill's caches: through the
+    kernels, or through ``refs`` in their place."""
+    L = prompt.shape[1] + (0 if prefix_embeds is None else prefix_embeds.shape[1])
     with plain_path(refs) if refs else contextlib.nullcontext():
-        if enc_embeds is None:
+        if prefix_embeds is not None:
+            logits, caches = model.prefill(prompt, prefix_embeds=prefix_embeds)
+            full = model.init_caches(1, cache_len)
+        elif enc_embeds is None:
             logits, caches = model.prefill(prompt)
             full = model.init_caches(1, cache_len)
         else:
@@ -1361,11 +1393,12 @@ def path_logits(model, prompt, toks, cache_len: int, refs: dict | None = None,
 
 
 def logits_gate(torch, model, refs, faults: dict, *, cache_len: int, prompt_len: int,
-                steps: int, fp32_kernels: bool, enc_len: int = 0) -> dict:
+                steps: int, fp32_kernels: bool, enc_len: int = 0, prefix_len: int = 0) -> dict:
     """The served model's kernel path held against its plain path above the
     model's own rounding noise: a ragged prompt (for an encoder-decoder over
     ``enc_len`` frame embeddings drawn in bf16 from the seed, the same for
-    every path), then ``steps`` decode steps (tokens from a seed). Beside
+    every path; after ``prefix_len`` prefix embeddings, N(0, 0.02^2) in
+    bf16, where given), then ``steps`` decode steps (tokens from a seed). Beside
     the kernel path run a control (the plain
     path with its RMSNorm sums in another order, ``resummed_norms``: a
     correct kernel's kind of difference) and planted ``faults`` (name ->
@@ -1391,6 +1424,10 @@ def logits_gate(torch, model, refs, faults: dict, *, cache_len: int, prompt_len:
     enc = None
     if enc_len:
         enc = torch.randn((1, enc_len, cfg.d_model), generator=gen, device=dev).bfloat16()
+    prefix = None
+    if prefix_len:
+        prefix = (torch.randn((1, prefix_len, cfg.d_model), generator=gen, device=dev)
+                  * 0.02).bfloat16()
     variants = {"control": {**refs, **resummed_norms(torch)}}
     variants.update({f"fault: {name}": {**refs, **swap} for name, swap in faults.items()})
 
@@ -1398,7 +1435,7 @@ def logits_gate(torch, model, refs, faults: dict, *, cache_len: int, prompt_len:
         return float((got.float() - want.float()).norm() / want.float().norm())
 
     def run_all(paths):
-        return {name: path_logits(model, prompt, toks, cache_len, r, enc)
+        return {name: path_logits(model, prompt, toks, cache_len, r, enc, prefix)
                 for name, r in paths.items()}
 
     bf16 = run_all({"kernel": None, "plain": refs})
@@ -1421,7 +1458,7 @@ def logits_gate(torch, model, refs, faults: dict, *, cache_len: int, prompt_len:
     else:
         bf16.update(run_all(variants))
         with in_fp32(torch, model):
-            ref = path_logits(model, prompt, toks, cache_len, refs, enc)
+            ref = path_logits(model, prompt, toks, cache_len, refs, enc, prefix)
         plain = [rel_l2(p, r) for p, r in zip(bf16["plain"], ref)]
         limit = FP32_ERROR_RATIO
         measure = "worst ratio of its rel_l2 to the fp32 path to the plain bf16 path's"
@@ -4004,6 +4041,333 @@ def phase_reproduce(torch, meanfield_plan: dict, measure: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# training: internvl2's prefix, gradients through the kernels, launch.train
+
+
+# InternVL2-1B, nothing cut: the prefix check's 256 stub patch embeddings
+# and 3,840 text tokens, then 4 decode steps; the gradient check at B 1 x S
+# 1024 (a prefix of 64; the plain path's scores grow as S^2); 30 steps of
+# launch.train at 2 x 4096 (prefix 256, text 3,840), lr 3e-4, warmup 5,
+# AdamW, remat "full"; the resume check on the reduced config in bf16
+PREFIX_P, PREFIX_S, PREFIX_STEPS = 256, 3840, 4
+GRAD_B, GRAD_S = 1, 1024
+TRAIN_ARGV = ["--arch", "internvl2_1b", "--steps", "30", "--batch", "2", "--seq-len", "4096",
+              "--lr", "3e-4", "--warmup", "5", "--log-every", "1", "--device", "cuda"]
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 30, 2, 4096
+
+
+def train_launches(cfg, steps: int) -> tuple[dict[str, int], str]:
+    """Every kernel's launches for ``steps`` training steps of a dense
+    L-layer decoder under remat "full" (each layer's forward runs again in
+    the backward pass; the final norm and the head do not), and the formula:
+    per step rmsnorm 1 + 1 (layer 0's norm1, twice), rmsnorm_add 2L (the
+    later norm1s, the norm2s, the final norm) + 2L - 1 (their layers again),
+    flash L + L."""
+    L = cfg.num_layers
+    counts = {"rmsnorm": 2 * steps, "rmsnorm_add": (4 * L - 1) * steps,
+              "flash_attention": 2 * L * steps, "decode_attention": 0, "lindley_scan": 0,
+              "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0}
+    formula = (f"per step 1 + 1 rmsnorm, 2L + 2L - 1 = {4 * L - 1} rmsnorm_add, L + L = {2 * L} "
+               f"flash (L = {L}: each layer's forward once more under remat)")
+    return counts, formula
+
+
+def grad_faults(torch) -> dict:
+    """The planted faults the gradient gate must refuse, each a swap of a
+    backward: flash's without the causal mask, RMSNorm's without the
+    (1 + scale) factor (both entries' backward is ``rmsnorm_backward``)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+
+    backward, norm_backward = fa.flash_attention_backward, rn.rmsnorm_backward
+
+    def unmasked(q, k, v, o, do, **kw):
+        return backward(q, k, v, o, do, **{**kw, "causal": False})
+
+    def no_scale(x, scale, gy, eps=1e-6, gs=None):
+        dx, _ = norm_backward(x, torch.zeros_like(scale), gy, eps, gs)
+        return dx, norm_backward(x, scale, gy, eps, gs)[1]
+
+    return {"flash backward without the causal mask":
+            {"kernels.flash_attention.ops:flash_attention_backward": unmasked},
+            "RMSNorm backward without the (1 + scale) factor":
+            {"kernels.rmsnorm.ops:rmsnorm_backward": no_scale}}
+
+
+def grads_of(torch, model, batch, refs: dict | None = None, swaps: dict | None = None):
+    """(loss, {name: gradient in fp32}) of one ``loss_fn`` + backward through
+    the kernels, or through ``refs`` in their place, with ``swaps`` applied."""
+    from repro_torch.models.lm import loss_fn
+
+    model.zero_grad(set_to_none=True)
+    with plain_path(refs) if refs else contextlib.nullcontext(), swapped(swaps or {}):
+        loss, _ = loss_fn(model, batch)
+        loss.backward()
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def token_losses(torch, model, batch, refs: dict | None = None):
+    """Each target position's loss term, lse - gold + 1e-4 lse^2 (``loss_fn``'s
+    summand), from ``forward``'s logits through the kernels or ``refs``."""
+    T = batch["targets"].shape[1]
+    with torch.no_grad(), plain_path(refs) if refs else contextlib.nullcontext():
+        lf = model(batch["tokens"], prefix_embeds=batch.get("prefix_embeds"))[:, -T:].float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, batch["targets"].long()[..., None])[..., 0]
+    return (lse - gold + 1e-4 * lse**2)[batch["loss_mask"] > 0]
+
+
+def grad_gate(torch, model, refs) -> dict:
+    """The full-width model's gradients through the kernels (bf16 forward
+    kernels, the fp32 backwards) held against the plain path in float32 on
+    the same weights and batch, above the plain bf16 path's own error: every
+    parameter's gradient by its rel-L2, the kernel path's at most
+    FP32_ERROR_RATIO times the plain bf16 path's; and the loss, whose error
+    is the mean of the per-token errors and so at most their RMS (the two
+    bf16 paths' means are noise of that size: 1.3e-3 and 3.3e-4 on the same
+    batch, the control's 1.6e-5, an H100 80GB HBM3 at 700 W): the kernel
+    path's loss error at most FP32_ERROR_RATIO times the plain bf16 path's
+    per-token RMS error. A control (the plain path with the norms' sums
+    reordered) must pass and two planted backward faults must fail. The norm
+    scales are drawn N(0, 0.3^2) first, so that every (1 + scale) counts."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import make_batch
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.3)
+    model.requires_grad_(True)
+    batch = make_batch(cfg, GRAD_B, GRAD_S, step=0, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    with in_fp32(torch, model):
+        ref_loss, ref = grads_of(torch, model, batch, refs)
+        ref_tokens = token_losses(torch, model, batch, refs)
+    token_rms = float((token_losses(torch, model, batch, refs) - ref_tokens).square().mean().sqrt())
+    del ref_tokens
+
+    def rel(g, name):
+        return float((g[name] - ref[name]).norm() / ref[name].norm().clamp_min(1e-30))
+
+    variants = {"plain": dict(refs=refs), "kernel": {},
+                "control": dict(refs={**refs, **resummed_norms(torch)})}
+    variants.update({f"fault: {k}": dict(swaps=v) for k, v in grad_faults(torch).items()})
+    errs, dloss = {}, {}
+    for name, kw in variants.items():
+        loss, g = grads_of(torch, model, batch, **kw)
+        dloss[name] = abs(loss - ref_loss)
+        errs[name] = {n: rel(g, n) for n in ref}
+        del g
+    wall = time.perf_counter() - t0
+    plain = errs["plain"]
+    out: dict = {"ref_loss": ref_loss, "loss_abs_err": dloss, "seconds": wall,
+                 "plain_token_rms_err": token_rms,
+                 "plain_grad_rel_l2": {"max": max(plain.values()),
+                                       "median": float(np.median(list(plain.values())))}}
+    log(f"[train] gradients at full width, B {GRAD_B} x S {GRAD_S} (prefix "
+        f"{int(GRAD_S * cfg.prefix_len_fraction)}): fp32 plain-path loss {ref_loss:.6f}; the plain "
+        f"bf16 path's loss {dloss['plain']:.3e} from it (per-token RMS error {token_rms:.3e}), "
+        f"its gradients' rel_l2 median "
+        f"{out['plain_grad_rel_l2']['median']:.3e}, max {out['plain_grad_rel_l2']['max']:.3e} "
+        f"over {len(plain)} parameters; {wall:.2f} s for {len(variants) + 1} backward passes")
+    for name in variants:
+        if name == "plain":
+            continue
+        ratios = {n: errs[name][n] / max(plain[n], 1e-30) for n in plain}
+        worst = max(ratios, key=ratios.get)
+        lr = dloss[name] / max(token_rms, 1e-30)
+        reading = max(ratios[worst], lr)
+        fault = name.startswith("fault")
+        ok = (reading > FP32_ERROR_RATIO) if fault else (reading <= FP32_ERROR_RATIO)
+        verdict = ("caught" if ok else "MISSED") if fault else ("ok" if ok else "FAIL")
+        log(f"[train] gradients, {name}: loss error {dloss[name]:.3e} ({lr:.3f}x the plain bf16 "
+            f"path's per-token RMS error); worst gradient ratio {ratios[worst]:.3f} ({worst}), median "
+            f"{float(np.median(list(ratios.values()))):.3f} (limit {FP32_ERROR_RATIO:g}) {verdict}")
+        out.setdefault("readings", {})[name] = dict(
+            loss_ratio=lr, worst_ratio=ratios[worst], worst_param=worst,
+            median_ratio=float(np.median(list(ratios.values()))))
+        if not ok:
+            FAILURES.append(f"gradient gate, {name}: {reading:.3e} against {FP32_ERROR_RATIO:g}")
+    # silent detachment ruled out: the kernel path's gradient reaches layer 0
+    # and the embedding
+    _, g = grads_of(torch, model, batch)
+    norms = {n: float(g[n].norm()) for n in ("layers.0.attn.wq", "embed.embedding")}
+    ok = all(v > 0 and math.isfinite(v) for v in norms.values())
+    log(f"[train] kernel path gradient norms {norms}: nonzero {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"gradients detached on the kernel path: {norms}")
+    out["grad_norms"] = norms
+    model.requires_grad_(False)
+    return out
+
+
+def phase_train(torch, refs) -> dict:
+    """internvl2_1b at full width: the prefix (A14) through prefill and decode
+    with exact launch counts and the logits gate (a planted fault: the prefix
+    after the text); the loss's gradients through the kernels against the
+    plain path (two planted backward faults); 30 steps of ``launch/train.py``
+    (launches per step exact, losses finite and falling, peak memory, step
+    time against the model-FLOP floor, a profile); and a bit-exact resume of
+    the reduced config in bf16 from a checkpoint."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSuite
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM, loss_fn
+    from repro_torch.perf.flops import cell_flops
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    cfg = get_config("internvl2_1b")
+    L = cfg.num_layers
+
+    # 1. A14: prefill after a prefix, then decode steps
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    prefix = (torch.randn((1, PREFIX_P, cfg.d_model), generator=gen, device="cuda")
+              * 0.02).bfloat16()
+    prompt = torch.randint(0, cfg.vocab_size, (1, PREFIX_S), generator=gen, device="cuda")
+    toks = [torch.randint(0, cfg.vocab_size, (1, 1), generator=gen, device="cuda")
+            for _ in range(PREFIX_STEPS)]
+    cache_len = PREFIX_P + PREFIX_S + PREFIX_STEPS
+    torch.cuda.synchronize()
+    reset_counts()
+    logits = path_logits(model, prompt, toks, cache_len, prefix_embeds=prefix)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect = serving_launches(L, 1, PREFIX_STEPS)
+    check_launches("train", launches, expect, f"a prefill of {PREFIX_P} prefix + {PREFIX_S} text "
+                   f"positions (2 rmsnorm + {2 * L - 1} rmsnorm_add + {L} flash) and "
+                   f"{PREFIX_STEPS} decode steps (1 + {2 * L} + {L} decode each)")
+    ok = all(bool(torch.isfinite(g).all()) and g.shape == (1, 1, cfg.padded_vocab)
+             for g in logits)
+    if not ok:
+        FAILURES.append("train: prefix prefill / decode logits not finite or misshapen")
+    out["prefix"] = dict(launches=launches, logits_finite=ok)
+
+    def after_text(p, x):  # the planted fault: the prefix appended after the text
+        return torch.cat([x, p.to(x.dtype)], dim=1)
+
+    out["prefix"]["logits"] = logits_gate(
+        torch, model, refs, {"the prefix after the text": {"lm.prepend_prefix": after_text}},
+        cache_len=cache_len, prompt_len=PREFIX_S, steps=PREFIX_STEPS, fp32_kernels=False,
+        prefix_len=PREFIX_P)
+    out["prefix"]["seconds"] = time.perf_counter() - t0
+    log(f"[train] A14 prefix check {out['prefix']['seconds']:.2f} s")
+
+    # 2. gradients through the kernels at full width
+    out["grads"] = grad_gate(torch, model, refs)
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. launch/train.py's own path at full width
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, model, state = train.run(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect, formula = train_launches(cfg, TRAIN_STEPS)
+    check_launches("train", launches, expect, f"{TRAIN_STEPS} steps: {formula}")
+    losses = [r["loss"] for r in trainer.metrics_log]
+    times = [r["step_time_s"] for r in trainer.metrics_log]
+    last5 = float(np.mean(losses[-5:]))
+    finite = len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses)
+    falls = last5 < losses[0]
+    step_ms = float(np.median(times[5:])) * 1e3
+    tokens_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    flops = cell_flops(cfg, ShapeSuite("train_card", TRAIN_S, TRAIN_B, "train"))
+    floor_ms = flops.total / BF16_OPS * 1e3
+    out["train"] = dict(argv=TRAIN_ARGV, wall_s=wall, launches=launches, launch_formula=formula,
+                        losses=losses, step_s=times, step_ms_median=step_ms, tokens_per_s=tokens_s,
+                        peak_mem_gib=peak / 2**30, flops=flops.total, floor_ms=floor_ms,
+                        model_flop_share=floor_ms / step_ms, params=model.num_params(),
+                        stragglers=trainer.straggler_events)
+    log(f"[train] {cfg.name} at full width ({model.num_params():,} params, nothing cut): "
+        f"{TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} in {wall:.2f} s wall (set-up included); "
+        f"losses finite: {finite}; first {losses[0]:.4f}, mean of the last five {last5:.4f} "
+        f"(margin {losses[0] - last5:.4f}): {'ok' if falls else 'FAIL'}")
+    log(f"[train] step {step_ms:.3f} ms (median of steps 5-{TRAIN_STEPS - 1}, host clock after "
+        f"a synchronize), {tokens_s:,.0f} tokens/s; model-FLOP floor {flops.total / 1e12:.3f} "
+        f"TFLOP / 989 TFLOP/s = {floor_ms:.3f} ms ({flops.note}): share {floor_ms / step_ms:.1%}; "
+        f"peak memory {peak / 2**30:.2f} GiB (limit 80 GB); stragglers "
+        f"{len(trainer.straggler_events)}")
+    if not (finite and falls) or peak >= 80e9:
+        FAILURES.append(f"train: losses finite {finite}, falling {falls} ({losses[0]:.4f} -> "
+                        f"{last5:.4f}), peak {peak / 2**30:.2f} GiB")
+
+    # where a step's time goes: forward and backward on CUDA events, a profile
+    batch = trainer.data[0]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    split = []
+    for _ in range(3):
+        model.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss, _ = loss_fn(model, batch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        torch.cuda.synchronize()
+        split.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+        del loss
+    model.zero_grad(set_to_none=True)
+    fwd_ms, bwd_ms = split[-1]
+    prof = profile_calls(torch, f"{cfg.name} training step, {TRAIN_B} x {TRAIN_S}",
+                         lambda: trainer.step_fn(model, state, batch), n=3)
+    out["train"].update(forward_ms=fwd_ms, backward_ms=bwd_ms, split_ms=split, profile=prof)
+    share = f", {bwd_ms / prof['device_ms']:.1%} of the step's device time" if prof else ""
+    log(f"[train] forward (loss_fn) {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms on CUDA events: "
+        f"the backward {bwd_ms / (fwd_ms + bwd_ms):.1%} of the two{share}")
+    del trainer, model, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. resume on the card: the reduced config in bf16, 6 steps, then steps
+    # 4-6 again from the step-3 checkpoint in a fresh trainer
+    t0 = time.perf_counter()
+    tiny = dataclasses.replace(cfg.reduced(), dtype="bfloat16")
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = TrainConfig(steps=6, batch=2, seq_len=64, checkpoint_every=3, checkpoint_dir=tmp,
+                         log_every=1, lr=1e-3)
+        m1, _, log1 = Trainer(tiny, tc).run()
+        t2 = Trainer(tiny, tc)
+        m2, s2, step = t2.resume(3)
+        m2, _, log2 = t2.run(m2, s2, start_step=step)
+        kept = t2.ckpt.steps()
+    same_loss = [a["loss"] for a in log1[3:]] == [b["loss"] for b in log2]
+    same_params = all(torch.equal(a, b) for a, b in zip(m1.parameters(), m2.parameters()))
+    ok = step == 3 and same_loss and same_params and [b["step"] for b in log2] == [3, 4, 5]
+    out["resume"] = dict(losses=[a["loss"] for a in log1], resumed=[b["loss"] for b in log2],
+                         kept=kept, seconds=time.perf_counter() - t0)
+    log(f"[train] resume ({tiny.name}, bf16): 6 steps, then steps 4-6 from the step-3 "
+        f"checkpoint: losses {[round(b['loss'], 6) for b in log2]} bit-equal {same_loss}, "
+        f"parameters bit-equal {same_params}; checkpoints kept {kept}; "
+        f"{out['resume']['seconds']:.2f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"train resume: step {step}, losses {log1} vs {log2}, params equal "
+                        f"{same_params}")
+    out["launches"] = out["train"]["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase wall time {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4121,6 +4485,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     reproduced = phase_reproduce(torch, meanfield_plan, measure)
     end_phase("reproduce")
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = phase_train(torch, model_refs)
+    end_phase("train")
 
     where = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:32"),
@@ -4173,6 +4541,7 @@ def main() -> int:
                     "decision_scan"):  # the obs phase: the demo's engine, the traced loop
             row["obs_launches"] = obs["launches"][name]
         row["reproduce_launches"] = reproduced["launches"][name]  # the reproduce phase
+        row["train_launches"] = trained["launches"][name]  # 30 steps of launch/train.py
         if name in ("lindley_scan", "decision_scan"):  # launched on the new paths too
             row.update(tails_launches=tails["launches"][name],
                        meanfield_plan_launches=meanfield_plan["launches"][name])
@@ -4194,7 +4563,7 @@ def main() -> int:
     RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid,
                   serve_local=serve_local, serve_xlstm=serve_xlstm, encdec=encdec, fleet=fleet,
                   cluster=cluster, tails=tails, meanfield_plan=meanfield_plan, measure=measure,
-                  obs=obs, paper=paper, reproduce=reproduced)
+                  obs=obs, paper=paper, reproduce=reproduced, train=trained)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(RESULT, indent=1, default=str))

@@ -28,7 +28,7 @@ import torch
 
 __all__ = [
     "SOURCES", "DTYPE_CODES", "build", "build_log", "function", "check", "stream_handle",
-    "check_cuda_tensors",
+    "check_cuda_tensors", "requires_grad", "refuse_grad",
 ]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -151,3 +151,19 @@ def check_cuda_tensors(**tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be 16-byte aligned with strides and last dimension "
                              f"in multiples of {per16} elements; got shape {tuple(t.shape)}, "
                              f"strides {t.stride()}")
+
+
+def requires_grad(*tensors: torch.Tensor | None) -> bool:
+    """Grad mode is on and an input requires grad: a wrapper's output must
+    then carry a gradient (``None`` inputs are skipped)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, item: str, *tensors: torch.Tensor | None) -> None:
+    """Raise ``NotImplementedError`` where a kernel without a backward would
+    return a detached output (``requires_grad``). ``item`` names the ROADMAP
+    item that is to add the backward."""
+    if requires_grad(*tensors):
+        raise NotImplementedError(f"{name} has no backward on the card (its output would carry "
+                                  f"no gradient); {item} is to add one. Run this model's "
+                                  "training on the CPU, where the plain version is differentiated")

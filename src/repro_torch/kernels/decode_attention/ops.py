@@ -6,7 +6,8 @@ the kernel reads through strides (the cache is never copied). Keys at
 positions <= pos are attended. ``split_plan`` cuts the visible keys into runs
 for the kernel's CTAs; a second pass of the same C entry merges the runs.
 ``decode_attention.launches`` counts the wrapper's calls of that entry, one
-per call; CPU calls never touch it.
+per call; CPU calls never touch it. The kernel has no backward: on the card
+an input that requires grad under grad mode raises (``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -79,6 +80,8 @@ def decode_attention(
         return decode_attention_reference(q, k_cache, v_cache, pos, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on the CPU or a CUDA card, not {q.device}")
+    _build.refuse_grad("decode_attention", "ROADMAP B-perf kernel item 6 (a decode-attention "
+                       "backward, for a path that trains through decoding)", q, k_cache, v_cache)
     B, one, H, hd = q.shape
     Bk, S, K, hdk = k_cache.shape
     if (one != 1 or tuple(v_cache.shape) != tuple(k_cache.shape) or Bk != B or hdk != hd

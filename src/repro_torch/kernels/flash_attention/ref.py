@@ -23,6 +23,7 @@ def flash_attention_reference(
     causal: bool = True,
     window: int = 0,  # 0 = unbounded
     softcap: float = 0.0,
+    chunk: int = 512,  # the wrapper's backward chunk; autograd differentiates this unchunked
 ) -> torch.Tensor:
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]

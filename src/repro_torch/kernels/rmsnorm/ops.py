@@ -7,6 +7,12 @@ normalises s, in one launch. ``rmsnorm.launches`` and
 ``rmsnorm_add.launches`` count each entry's launches (CPU calls never touch
 them). ``norm_plan`` sizes the launch: threads per row, rows per CTA and
 16-byte vectors per thread.
+
+Gradients: where grad mode is on and an input requires grad, a CUDA call
+goes through an ``autograd.Function`` whose forward is the same kernel
+launch and whose backward is ``rmsnorm_backward`` (torch operations in
+fp32: the reference has no backward kernel, XLA differentiates its
+``rms_norm``). Otherwise the wrappers launch directly, as serving does.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import torch
 from .. import _build
 from .ref import rmsnorm_add_reference, rmsnorm_reference
 
-__all__ = ["rmsnorm", "rmsnorm_add", "norm_plan", "NormPlan", "ROW_THREADS", "VECTORS",
+__all__ = ["rmsnorm", "rmsnorm_add", "rmsnorm_backward", "norm_plan", "NormPlan", "ROW_THREADS", "VECTORS",
            "ROW_VECTORS", "CTA_THREADS"]
 
 ROW_THREADS = (32, 64, 128, 256, 512)  # threads per row the kernel takes (a warp up to a CTA)
@@ -104,6 +110,68 @@ def _plan(x: torch.Tensor) -> NormPlan:
     return norm_plan(x.numel() // d if d else 0, d, x.element_size())
 
 
+def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, gy: torch.Tensor,
+                     eps: float = 1e-6, gs: torch.Tensor | None = None):
+    """(dx, dscale) of y = x * rstd * (1 + scale), rstd = rsqrt(mean(x^2) + eps),
+    in fp32: with u = gy * (1 + scale) and x_hat = x * rstd,
+    dx = rstd * (u - x_hat * mean(u * x_hat)) and dscale = sum over rows of
+    gy * x_hat. ``gs``, the gradient reaching ``x`` directly (``rmsnorm_add``'s
+    s), is added to dx."""
+    xf = x.float()
+    rstd = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    g = gy.float()
+    u = g * (1.0 + scale.float())
+    dx = rstd * (u - xhat * torch.mean(u * xhat, dim=-1, keepdim=True))
+    dscale = (g * xhat).reshape(-1, x.shape[-1]).sum(0)
+    if gs is not None:
+        dx = dx + gs.float()
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class _Norm(torch.autograd.Function):
+    """y = forward(x, scale, eps) (the kernel on the card; the plain version
+    in the CPU tests), differentiated by ``rmsnorm_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, forward):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_backward(x, scale, gy, ctx.eps)
+        return dx, dscale, None, None
+
+
+class _NormAdd(torch.autograd.Function):
+    """(s, y) = forward(x, r, scale, eps), s = x + r, y = rmsnorm(s):
+    ds = gs + the norm's backward, which reaches x and r alike."""
+
+    @staticmethod
+    def forward(ctx, x, r, scale, eps, forward):
+        s, y = forward(x, r, scale, eps)
+        ctx.save_for_backward(s, scale)
+        ctx.eps = eps
+        return s, y
+
+    @staticmethod
+    def backward(ctx, gs, gy):
+        s, scale = ctx.saved_tensors
+        ds, dscale = rmsnorm_backward(s, scale, gy, ctx.eps, gs)
+        return ds, ds, dscale, None, None
+
+
+def _kernel_norm(x, scale, eps):
+    return _launch(x, None, scale, eps, _plan(x))
+
+
+def _kernel_norm_add(x, r, scale, eps):
+    return _launch(x, r, scale, eps, _plan(x))
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """y = x * rsqrt(mean(x^2) + eps) * (1 + scale) over the last dim, in fp32."""
     if x.device.type == "cpu":
@@ -112,7 +180,10 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
         raise ValueError(f"rmsnorm runs on the CPU or a CUDA card, not {x.device}")
     _check(x, scale, "rmsnorm")
     _build.check_cuda_tensors(x=x, scale=scale)
-    out = _launch(x, None, scale, eps, _plan(x))
+    if _build.requires_grad(x, scale):
+        out = _Norm.apply(x, scale, eps, _kernel_norm)
+    else:
+        out = _kernel_norm(x, scale, eps)
     rmsnorm.launches += 1
     return out
 
@@ -132,7 +203,10 @@ def rmsnorm_add(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
     if not r.is_contiguous():
         raise ValueError("rmsnorm_add kernel takes a contiguous r")
     _build.check_cuda_tensors(x=x, r=r, scale=scale)
-    out = _launch(x, r, scale, eps, _plan(x))
+    if _build.requires_grad(x, r, scale):
+        out = _NormAdd.apply(x, r, scale, eps, _kernel_norm_add)
+    else:
+        out = _kernel_norm_add(x, r, scale, eps)
     rmsnorm_add.launches += 1
     return out
 

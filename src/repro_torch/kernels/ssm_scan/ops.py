@@ -7,9 +7,10 @@ read through their strides (the model passes column slices of the ``x_proj``
 output, whose rows are dtr + 2N wide) with unit stride on N; A (D, N) fp32;
 h0 (B, D, N) fp32 or None for zeros. N is at most ``N_MAX``. Anything else
 raises. ``ssm_scan.launches`` counts the kernel's launches (CPU calls never
-touch it). ``scan_plan`` sizes the kernel's CTAs: lanes per channel,
-channels per CTA, steps per staged tile and how y's partial sums are reduced
-across a channel's lanes.
+touch it); the kernel has no backward, so on the card an input that
+requires grad under grad mode raises (``_build.refuse_grad``). ``scan_plan``
+sizes the kernel's CTAs: lanes per channel, channels per CTA, steps per
+staged tile and how y's partial sums are reduced across a channel's lanes.
 """
 
 from __future__ import annotations
@@ -175,6 +176,8 @@ def ssm_scan(dt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, u: torch.Tens
         return ssm_scan_reference(dt, Bc, Cc, u, A, h0)
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on the CPU or a CUDA card, not {u.device}")
+    _build.refuse_grad("ssm_scan", "ROADMAP B-perf kernel item 5 (a selective-scan backward)",
+                       dt, Bc, Cc, u, A, h0)
     _check(dt, Bc, Cc, u, A, h0)
     B, T, D = u.shape
     plan = scan_plan(B, T, D, A.shape[1], u.element_size(), _sm_count(u.device.index))

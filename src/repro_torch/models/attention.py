@@ -13,6 +13,10 @@ The port's counterpart of ``repro.models.attention``:
     output's K/V (``cross_kv``), with no rotary on either side; at prefill
     through the flash kernel unmasked (any number of queries and keys), at
     decode through the decode kernel over every cached frame.
+
+Training differentiates the full-sequence and cross paths through the flash
+wrapper's backward, over query chunks of ``cfg.seq_chunk`` rows (the
+reference's chunk).
 """
 
 from __future__ import annotations
@@ -75,7 +79,8 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
         q = rope_rotate(q, cos, sin)
         k = rope_rotate(k, cos, sin)
     window = cfg.window_size if local else 0
-    out = flash_attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap)
+    out = flash_attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
+                          chunk=cfg.seq_chunk)
     y = out.reshape(B, S, H * hd) @ p["wo"]
     if return_kv:
         return y, (k, v)
@@ -149,5 +154,6 @@ def cross_attn_forward(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Ten
     if decode:
         out = decode_attention(q, enc_k, enc_v, enc_k.shape[1] - 1, softcap=cfg.attn_softcap)
     else:
-        out = flash_attention(q, enc_k, enc_v, causal=False, softcap=cfg.attn_softcap)
+        out = flash_attention(q, enc_k, enc_v, causal=False, softcap=cfg.attn_softcap,
+                              chunk=cfg.seq_chunk)
     return out.reshape(B, S, H * hd) @ p["wo"]

@@ -3,7 +3,7 @@
 
 The port's counterpart of ``repro.models.lm`` for every config:
 ``starcoder2_3b``, ``starcoder2_15b``, ``deepseek_7b``, ``internvl2_1b``
-(token path), ``gemma2_9b``, ``jamba_v0_1_52b``, ``dbrx_132b``,
+(with its stub image prefix), ``gemma2_9b``, ``jamba_v0_1_52b``, ``dbrx_132b``,
 ``arctic_480b``, ``xlstm_1_3b`` and the encoder-decoder
 ``seamless_m4t_large_v2``. A layer mixes with global attention,
 sliding-window attention (``attn_local``), mamba, an mLSTM or an sLSTM, and
@@ -21,10 +21,25 @@ self-attention (``norm_cross``, ``cross``): queries from the decoder stream,
 K/V projected from the encoder output, no rotary, no mask.
 
 Modes:
+  forward      — full-sequence logits (training; differentiable, not under
+                 inference mode)
   encode       — (encoder-decoder) frame embeddings to the encoder output
   prefill      — full sequence, returns last-position logits + decode caches
                  (an encoder-decoder encodes ``enc_embeds`` first)
   decode_step  — one token per sequence, reads and updates the caches in place
+``loss_fn(model, batch)`` is the training loss over ``forward``'s logits.
+
+A config with ``prefix_embed`` (internvl2's stub vision frontend) takes
+``prefix_embeds`` (B, P, d) in ``forward`` and ``prefill``: cast to the
+model's dtype and put ahead of the token embeddings (gemma's sqrt(d) scaling
+applies to the tokens only), so RoPE numbers the P + S positions 0..P+S-1
+and the caches hold all of them. Any other config refuses a prefix.
+
+Parameters are registered with ``requires_grad=False``; training turns them
+on (``model.requires_grad_(True)``), serving leaves them off. With
+``cfg.remat == "full"`` each layer of ``forward`` runs under
+``torch.utils.checkpoint`` (the reference checkpoints each layer), so its
+kernels launch again in the backward pass.
 
 Each residual add that feeds a norm is fused into it (``rms_norm_add``):
 the mixer's add into ``norm2`` (with a cross branch: the self-attention's
@@ -47,11 +62,13 @@ K/V, written by prefill and only read at decode.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
@@ -66,6 +83,9 @@ from .params import ParamTree, TSpec, count_params, init_tensor, stack, torch_dt
 
 __all__ = [
     "LM",
+    "loss_fn",
+    "prepend_prefix",
+    "stack_groups",
     "check_supported",
     "model_template",
     "cache_template",
@@ -78,10 +98,37 @@ ENCODER_SPEC = LayerSpec("attn", "mlp")  # every encoder layer
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` for a layer kind the port does not know."""
+    """Raise ``ValueError`` for a layer kind or a remat policy the port does
+    not know."""
     for spec in cfg.superblock:
         if spec.mixer not in _MIXERS or spec.ffn not in _FFNS:
             raise ValueError(f"{cfg.name}: unknown layer {spec}")
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"{cfg.name}: remat {cfg.remat!r} is not ported ('none' or 'full')")
+
+
+def stack_groups(cfg: ModelConfig, names) -> dict[str, str]:
+    """Each parameter name's leaf in the reference's stacked tree:
+    ``layers.{n}.<path>`` is position n % P of every superblock
+    (``blocks.{n % P}.<path>``), ``encoder.layers.{n}.<path>`` one stack;
+    any other name is its own. A per-tensor statistic of the reference
+    (Adafactor's RMS, the int8 compression's scale) runs over a whole stack."""
+    P = len(cfg.superblock)
+
+    def group(name: str) -> str:
+        head, _, rest = name.partition("layers.")
+        if head not in ("", "encoder.") or not rest:
+            return name
+        n, _, path = rest.partition(".")
+        return f"{head}blocks.{int(n) % P if not head else 0}.{path}"
+
+    return {name: group(name) for name in names}
+
+
+def prepend_prefix(prefix: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The prefix embeddings (B, P, d), cast to x's dtype, ahead of the
+    token embeddings x (B, S, d)."""
+    return torch.cat([prefix.to(x.dtype), x], dim=1)
 
 
 def _block_template(cfg: ModelConfig, spec: LayerSpec, *, cross: bool = False) -> dict:
@@ -210,11 +257,22 @@ class LM(nn.Module):
             device=self.device), self.cache_template(batch, cache_len, enc_len=enc_len))
 
     # ------------------------------------------------------------------
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor, prefix_embeds: torch.Tensor | None = None):
         x = F.embedding(tokens.long(), self.embed["embedding"])
-        if self.cfg.tie_embeddings:  # gemma-style input scaling
+        if self.cfg.tie_embeddings:  # gemma-style input scaling, of the tokens only
             x = x * torch.tensor(self.cfg.d_model**0.5, dtype=x.dtype)
+        if prefix_embeds is not None:
+            x = prepend_prefix(prefix_embeds, x)
         return x
+
+    def _check_inputs(self, prefix_embeds, enc_embeds) -> None:
+        cfg = self.cfg
+        if cfg.is_encdec != (enc_embeds is not None):
+            raise ValueError(f"{cfg.name}: enc_embeds is "
+                             f"{'required' if cfg.is_encdec else 'for encoder-decoders only'}")
+        if prefix_embeds is not None and not cfg.prefix_embed:
+            raise ValueError(f"{cfg.name}: prefix_embeds is for a config with a prefix "
+                             "embedding (prefix_embed) only")
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         """Logits from the final norm's output."""
@@ -256,35 +314,89 @@ class LM(nn.Module):
         cfg = self.cfg
         return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) if cfg.rope else None
 
+    def _layers(self):
+        """Apply one layer: under ``torch.utils.checkpoint`` when remat is
+        "full" and grad mode is on (its activations are recomputed in the
+        backward pass), else directly."""
+        if self.cfg.remat == "full" and torch.is_grad_enabled():
+            return functools.partial(checkpoint, use_reentrant=False)
+        return lambda fn, *args: fn(*args)
+
+    def _encoder_layer(self, p: Any, x: torch.Tensor, f: torch.Tensor | None, rope_cs):
+        x, h = self._norm1(p, x, f)
+        y = A.attn_forward(p["attn"], h, self.cfg, causal=False, rope_cs=rope_cs)
+        return self._ffn(ENCODER_SPEC, p, x, y)
+
+    def _encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
+        cfg, run = self.cfg, self._layers()
+        x, f = enc_embeds.to(torch_dtype(cfg.dtype)), None
+        rope_cs = self._rope(torch.arange(x.shape[1], device=x.device))
+        for p in self.encoder.layers:
+            x, f = run(self._encoder_layer, p, x, f, rope_cs)
+        return rms_norm_add(x, f, self.encoder.final_norm, cfg.norm_eps)[1]
+
+    def _layer(self, spec: LayerSpec, p: Any, x: torch.Tensor, f: torch.Tensor | None, rope_cs,
+               enc_out: torch.Tensor | None):
+        """One layer of the full-sequence (training) path: (x, f) in and out."""
+        cfg = self.cfg
+        x, h = self._norm1(p, x, f)
+        if spec.mixer in ("attn", "attn_local"):
+            y = A.attn_forward(p["attn"], h, cfg, causal=True, local=spec.mixer == "attn_local",
+                               rope_cs=rope_cs)
+            if enc_out is not None:
+                x, y = self._cross(p, x, y, *A.cross_kv(p["cross"], enc_out, cfg), decode=False)
+        elif spec.mixer == "mamba":
+            y = SSM.mamba_forward(p["mamba"], h, cfg)
+        else:
+            forward = XL.mlstm_forward if spec.mixer == "mlstm" else XL.slstm_forward
+            y = forward(p[spec.mixer], h, cfg)
+        return self._ffn(spec, p, x, y)
+
+    def _trunk(self, tokens: torch.Tensor, prefix_embeds: torch.Tensor | None = None,
+               enc_embeds: torch.Tensor | None = None):
+        """The stack over every position: (x, f), whose sum the final norm
+        reads (an encoder-decoder encodes ``enc_embeds`` first)."""
+        self._check_inputs(prefix_embeds, enc_embeds)
+        run = self._layers()
+        enc_out = self._encode(enc_embeds) if self.cfg.is_encdec else None
+        x, f = self._embed(tokens, prefix_embeds), None
+        rope_cs = self._rope(torch.arange(x.shape[1], device=x.device))
+        for spec, p in zip(self.layer_specs, self.layers):
+            x, f = run(self._layer, spec, p, x, f, rope_cs, enc_out)
+        return x, f
+
+    def _head(self, x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        """The last add fused into the final norm, then the logits."""
+        return self._logits(rms_norm_add(x, f, self.final_norm, self.cfg.norm_eps)[1])
+
+    def forward(self, tokens: torch.Tensor, *, prefix_embeds: torch.Tensor | None = None,
+                enc_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """tokens: (B, S) ids, after ``prefix_embeds`` (B, P, d) where the
+        config takes a prefix; an encoder-decoder's ``enc_embeds`` (B, Se, d).
+        Returns the logits at every position (B, P + S, V), differentiably."""
+        return self._head(*self._trunk(tokens, prefix_embeds, enc_embeds))
+
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
         """enc_embeds: (B, Se, d) frame embeddings, cast to the model's dtype.
         The encoder stack, bidirectional with RoPE, then its final norm (fused
         with the last layer's add). Returns the encoder output (B, Se, d)."""
-        cfg = self.cfg
-        x, f = enc_embeds.to(torch_dtype(cfg.dtype)), None
-        rope_cs = self._rope(torch.arange(x.shape[1], device=x.device))
-        for p in self.encoder.layers:
-            x, h = self._norm1(p, x, f)
-            y = A.attn_forward(p["attn"], h, cfg, causal=False, rope_cs=rope_cs)
-            x, f = self._ffn(ENCODER_SPEC, p, x, y)
-        return rms_norm_add(x, f, self.encoder.final_norm, cfg.norm_eps)[1]
+        return self._encode(enc_embeds)
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, *, enc_embeds: torch.Tensor | None = None):
-        """tokens: (B, S) ids; an encoder-decoder also takes ``enc_embeds`` (B,
-        Se, d), which it encodes first. Returns (last-position logits (B, 1,
-        V), caches holding the S positions (a local layer's last W, as a
-        ring), the recurrent layers' states and the Se frames' cross K/V)."""
+    def prefill(self, tokens: torch.Tensor, *, prefix_embeds: torch.Tensor | None = None,
+                enc_embeds: torch.Tensor | None = None):
+        """tokens: (B, S) ids, after ``prefix_embeds`` (B, P, d) where the
+        config takes a prefix; an encoder-decoder also takes ``enc_embeds``
+        (B, Se, d), which it encodes first. Returns (last-position logits (B,
+        1, V), caches holding the P + S positions (a local layer's last W, as
+        a ring), the recurrent layers' states and the Se frames' cross K/V)."""
         cfg = self.cfg
-        if cfg.is_encdec != (enc_embeds is not None):
-            raise ValueError(f"{cfg.name}: enc_embeds is "
-                             f"{'required' if cfg.is_encdec else 'for encoder-decoders only'}")
-        enc_out = self.encode(enc_embeds) if cfg.is_encdec else None
-        S = tokens.shape[1]
-        x, f = self._embed(tokens), None
-        rope_cs = self._rope(torch.arange(S, device=x.device))
+        self._check_inputs(prefix_embeds, enc_embeds)
+        enc_out = self._encode(enc_embeds) if cfg.is_encdec else None
+        x, f = self._embed(tokens, prefix_embeds), None
+        rope_cs = self._rope(torch.arange(x.shape[1], device=x.device))
         P = len(cfg.superblock)
         parts: list[dict[str, list[torch.Tensor]]] = [{} for _ in range(P)]
         for n, (spec, p) in enumerate(zip(self.layer_specs, self.layers)):
@@ -342,3 +454,27 @@ class LM(nn.Module):
             x, f = self._ffn(spec, p, x, y)
         _, h = rms_norm_add(x, f, self.final_norm, cfg.norm_eps)
         return self._logits(h), caches
+
+
+def loss_fn(model: LM, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy with an fp32 log-sum-exp, plus the z-loss
+    1e-4 * lse^2, averaged over ``batch["loss_mask"]``; the reference's
+    ``loss_fn``. The batch holds "tokens", "targets", "loss_mask" (B, S) and
+    "prefix_embeds" or "enc_embeds" where the config takes them. Prefix
+    positions carry no targets: the head runs on the last S positions only
+    (it is per position, so their logits are those of ``forward``). Returns
+    (loss, {"loss", "nll", "tokens"})."""
+    x, f = model._trunk(batch["tokens"], batch.get("prefix_embeds"), batch.get("enc_embeds"))
+    targets = batch["targets"]
+    S = targets.shape[1]
+    if x.shape[1] != S:
+        x, f = x[:, -S:].contiguous(), f[:, -S:].contiguous()
+    lf = model._head(x, f).float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    del lf
+    nll = lse - gold
+    mask = batch["loss_mask"].float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = torch.sum((nll + 1e-4 * lse**2) * mask) / denom
+    return loss, {"loss": loss, "nll": torch.sum(nll * mask) / denom, "tokens": mask.sum()}

@@ -24,7 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from .layers import _act
 from .params import TSpec
 
-__all__ = ["moe_template", "moe_apply", "capacity", "route"]
+__all__ = ["moe_template", "moe_apply", "capacity", "route", "router_aux_loss"]
 
 
 def moe_template(cfg: ModelConfig) -> dict:
@@ -98,3 +98,15 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     expert_out = torch.einsum("egcf,efd->egcd", h, p["wo"])
     out = torch.einsum("gsec,egcd->gsd", comb, expert_out)
     return out.reshape(B, S, d)
+
+
+def router_aux_loss(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch [arXiv:2101.03961] style): E
+    times the sum over experts of the share of top-k choices it takes and its
+    mean router probability. The reference defines it and no loss calls it."""
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)  # (B, S, E)
+    idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1).indices
+    counts = F.one_hot(idx, cfg.num_experts).float().sum(dim=(0, 1, 2))
+    frac_tokens = counts / torch.clamp(counts.sum(), min=1.0)
+    frac_probs = probs.mean(dim=(0, 1))
+    return cfg.num_experts * torch.sum(frac_tokens * frac_probs)

@@ -1050,3 +1050,110 @@ def test_simulate_fleet_one_row_repeats_bit_for_bit(gen):  # gen: skips without 
         again = simulate_fleet(batch, "on_device", n=40_000, seed=3)
         np.testing.assert_array_equal(again.latencies, first.latencies)
         np.testing.assert_array_equal(again.arrivals, first.arrivals)
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels under autograd (bf16 forward kernels, fp32 torch
+# backwards) against autograd through the plain versions in float32 on the
+# same bf16-valued inputs. Each gradient is held by its rel-L2, 1e-2: the
+# kernel's bf16 output (which the flash backward's D = rowsum(dO * O) reads)
+# and the gradients' storage in bf16 each round at 2^-8.
+
+GRAD_REL_L2 = 1e-2
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,softcap", [
+    (1, 1024, 1024, 14, 2, 64, True, 0, 0.0),  # internvl2's training shape, cut in S
+    (1, 600, 600, 8, 4, 256, True, 256, 50.0),  # gemma2's local layer
+    (2, 37, 300, 16, 16, 64, False, 0, 0.0),  # seamless's cross-attention
+    (1, 100, 333, 4, 2, 128, True, 0, 0.0),  # the queries the tail of the keys
+])
+def test_flash_attention_gradients_on_the_card(gen, B, Sq, Skv, H, K, hd, causal, window,
+                                               softcap):
+    q = randn(gen, B, Sq, H, hd).requires_grad_()
+    k, v = (randn(gen, B, Skv, K, hd).requires_grad_() for _ in range(2))
+    do = randn(gen, B, Sq, H, hd)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap, chunk=256)
+    assert flash_attention.launches == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), do)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = flash_attention_reference(*leaves, causal=causal, window=window, softcap=softcap)
+    want = torch.autograd.grad(ref, leaves, do.float())
+    torch.testing.assert_close(out.float(), ref.detach(), **BF16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and _rel_l2(g, w) <= GRAD_REL_L2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_gradients_on_the_card(gen, dtype):
+    x = (randn(gen, 2, 512, 896, dtype=dtype) * 3).requires_grad_()
+    r = randn(gen, 2, 512, 896, dtype=dtype).requires_grad_()
+    sc = (randn(gen, 896, dtype=dtype) * 0.3).requires_grad_()
+    gs, gy = randn(gen, 2, 512, 896, dtype=dtype), randn(gen, 2, 512, 896, dtype=dtype)
+    before = (rmsnorm.launches, rmsnorm_add.launches)
+    y = rmsnorm(x, sc, 1e-6)
+    s, y2 = rmsnorm_add(x, r, sc, 1e-6)
+    assert (rmsnorm.launches, rmsnorm_add.launches) == (before[0] + 1, before[1] + 1)
+    assert y.grad_fn is not None and y2.grad_fn is not None
+    got = torch.autograd.grad((y, s, y2), (x, r, sc), (gy, gs, gy))
+    leaves = [t.detach().float().requires_grad_() for t in (x, r, sc)]
+    ref_s, ref_y2 = rmsnorm_add_reference(*leaves, 1e-6)
+    outs = (rmsnorm_reference(leaves[0], leaves[2], 1e-6), ref_s, ref_y2)
+    want = torch.autograd.grad(outs, leaves, (gy.float(), gs.float(), gy.float()))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and _rel_l2(g, w) <= GRAD_REL_L2
+
+
+def test_the_loss_gradient_reaches_layer_0_through_the_kernels(gen):
+    """No silent detachment: the reduced internvl2 in bf16 with remat "full"
+    on the card, one loss and backward: every kernel launched as the train
+    phase counts them, and the gradients of layer 0's wq and the embedding
+    nonzero and within 5e-2 rel-L2 of the same weights' float32 gradients on
+    the CPU (bf16 against float32 over two layers)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models.lm import LM, loss_fn
+
+    cfg = dataclasses.replace(get_config("internvl2_1b").reduced(), dtype="bfloat16",
+                              remat="full")
+    model = LM(cfg, seed=0).requires_grad_(True)
+    batch = make_batch(cfg, 2, 64)
+    ops = (rmsnorm, rmsnorm_add, flash_attention)
+    before = [op.launches for op in ops]
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    L = cfg.num_layers
+    assert [op.launches - b for op, b in zip(ops, before)] == [2, 4 * L - 1, 2 * L]
+    cpu = LM(dataclasses.replace(cfg, dtype="float32"), device="cpu").requires_grad_(True)
+    cpu.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    cpu_loss, _ = loss_fn(cpu, {k: v.cpu() for k, v in batch.items()})
+    cpu_loss.backward()
+    for name in ("layers.0.attn.wq", "embed.embedding"):
+        g = dict(model.named_parameters())[name].grad
+        want = dict(cpu.named_parameters())[name].grad
+        assert float(g.float().norm()) > 0 and _rel_l2(g.cpu(), want) <= 5e-2, name
+
+
+def test_ssm_scan_and_decode_attention_refuse_grad(gen):
+    """Neither kernel has a backward: on the card an input that requires
+    grad under grad mode raises instead of returning a detached output;
+    without grad mode they launch as before."""
+    dt, Bc, Cc, u, A, h = scan_inputs(gen, 1, 8, 64, 16)
+    u.requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP B-perf"):
+        ssm_scan(dt, Bc, Cc, u, A, h)
+    with torch.no_grad():
+        ssm_scan(dt, Bc, Cc, u, A, h)
+    q = randn(gen, 2, 1, 8, 64).requires_grad_()
+    kc, vc = randn(gen, 2, 32, 2, 64), randn(gen, 2, 32, 2, 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP B-perf"):
+        decode_attention(q, kc, vc, 20)
+    with torch.inference_mode():
+        decode_attention(q.detach(), kc, vc, 20)
