@@ -225,7 +225,22 @@ Phases; any failure exits non-zero before the result lines are printed:
      model-FLOP floor, tokens/s, forward and backward on CUDA events and a
      profile of 3 steps; and the reduced config in bf16 trained 6 steps and
      resumed from its step-3 checkpoint, steps 4-6 bit-equal;
- 14. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
+ 14. dryrun: the sharding layer's launchers on the host (ROADMAP A11b), in
+     child processes started after the build and run beside the card's
+     phases at the lowest priority, each in its own fake world of 512 ranks
+     with no card visible: ``launch/dryrun.py`` for a dense, a MoE and an
+     encoder-decoder cell (starcoder2_3b, dbrx_132b, seamless_m4t_large_v2
+     at decode_32k) on the 16x16 and 2x16x16 meshes (records with
+     per-device counts, collectives, the donated caches), then for the dense
+     cell ``launch/roofline_run.py`` (a report on the H100 spec, memory from
+     the record) and ``launch/perf_probe.py`` (its totals equal to the
+     report's), and the ``bench-roofline`` row printed from that report; and
+     the one-card check: the train phase's step (InternVL2-1B, 2 x 4096)
+     dry-run on ``elastic_mesh(1, model_parallel=1)``, its argument bytes
+     equal to what that phase's model, AdamW state and batch held on the
+     card, its temp bytes beside the measured peak and its FLOPs beside the
+     model-FLOP floor and the measured step (reported);
+ 15. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
      entry; the serving kernels also with their launches in the measure
      phase's full-width simulated run, in serve_local and in encdec, the
      RMSNorm entries in serve_xlstm, flash and decode with their gemma2 and
@@ -241,6 +256,7 @@ Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import ctypes
 import dataclasses
@@ -249,6 +265,7 @@ import io
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -4282,6 +4299,11 @@ def phase_train(torch, refs) -> dict:
     wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    # what a step's inputs hold on the card: the dryrun phase's one-card check
+    held = {"params": tensor_bytes(model.parameters()),
+            "opt_state": tensor_bytes(t for v in state.values()
+                                      for t in (v.values() if isinstance(v, dict) else (v,))),
+            "batch": tensor_bytes(trainer.data[0].values())}
     expect, formula = train_launches(cfg, TRAIN_STEPS)
     check_launches("train", launches, expect, f"{TRAIN_STEPS} steps: {formula}")
     losses = [r["loss"] for r in trainer.metrics_log]
@@ -4297,7 +4319,8 @@ def phase_train(torch, refs) -> dict:
                         losses=losses, step_s=times, step_ms_median=step_ms, tokens_per_s=tokens_s,
                         peak_mem_gib=peak / 2**30, flops=flops.total, floor_ms=floor_ms,
                         model_flop_share=floor_ms / step_ms, params=model.num_params(),
-                        stragglers=trainer.straggler_events)
+                        stragglers=trainer.straggler_events, arg_bytes=held,
+                        peak_bytes=peak)
     log(f"[train] {cfg.name} at full width ({model.num_params():,} params, nothing cut): "
         f"{TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} in {wall:.2f} s wall (set-up included); "
         f"losses finite: {finite}; first {losses[0]:.4f}, mean of the last five {last5:.4f} "
@@ -4367,6 +4390,182 @@ def phase_train(torch, refs) -> dict:
     return out
 
 
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# the dry-run launchers' cells: one dense, one MoE and one encoder-decoder
+# cell on both production meshes (decode_32k: the step the census runs
+# fastest), then roofline_run and perf_probe for the dense one
+DRYRUN_CELLS = (("starcoder2_3b", "decode_32k"), ("dbrx_132b", "decode_32k"),
+                ("seamless_m4t_large_v2", "decode_32k"))
+DRYRUN_TIMEOUT_S = 900
+# the dense cell's chain in one child: dry run, roofline report from its record,
+# the per-superblock breakdown, and the bench-roofline row from that report
+ROOFLINE_CHAIN = r"""
+import os, sys
+from repro_torch.launch import dryrun, perf_probe, roofline_run
+from repro_torch.bench import run as bench
+arch, shape, out = sys.argv[1], sys.argv[2], sys.argv[3]
+assert dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "both",
+                    "--out", f"{out}/records"]) == 0
+assert roofline_run.main(["--arch", arch, "--shape", shape, "--out",
+                          f"{out}/experiments/roofline", "--dryrun-dir", f"{out}/records"]) == 0
+assert perf_probe.main(["--arch", arch, "--shape", shape]) == 0
+os.chdir(out)  # the bench family reads experiments/roofline
+assert bench.main(["--only", "roofline", "--out", f"{out}/bench"]) == 0
+"""
+# the one-card check: the train phase's step dry-run on a one-rank mesh
+ONE_CARD = r"""
+import json, sys
+from repro_torch.configs.base import ShapeSuite, get_config
+from repro_torch.launch.dryrun import census_cell
+from repro_torch.launch.mesh import elastic_mesh
+B, S = int(sys.argv[1]), int(sys.argv[2])
+c = census_cell(get_config("internvl2_1b"), ShapeSuite("train_card", S, B, "train"),
+                elastic_mesh(1, model_parallel=1))
+print(json.dumps({"flops": c["flops"], "bytes": c["bytes"], "mem": c["memory_analysis"],
+                  "colls": dict(c["collectives"].counts), "seconds": c["compile_s"]}))
+"""
+DRYRUN_CHILDREN: list = []
+
+
+def start_dryrun() -> dict:
+    """Start the dry-run launchers in child processes on the host, beside the
+    card's phases: they need no card (``CUDA_VISIBLE_DEVICES`` empty: each
+    child brings up its own fake world of 512 ranks) and run at the lowest
+    priority so the card's host-bound phases keep their cores."""
+    out = ROOT / "chiprun_out" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    jobs = {}
+
+    def spawn(name: str, argv: list) -> None:
+        logf = open(out / f"{name}.log", "w")
+        proc = subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env, stdout=logf,
+                                stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))
+        DRYRUN_CHILDREN.append(proc)
+        jobs[name] = (proc, out / f"{name}.log", time.time())
+
+    arch, shape = DRYRUN_CELLS[0]
+    spawn(f"{arch}__{shape}", ["-c", ROOFLINE_CHAIN, arch, shape, str(out)])
+    for arch, shape in DRYRUN_CELLS[1:]:
+        spawn(f"{arch}__{shape}", ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                                   shape, "--mesh", "both", "--out", str(out / "records")])
+    spawn("one_card", ["-c", ONE_CARD, str(TRAIN_B), str(TRAIN_S)])
+    return {"dir": out, "jobs": jobs}
+
+
+def stop_dryrun() -> None:
+    for proc in DRYRUN_CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_dryrun(started: dict, trained: dict) -> dict:
+    """The sharding layer's launchers (ROADMAP A11b) on the host: the dry runs
+    started beside the card's phases are collected here. Each cell's record on
+    the 16x16 and 2x16x16 fake meshes (keys, per-device counts, collectives on
+    a sharded mesh, donated caches aliased), the dense cell's roofline report
+    on the H100 spec, its per-superblock breakdown equal to the report's
+    totals, and the bench-roofline row printed from the report. Then the
+    one-card check: the train phase's step (InternVL2-1B at 2 x 4096) dry-run
+    on ``elastic_mesh(1, model_parallel=1)``: its argument bytes must equal
+    what that phase's model, AdamW state and batch held on the card; its
+    temp bytes beside the measured peak and its FLOPs beside the model-FLOP
+    floor and the measured step are reported."""
+    t_phase = time.perf_counter()
+    out: dict = {"cells": {}}
+    d = started["dir"]
+    for name, (proc, logf, t0) in started["jobs"].items():
+        wait = max(1.0, DRYRUN_TIMEOUT_S - (time.time() - t0))
+        try:
+            rc = proc.wait(timeout=wait)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = "timeout"
+        text = logf.read_text()
+        # a child's wall time: from its start to its log's last write
+        out["cells"][name] = {"rc": rc, "seconds": logf.stat().st_mtime - t0}
+        if rc != 0:
+            FAILURES.append(f"dryrun: {name} exited {rc}: {text[-1500:]}")
+            continue
+        if name == "one_card":
+            out["one_card"] = json.loads(text.strip().splitlines()[-1])
+        for line in text.splitlines():
+            if line.startswith(("[dryrun]", "[roofline]", "roofline_", "flops ", "bytes ",
+                                "wire_bytes ")):
+                log(f"[dryrun] {name}: {line}")
+    if FAILURES:
+        return out
+    for arch, shape in DRYRUN_CELLS:
+        for mesh, n in (("single", 256), ("multi", 512)):
+            rec = json.loads((d / "records" / f"{arch}__{shape}__{mesh}.json").read_text())
+            coll = sum(rec["collectives"]["counts"].values())
+            ma = rec["memory_analysis"]
+            ok = (rec["n_devices"] == n and rec["kind"] == "decode"
+                  and rec["flops_per_device"] > 0 and coll > 0
+                  and ma["alias_size_in_bytes"] > 0
+                  and ma["argument_size_in_bytes"] > ma["alias_size_in_bytes"])
+            out["cells"][f"{arch}__{shape}__{mesh}"] = rec
+            log(f"[dryrun] {arch} {shape} {mesh}: {rec['flops_per_device']:.4e} FLOP, "
+                f"{rec['bytes_accessed_per_device']:.4e} B per device; args "
+                f"{ma['argument_size_in_bytes'] / 2**30:.3f} GiB, temp "
+                f"{ma['temp_size_in_bytes'] / 2**30:.3f} GiB; {coll} collectives "
+                f"{rec['collectives']['counts']}, {rec['collectives']['wire_bytes']:.4e} B on "
+                f"the wire; run {rec['compile_s']} s: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"dryrun: {arch} {shape} {mesh} record {rec}")
+    arch, shape = DRYRUN_CELLS[0]
+    rep = json.loads((d / "experiments" / "roofline" / f"{arch}__{shape}__single.json")
+                     .read_text())
+    text = (d / f"{arch}__{shape}.log").read_text().splitlines()
+    rows = [l for l in text if l.startswith(f"roofline_{arch}_{shape}_single,")]
+    probe = {l.split()[0]: float(l.split("total=")[1].split()[0]) for l in text
+             if l.startswith(("flops ", "bytes ", "wire_bytes "))}
+    ok = (len(rows) == 1 and rep["n_chips"] == 256
+          and abs(rep["compute_s"] * BF16_OPS - rep["hlo_flops_per_dev"]) <= 1e-6 * rep[
+              "hlo_flops_per_dev"]
+          and all(abs(probe[k] - rep[f]) <= 1e-3 * max(rep[f], 1.0) for k, f in (
+              ("flops", "hlo_flops_per_dev"), ("bytes", "hlo_bytes_per_dev"),
+              ("wire_bytes", "wire_bytes_per_dev")))
+          and rep["memory_analysis"].get("argument_size_in_bytes", 0) > 0)
+    out["roofline"] = dict(report=rep, row=rows, probe=probe)
+    log(f"[dryrun] bench-roofline row: {rows[0] if rows else 'none'}")
+    log(f"[dryrun] roofline {arch} {shape} single on H100_SXM: compute "
+        f"{rep['compute_s']:.4e} s, memory {rep['memory_s']:.4e} s, collective "
+        f"{rep['collective_s']:.4e} s, dominant {rep['dominant']}; perf_probe totals {probe} "
+        f"equal to the report's: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"dryrun: roofline report {rep} / rows {rows} / probe {probe}")
+
+    # the one-card check against the train phase
+    one, tr = out["one_card"], trained["train"]
+    card = sum(tr["arg_bytes"].values())
+    dry = one["mem"]["argument_size_in_bytes"]
+    step_at_peak_ms = one["flops"] / BF16_OPS * 1e3
+    ok = dry == card
+    out["one_card"].update(card_arg_bytes=tr["arg_bytes"], peak_bytes=tr["peak_bytes"],
+                           step_ms=tr["step_ms_median"], floor_flops=tr["flops"])
+    log(f"[dryrun] one card, {TRAIN_B} x {TRAIN_S} internvl2_1b train step on "
+        f"elastic_mesh(1, model_parallel=1): argument bytes {dry:,} dry run vs {card:,} held on "
+        f"the card ({tr['arg_bytes']}): {'ok' if ok else 'FAIL'}; temp "
+        f"{one['mem']['temp_size_in_bytes'] / 2**30:.2f} GiB (plain path, unfused) beside the "
+        f"measured peak {tr['peak_bytes'] / 2**30:.2f} GiB (args included); "
+        f"{one['flops'] / 1e12:.3f} TFLOP of matrix products beside the model-FLOP floor "
+        f"{tr['flops'] / 1e12:.3f} TFLOP (ratio {one['flops'] / tr['flops']:.3f}): "
+        f"{step_at_peak_ms:.3f} ms at the bf16 peak beside the measured step "
+        f"{tr['step_ms_median']:.3f} ms; census {one['seconds']:.1f} s")
+    if not ok:
+        FAILURES.append(f"dryrun: one-card argument bytes {dry} != {card} ({tr['arg_bytes']})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    children = {name: f"{out['cells'][name]['seconds']:.1f} s" for name in started["jobs"]}
+    log(f"[dryrun] phase wall time {out['phase_s']:.1f} s; the children, started after the "
+        f"build beside the card's phases, ran {children}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -4419,6 +4618,8 @@ def main() -> int:
 
     phase_build(_build)
     end_phase("build")
+    atexit.register(stop_dryrun)
+    dry_started = start_dryrun()
     ck = phase_check(torch, ops, refs)
     phase_check_lindley(torch, ck, lindley, lindley_refs)
     torch.cuda.empty_cache()
@@ -4489,6 +4690,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = phase_train(torch, model_refs)
     end_phase("train")
+    dried = phase_dryrun(dry_started, trained)
+    end_phase("dryrun")
 
     where = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:32"),
@@ -4563,7 +4766,7 @@ def main() -> int:
     RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid,
                   serve_local=serve_local, serve_xlstm=serve_xlstm, encdec=encdec, fleet=fleet,
                   cluster=cluster, tails=tails, meanfield_plan=meanfield_plan, measure=measure,
-                  obs=obs, paper=paper, reproduce=reproduced, train=trained)
+                  obs=obs, paper=paper, reproduce=reproduced, train=trained, dryrun=dried)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(RESULT, indent=1, default=str))

@@ -1,9 +1,9 @@
 """Roofline rows for the benchmark CSV, read from experiments/roofline JSONs
 (the twin of the reference's ``benchmarks/roofline_report.py``; pure JSON).
 
-The port writes no such artifact yet (its producer, ``launch/roofline_run.py``,
-is ROADMAP A11b), so the ``roofline`` family prints rows only where another
-tool left them."""
+The port's own producer writes them: ``python -m repro_torch.launch.roofline_run``
+(one report per cell on the H100 spec, from the dry run's census on the fake
+production mesh, plus a ``manifest.json`` that the rows skip)."""
 
 from __future__ import annotations
 

@@ -74,8 +74,7 @@ def run_paper_figures(out_dir: Path) -> dict:
 
 
 def run_roofline(out_dir: Path) -> dict:
-    # roofline table from dry-run artifacts, if present (the port has no
-    # producer of them yet: ROADMAP A11b)
+    # roofline table from the reports ``launch/roofline_run.py`` wrote, if present
     roof = Path("experiments/roofline")
     if roof.is_dir() and any(roof.glob("*.json")):
         from .roofline_report import print_roofline_rows

@@ -21,11 +21,11 @@ def ssm_scan_reference(dt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, u: 
     h = (torch.zeros((B, D, N), dtype=torch.float32, device=u.device) if h0 is None
          else h0.float())
     a = A.float()[None]
-    y = torch.empty((B, T, D), dtype=u.dtype, device=u.device)
+    ys = []
     for t in range(T):
         dtf = dt[:, t].float()
         decay = torch.exp(dtf[..., None] * a)
         inp = (dtf * u[:, t].float())[..., None] * Bc[:, t].float()[:, None, :]
         h = decay * h + inp
-        y[:, t] = torch.einsum("bdn,bn->bd", h, Cc[:, t].float()).to(u.dtype)
-    return y, h
+        ys.append(torch.einsum("bdn,bn->bd", h, Cc[:, t].float()).to(u.dtype))
+    return torch.stack(ys, dim=1), h

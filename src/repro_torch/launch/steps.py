@@ -1,26 +1,33 @@
-"""Step constructors and input specs: the port of ``repro.launch.steps``, in part.
+"""Step constructors, input specs and their sharding axes: the port of
+``repro.launch.steps``, the contract between models, launchers and the dry run.
 
 ``batch_specs`` and ``decode_specs`` give each input of a cell's step as
-(shape, dtype), allocating nothing. ``make_train_step`` builds the training
-step: the loss and its gradients (with the reference's ``grad_accum``
-microbatch loop and its accumulator in ``cfg.grad_dtype``), the optional int8
-gradient compression, then Adafactor or AdamW; the model's parameters are
-updated in place. ``make_prefill_step`` and ``make_decode_step`` call the
-model's serving entry points as the reference's steps do.
+(shape, dtype), allocating nothing; ``batch_axes`` and ``decode_axes`` give
+their logical sharding axes. ``make_train_step`` builds the training step:
+the loss and its gradients (with the reference's ``grad_accum`` microbatch
+loop and its accumulator in ``cfg.grad_dtype``), the optional int8 gradient
+compression, then Adafactor or AdamW; the model's parameters are updated in
+place. ``make_prefill_step`` and ``make_decode_step`` call the model's
+serving entry points as the reference's steps do.
 
-Not ported yet (ROADMAP A11b): ``cell_step_and_specs``, ``batch_axes``,
-``decode_axes`` and ``shardings_for``, which need the logical sharding axes.
+``cell_step_and_specs`` assembles one (arch x shape) cell: the step, the
+specs of its inputs and their axes, keyed alike ("params" by the port's
+per-layer parameter names). ``shardings_for`` resolves an axes tree to DTensor
+placements under a ``ShardingRules``. The dry-run launchers build fake
+DTensors from those and run the step once.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from dataclasses import dataclass
+from typing import Any, Callable
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSuite
 from repro_torch.models import lm
-from repro_torch.models.params import torch_dtype, tree_map
+from repro_torch.models.params import map_axes, torch_dtype, tree_map
+from repro_torch.sharding.partition import ShardingRules, current_rules
 from repro_torch.training import optimizer as opt
 
 __all__ = [
@@ -30,6 +37,13 @@ __all__ = [
     "make_train_step",
     "make_prefill_step",
     "make_decode_step",
+    "param_specs",
+    "param_axes",
+    "batch_axes",
+    "decode_axes",
+    "Cell",
+    "cell_step_and_specs",
+    "shardings_for",
 ]
 
 I32 = torch.int32
@@ -57,6 +71,16 @@ def batch_specs(cfg: ModelConfig, shape: ShapeSuite) -> dict:
     return out
 
 
+def batch_axes(cfg: ModelConfig, shape: ShapeSuite) -> dict:
+    ax2 = ("batch", None)
+    out = {k: ax2 for k in ("tokens", "targets", "loss_mask")}
+    if cfg.is_encdec:
+        out["enc_embeds"] = ("batch", None, None)
+    elif prefix_len(cfg, shape.seq_len):
+        out["prefix_embeds"] = ("batch", None, None)
+    return out
+
+
 def decode_specs(cfg: ModelConfig, shape: ShapeSuite) -> dict:
     """Decode-step inputs: one new token, the position, and caches holding
     ``seq_len`` positions, each as (shape, dtype)."""
@@ -65,6 +89,24 @@ def decode_specs(cfg: ModelConfig, shape: ShapeSuite) -> dict:
     caches = tree_map(lambda _, leaf: (leaf.shape, torch_dtype(leaf.dtype) if leaf.dtype else d),
                       lm.cache_template(cfg, B, S, enc_len=S if cfg.is_encdec else 0))
     return {"token": ((B, 1), I32), "pos": ((), I32), "caches": caches}
+
+
+def decode_axes(cfg: ModelConfig, shape: ShapeSuite) -> dict:
+    cache_ax = tree_map(lambda _, leaf: tuple(leaf.axes), lm.cache_template(
+        cfg, shape.global_batch, shape.seq_len, enc_len=shape.seq_len if cfg.is_encdec else 0))
+    return {"token": ("batch", None), "pos": (), "caches": cache_ax}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """name -> (shape, dtype) of each of the model's parameters."""
+    d = torch_dtype(cfg.dtype)
+    return {k: (leaf.shape, torch_dtype(leaf.dtype) if leaf.dtype else d)
+            for k, leaf in lm.param_templates(cfg).items()}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """name -> logical axes of each of the model's parameters."""
+    return {k: tuple(leaf.axes) for k, leaf in lm.param_templates(cfg).items()}
 
 
 def make_train_step(cfg: ModelConfig, ocfg=None) -> Callable:
@@ -142,3 +184,66 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
         return model.decode_step(token, pos, caches)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Cell assembly: (step fn, input specs, logical axes) for one (arch x shape)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Cell:
+    step: Callable
+    specs: dict  # input name -> tree of (shape, dtype)
+    axes: dict  # matching logical axes
+    kind: str
+
+
+def cell_step_and_specs(cfg: ModelConfig, shape: ShapeSuite, *, zero_size: int = 0) -> Cell:
+    """The step of one cell with its inputs' specs and axes. Train:
+    ``step(model, opt_state, batch)``; prefill: ``step(model, batch)``;
+    decode: ``step(model, token, pos, caches)``; "params" are the model's."""
+    p_specs, p_axes = param_specs(cfg), param_axes(cfg)
+    if shape.kind == "train":
+        rules = current_rules()
+
+        def _uses_data(v) -> bool:
+            return v == "data" or (isinstance(v, tuple) and "data" in v)
+
+        if rules is not None:
+            replicated = frozenset(k for k, v in rules.rules.items() if v is None)
+            data_resident = frozenset(k for k, v in rules.rules.items() if _uses_data(v))
+        else:
+            replicated = frozenset({"embed"})
+            data_resident = frozenset({"expert_ff", "zero"})
+        if cfg.optimizer == "adafactor":
+            ostate = opt.abstract_adafactor_state(p_specs)
+            oaxes = opt.adafactor_axes(p_axes, p_specs)
+        else:
+            ostate = opt.abstract_adamw_state(p_specs)
+            oaxes = opt.opt_axes(p_axes, p_specs, zero_size=zero_size,
+                                 replicated_names=replicated, data_resident_names=data_resident)
+        return Cell(step=make_train_step(cfg),
+                    specs={"params": p_specs, "opt_state": ostate,
+                           "batch": batch_specs(cfg, shape)},
+                    axes={"params": p_axes, "opt_state": oaxes, "batch": batch_axes(cfg, shape)},
+                    kind="train")
+    if shape.kind == "prefill":
+        return Cell(step=make_prefill_step(cfg),
+                    specs={"params": p_specs, "batch": batch_specs(cfg, shape)},
+                    axes={"params": p_axes, "batch": batch_axes(cfg, shape)},
+                    kind="prefill")
+    if shape.kind == "decode":
+        d, da = decode_specs(cfg, shape), decode_axes(cfg, shape)
+        return Cell(step=make_decode_step(cfg),
+                    specs={"params": p_specs, "token": d["token"], "pos": d["pos"],
+                           "caches": d["caches"]},
+                    axes={"params": p_axes, "token": da["token"], "pos": da["pos"],
+                          "caches": da["caches"]},
+                    kind="decode")
+    raise ValueError(shape.kind)
+
+
+def shardings_for(axes_tree: Any, rules: ShardingRules):
+    """Logical axes tree -> tree of DTensor placements (one per mesh dim)."""
+    return map_axes(rules.placements, axes_tree)

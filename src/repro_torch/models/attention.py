@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.sharding.partition import hint, write_slot
 
 from .layers import rope_rotate, rope_tables
 from .params import TSpec
@@ -70,9 +71,9 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
     model computes them once for all its layers."""
     B, S, _ = x.shape
     K, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
-    q = (x @ p["wq"]).view(B, S, H, hd)
-    k = (x @ p["wk"]).view(B, S, K, hd)
-    v = (x @ p["wv"]).view(B, S, K, hd)
+    q = hint(x @ p["wq"], "batch", "seq_inner", "qkv").view(B, S, H, hd)
+    k = hint(x @ p["wk"], "batch", "seq_inner", "kv").view(B, S, K, hd)
+    v = hint(x @ p["wv"], "batch", "seq_inner", "kv").view(B, S, K, hd)
     if cfg.rope:
         cos, sin = rope_cs if rope_cs is not None else rope_tables(
             torch.arange(S, device=x.device), hd, cfg.rope_theta)
@@ -81,7 +82,7 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
     window = cfg.window_size if local else 0
     out = flash_attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
                           chunk=cfg.seq_chunk)
-    y = out.reshape(B, S, H * hd) @ p["wo"]
+    y = hint(out.reshape(B, S, H * hd) @ p["wo"], "batch", "seq", None)
     if return_kv:
         return y, (k, v)
     return y
@@ -127,8 +128,8 @@ def attn_decode(p, x: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig, *,
         q = rope_rotate(q, cos, sin)
         k_new = rope_rotate(k_new, cos, sin)
     slot = pos % cfg.window_size if local else pos
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
+    write_slot(cache["k"], slot, k_new[:, 0])
+    write_slot(cache["v"], slot, v_new[:, 0])
     out = decode_attention(q, cache["k"], cache["v"], pos, softcap=cfg.attn_softcap)
     y = out.reshape(B, 1, H * hd) @ p["wo"]
     return y, cache
@@ -150,10 +151,10 @@ def cross_attn_forward(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Ten
     attends all Se cached frames (pos Se - 1) and leaves the cache as it is."""
     B, S, _ = x.shape
     hd, H = cfg.resolved_head_dim, cfg.num_heads
-    q = (x @ p["wq"]).view(B, S, H, hd)
+    q = hint(x @ p["wq"], "batch", "seq_inner", "qkv").view(B, S, H, hd)
     if decode:
         out = decode_attention(q, enc_k, enc_v, enc_k.shape[1] - 1, softcap=cfg.attn_softcap)
     else:
         out = flash_attention(q, enc_k, enc_v, causal=False, softcap=cfg.attn_softcap,
                               chunk=cfg.seq_chunk)
-    return out.reshape(B, S, H * hd) @ p["wo"]
+    return hint(out.reshape(B, S, H * hd) @ p["wo"], "batch", "seq", None)

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+from repro_torch.sharding.partition import hint
 
 from .params import TSpec
 
@@ -117,12 +118,12 @@ def _act(name: str):
 
 def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     act = _act(cfg.mlp_act)
-    h = x @ p["wi"]
+    h = hint(x @ p["wi"], "batch", "seq_inner", "ff")
     if cfg.gated_mlp:
         h = act(x @ p["wg"]) * h
     else:
         h = act(h)
-    return h @ p["wo"]
+    return hint(h @ p["wo"], "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,10 @@ model's dtype and put ahead of the token embeddings (gemma's sqrt(d) scaling
 applies to the tokens only), so RoPE numbers the P + S positions 0..P+S-1
 and the caches hold all of them. Any other config refuses a prefix.
 
+Activations carry the reference's sharding hints (``sharding.partition.hint``
+at its 21 sites): identities unless a dry run's rules are active, when they
+redistribute ``DTensor``s (``launch/dryrun.py``).
+
 Parameters are registered with ``requires_grad=False``; training turns them
 on (``model.requires_grad_(True)``), serving leaves them off. With
 ``cfg.remat == "full"`` each layer of ``forward`` runs under
@@ -72,6 +76,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.sharding.partition import hint
 
 from . import attention as A
 from . import moe as M
@@ -88,6 +93,7 @@ __all__ = [
     "stack_groups",
     "check_supported",
     "model_template",
+    "param_templates",
     "cache_template",
     "num_params",
 ]
@@ -172,6 +178,28 @@ def model_template(cfg: ModelConfig) -> dict:
         t["encoder"] = {"blocks": stack((_block_template(cfg, ENCODER_SPEC),), cfg.encoder_layers),
                         "final_norm": norm_template(cfg.d_model)}
     return t
+
+
+def param_templates(cfg: ModelConfig) -> dict[str, TSpec]:
+    """The port's parameters, name -> TSpec, named as
+    ``LM(cfg).named_parameters()`` names them: one leaf per layer
+    (``layers.{n}.<path>``) where the reference stacks each superblock
+    position."""
+    check_supported(cfg)
+    out: dict[str, TSpec] = {}
+
+    def add(prefix: str, template) -> None:
+        tree_map(lambda path, leaf: out.__setitem__(f"{prefix}.{path}", leaf), template)
+
+    add("embed", embed_template(cfg))
+    for n, spec in enumerate(cfg.superblock * cfg.num_superblocks):
+        add(f"layers.{n}", _block_template(cfg, spec, cross=cfg.is_encdec))
+    out["final_norm"] = norm_template(cfg.d_model)
+    if cfg.is_encdec:
+        for n in range(cfg.encoder_layers):
+            add(f"encoder.layers.{n}", _block_template(cfg, ENCODER_SPEC))
+        out["encoder.final_norm"] = norm_template(cfg.d_model)
+    return out
 
 
 def num_params(cfg: ModelConfig) -> int:
@@ -263,7 +291,7 @@ class LM(nn.Module):
             x = x * torch.tensor(self.cfg.d_model**0.5, dtype=x.dtype)
         if prefix_embeds is not None:
             x = prepend_prefix(prefix_embeds, x)
-        return x
+        return hint(x, "batch", "seq", None)
 
     def _check_inputs(self, prefix_embeds, enc_embeds) -> None:
         cfg = self.cfg
@@ -280,7 +308,7 @@ class LM(nn.Module):
             logits = h @ self.embed["embedding"].T
         else:
             logits = h @ self.embed["unembed"]
-        return softcap(logits, self.cfg.final_softcap)
+        return hint(softcap(logits, self.cfg.final_softcap), "batch", "seq_inner", "vocab")
 
     def _norm1(self, p: Any, x: torch.Tensor, f: torch.Tensor | None):
         """The layer's input x + f (f None in the first layer) and its norm1."""
@@ -293,14 +321,16 @@ class LM(nn.Module):
         (x, f): the layer's output is x + f, left for the next norm to add.
         A block without an FFN hands the mixer's y on as f."""
         if spec.ffn == "none":
-            return x, y
-        x, h = rms_norm_add(x, y, p["norm2"], self.cfg.norm_eps)
-        if spec.ffn == "mlp":
-            return x, mlp_apply(p["mlp"], h, self.cfg)
-        f = M.moe_apply(p["moe"], h, self.cfg)
-        if spec.ffn == "moe_dense":  # arctic: routed experts + parallel dense MLP, last add fused
-            return x + f, mlp_apply(p["dense_mlp"], h, self.cfg)
-        return x, f
+            f = y
+        else:
+            x, h = rms_norm_add(x, y, p["norm2"], self.cfg.norm_eps)
+            if spec.ffn == "mlp":
+                f = mlp_apply(p["mlp"], h, self.cfg)
+            else:
+                f = M.moe_apply(p["moe"], h, self.cfg)
+                if spec.ffn == "moe_dense":  # arctic: routed + parallel dense MLP, last add fused
+                    x, f = x + f, mlp_apply(p["dense_mlp"], h, self.cfg)
+        return hint(x, "batch", "seq", None), hint(f, "batch", "seq", None)
 
     def _cross(self, p: Any, x: torch.Tensor, y: torch.Tensor, ck: torch.Tensor,
                cv: torch.Tensor, *, decode: bool):
@@ -329,7 +359,7 @@ class LM(nn.Module):
 
     def _encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
         cfg, run = self.cfg, self._layers()
-        x, f = enc_embeds.to(torch_dtype(cfg.dtype)), None
+        x, f = hint(enc_embeds.to(torch_dtype(cfg.dtype)), "batch", "seq", None), None
         rope_cs = self._rope(torch.arange(x.shape[1], device=x.device))
         for p in self.encoder.layers:
             x, f = run(self._encoder_layer, p, x, f, rope_cs)
@@ -471,9 +501,11 @@ def loss_fn(model: LM, batch: dict) -> tuple[torch.Tensor, dict]:
         x, f = x[:, -S:].contiguous(), f[:, -S:].contiguous()
     lf = model._head(x, f).float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    gold = torch.gather(lf, -1, targets.long()[..., None])  # (B, S, 1)
     del lf
-    nll = lse - gold
+    # subtracted before the trailing dim goes: a vocab-sharded DTensor's
+    # gather result cannot be reduced once that dim is indexed away
+    nll = (lse[..., None] - gold)[..., 0]
     mask = batch["loss_mask"].float()
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = torch.sum((nll + 1e-4 * lse**2) * mask) / denom

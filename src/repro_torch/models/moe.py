@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.partition import hint
 
 from .layers import _act
 from .params import TSpec
@@ -91,10 +92,13 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         disp = disp + slot
         comb = comb + slot * gate_vals[:, :, kk, None, None].to(x.dtype)
 
-    expert_in = torch.einsum("gsec,gsd->egcd", disp, xt)
+    disp = hint(disp, "batch", None, "expert", None)
+    comb = hint(comb, "batch", None, "expert", None)
+    expert_in = hint(torch.einsum("gsec,gsd->egcd", disp, xt), "expert", "batch", None, None)
     act = _act(cfg.mlp_act)
     h = torch.einsum("egcd,edf->egcf", expert_in, p["wi"])
     h = act(torch.einsum("egcd,edf->egcf", expert_in, p["wg"])) * h
+    h = hint(h, "expert", "batch", None, None)
     expert_out = torch.einsum("egcf,efd->egcd", h, p["wo"])
     out = torch.einsum("gsec,egcd->gsd", comb, expert_out)
     return out.reshape(B, S, d)

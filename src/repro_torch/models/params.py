@@ -34,6 +34,8 @@ __all__ = [
     "init_tensor",
     "ParamTree",
     "torch_dtype",
+    "is_axes_leaf",
+    "map_axes",
 ]
 
 
@@ -63,6 +65,24 @@ def tree_map(fn, tree: Any, path: str = "") -> Any:
     if isinstance(tree, (tuple, list)):
         return tuple(tree_map(fn, v, join(i)) for i, v in enumerate(tree))
     raise TypeError(f"unexpected template node {type(tree).__name__} at {path!r}")
+
+
+def is_axes_leaf(x) -> bool:
+    """Leaf predicate for logical-axes trees: a tuple of axis names/None
+    (a structural tuple, such as the per-position cache tuple, holds dicts)."""
+    return isinstance(x, tuple) and all(e is None or isinstance(e, str) for e in x)
+
+
+def map_axes(fn, tree: Any, *others: Any) -> Any:
+    """Map ``fn(axes, *other_leaves)`` over the axes leaves of a dict/tuple
+    tree, with trees of the same structure alongside."""
+    if is_axes_leaf(tree):
+        return fn(tree, *others)
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v, *(o[k] for o in others)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(map_axes(fn, v, *(o[i] for o in others)) for i, v in enumerate(tree))
+    raise TypeError(f"unexpected axes-tree node {type(tree).__name__}")
 
 
 def stack(template: Any, n: int) -> Any:

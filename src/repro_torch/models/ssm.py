@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.sharding.partition import hint
 
 from .params import TSpec
 
@@ -63,7 +64,7 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _ssm_inputs(p, x: torch.Tensor):
     """The input projection split into (u, z), each (B, S, d_inner)."""
-    return (x @ p["in_proj"]).chunk(2, dim=-1)
+    return hint(x @ p["in_proj"], "batch", "seq_inner", "ff").chunk(2, dim=-1)
 
 
 def _ssm_core(p, u_conv: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor | None):
@@ -72,10 +73,10 @@ def _ssm_core(p, u_conv: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor | None
     n, dtr = cfg.mamba_d_state, _dt_rank(cfg)
     dbc = u_conv @ p["x_proj"]  # (B, S, dtr + 2n)
     dt_in, Bc, Cc = dbc.split([dtr, n, n], dim=-1)  # Bc, Cc: strided column slices
-    dt = _softplus(dt_in @ p["dt_proj"] + p["dt_bias"])  # (B, S, di)
+    dt = hint(_softplus(dt_in @ p["dt_proj"] + p["dt_bias"]), "batch", "seq_inner", "ff")
     A = -torch.exp(p["A_log"].float())  # (di, n), negative real
     y, h_final = ssm_scan(dt, Bc, Cc, u_conv, A, h0)
-    return y + u_conv * p["D"], h_final
+    return hint(y, "batch", "seq_inner", "ff") + u_conv * p["D"], h_final
 
 
 def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, return_cache: bool = False):
@@ -86,8 +87,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, return_cache: bool = 
     # causal depthwise conv along the sequence, summed in the reference's order
     u_pad = F.pad(u, (0, 0, dc - 1, 0))
     u_conv = sum(u_pad[:, i:i + S] * p["conv_w"][i] for i in range(dc)) + p["conv_b"]
-    y, h_final = _ssm_core(p, F.silu(u_conv), cfg, None)
-    out = (y * F.silu(z)) @ p["out_proj"]
+    y, h_final = _ssm_core(p, hint(F.silu(u_conv), "batch", "seq_inner", "ff"), cfg, None)
+    out = hint((y * F.silu(z)) @ p["out_proj"], "batch", "seq", None)
     if not return_cache:
         return out
     # conv cache = the last dc - 1 raw conv inputs (pre-activation), as decode reads them

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.partition import hint
 
 from .layers import rms_norm
 from .params import TSpec
@@ -110,7 +111,7 @@ def _mlstm_finish(p, h: torch.Tensor, og: torch.Tensor, cfg: ModelConfig) -> tor
     RMSNorm kernel takes them), gated by og, then the output projection."""
     B, S = h.shape[:2]
     hn = rms_norm(h.reshape(B, S, cfg.d_model).contiguous(), p["headnorm"], cfg.norm_eps)
-    return (hn * og) @ p["wo"]
+    return hint((hn * og) @ p["wo"], "batch", "seq", None)
 
 
 def _mlstm_chunk(C0, n0, q, k, v, ilog, flog):
@@ -212,7 +213,7 @@ def slstm_forward(p, x: torch.Tensor, cfg: ModelConfig, *, return_cache: bool = 
         state = _slstm_step(p, cfg, *state, zifo[:, t])
         hs.append(state[2])
     hn = rms_norm(torch.stack(hs, dim=1).to(x.dtype), p["headnorm"], cfg.norm_eps)
-    out = hn @ p["wo"]
+    out = hint(hn @ p["wo"], "batch", "seq", None)
     if not return_cache:
         return out
     return out, dict(zip(("c", "n", "h", "m"), state))

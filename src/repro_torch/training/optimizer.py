@@ -22,7 +22,9 @@ each leaf stands alone.
 
 Scalars (the count, the learning rate, bias corrections) are computed in
 float32 as the reference computes them, then applied as Python floats (an
-exact conversion). ``abstract_*`` give the state's (shape, dtype) per leaf.
+exact conversion). ``abstract_*`` give the state's (shape, dtype) per leaf,
+``opt_axes`` / ``adafactor_axes`` its logical sharding axes (ZeRO-1 over
+"data" for AdamW).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ __all__ = [
     "AdamWConfig", "AdafactorConfig", "cosine_schedule", "clip_by_global_norm",
     "adamw_init", "adamw_update", "abstract_adamw_state",
     "adafactor_init", "adafactor_update", "abstract_adafactor_state",
-    "compress_grads", "decompress_grads",
+    "compress_grads", "decompress_grads", "opt_axes", "adafactor_axes",
 ]
 
 F32 = torch.float32
@@ -129,6 +131,44 @@ def adamw_update(cfg: AdamWConfig, grads: dict, state: dict, params: dict):
     return new_params, state, {"grad_norm": gnorm, "lr": lr_t}
 
 
+def opt_axes(axes_tree: dict, shapes: dict, *, zero_size: int = 0,
+             replicated_names: frozenset | set = frozenset(),
+             data_resident_names: frozenset | set = frozenset({"expert_ff", "zero"})) -> dict:
+    """Logical axes for the AdamW state (``axes_tree`` and ``shapes``: name
+    -> axes and name -> (shape, dtype) of each parameter).
+
+    With ``zero_size > 0`` the largest *effectively unsharded*, divisible dim
+    of each leaf is additionally mapped to the "zero" logical axis (the data
+    mesh axis under the sharding rules): ZeRO-1 optimizer-state partitioning.
+    "Effectively unsharded" = logical axis None or a name in
+    ``replicated_names`` (names the active rules resolve to no mesh axis).
+    A leaf already sharded over the data axis, or with no eligible dim,
+    keeps its own axes. The port's leaves are per layer, where the
+    reference's are stacked over superblocks: a leaf whose reference choice
+    is the stacked dim gets the per-layer rule's choice here (ROADMAP C16)."""
+
+    def shard_leaf(axes, shape):
+        axes = tuple(axes)
+        shape = tuple(shape[0])
+        if zero_size <= 0:
+            return axes
+        # a mesh axis may appear only once per spec
+        if any(a in data_resident_names for a in axes if a is not None):
+            return axes
+        best = -1
+        for i, a in enumerate(axes):
+            eligible = a is None or a in replicated_names
+            if eligible and shape[i] % zero_size == 0 and shape[i] > 0:
+                if best < 0 or shape[i] > shape[best]:
+                    best = i
+        if best < 0:
+            return axes
+        return axes[:best] + ("zero",) + axes[best + 1:]
+
+    mapped = {k: shard_leaf(axes_tree[k], shapes[k]) for k in axes_tree}
+    return {"master": mapped, "m": dict(mapped), "v": dict(mapped), "count": ()}
+
+
 # ---------------------------------------------------------------------------
 # Adafactor
 # ---------------------------------------------------------------------------
@@ -174,6 +214,18 @@ def abstract_adafactor_state(shapes: dict) -> dict:
     return {"factors": {k: {n: (fs, F32) for n, fs in _factor_shapes(s).items()}
                         for k, (s, _) in shapes.items()},
             "count": ((), torch.int32)}
+
+
+def adafactor_axes(axes_tree: dict, shapes: dict) -> dict:
+    """Factor axes follow the parameter's own axes with the dropped dim removed."""
+
+    def leaf(axes, shape):
+        axes, shape = tuple(axes), tuple(shape[0])
+        if _factored(shape):
+            return {"vr": axes[:-1], "vc": axes[:-2] + axes[-1:]}
+        return {"v": axes}
+
+    return {"factors": {k: leaf(axes_tree[k], shapes[k]) for k in axes_tree}, "count": ()}
 
 
 def _pooled_rms(values: dict, groups: dict | None) -> dict:
