@@ -143,6 +143,18 @@ Phases; any failure exits non-zero before the result lines are printed:
      tiers x 32 = 128 edges, 2,048 clients, 600 one-second epochs, exactly 600
      launches) whose choices are held against the same run through the plain
      decision function, and a profile of that call;
+  6b. cluster_ranks: the cluster's rank path (ROADMAP A12): four spawned
+     processes, all on this one card in one gloo group (NCCL refuses two
+     ranks on one card; the four-card NCCL path is not run here), each
+     calling ``simulate_cluster(..., shards=4)`` on the acceptance loop
+     (every static) and the city pool (adaptive, 600 epochs, nothing cut),
+     one client block per rank; gated: per rank exactly T decision-scan
+     launches and T collectives (one an epoch) and one rank-path run (the
+     module's counters), every rank's results bit-identical (digests), and
+     rank 0's equal to the same calls in one process (the blocked twin):
+     choices exact, floats within RANK_SUM_RTOL; reported: wall time and
+     client-epochs/s beside the one-process run's, the collective's ms an
+     epoch and peak memory per rank;
   7. tails: the batched tails and the SLO cluster, counters reset just before
      and read just after: ``fleet_tail`` at p99 over the fleet phase's
      131,072-row grid by Euler and by the asymptote, a seeded sample of 512
@@ -245,7 +257,9 @@ Phases; any failure exits non-zero before the result lines are printed:
      phase's full-width simulated run, in serve_local and in encdec, the
      RMSNorm entries in serve_xlstm, flash and decode with their gemma2 and
      seamless timing rows, and they
-     and the decision scan with their launches in the obs phase; every
+     and the decision scan with their launches in the obs phase, the
+     decision scan also with its launches summed over the ranks of
+     cluster_ranks; every
      kernel with its launches in the reproduce phase and in the train
      phase's 30 steps), the card's
      name and power limit as nvidia-smi gives them, and the final
@@ -342,6 +356,11 @@ ACCEPT_CLIENTS, ACCEPT_EPOCHS = 64, 120
 CITY_REPEAT, CITY_CLIENTS, CITY_EPOCHS, CITY_STAGGER = 32, 2048, 600, 8
 DECISION_SHAPES = ((ACCEPT_EPOCHS, ACCEPT_CLIENTS, 5),
                    (CITY_EPOCHS, CITY_CLIENTS, 4 * CITY_REPEAT + 1))
+# the cluster's rank path: both calls above with shards = 4 on four ranks of
+# one card, held to the one-process blocked twin (choices exact; floats to
+# the test's budget, 1e-12 relative with 1e-15 absolute: the same sums in the
+# same association); the phase's budget is 90 s, the deadline twice that
+RANKS, RANK_SUM_RTOL, RANKS_DEADLINE_S = 4, 1e-12, 180.0
 # the tail path's sizes: p99, the fleet sweep's grid, a 512-row sample held
 # against the scalar tail; the SLO city pool cut to 300 of the mean-mode
 # city's 600 epochs (600 took 112 s on the card, past the 90 s this run may
@@ -3000,6 +3019,170 @@ def phase_cluster(torch, scan_ref) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the cluster's rank path: one client block per rank, one collective an epoch
+# ---------------------------------------------------------------------------
+
+
+def rank_runs():
+    """The cluster_ranks phase's two calls: (name, spec, trace, keywords)."""
+    import numpy as np
+
+    from repro_torch.launch.cluster_sim import default_cluster
+
+    spec = default_cluster(ACCEPT_CLIENTS)
+    bw0 = float(np.asarray(spec.base.network.bandwidth_Bps))
+    pols = ("adaptive", "on_device") + tuple(f"edge[{j}]" for j in range(spec.n_edges))
+    return (("acceptance", spec, walk_trace(float(ACCEPT_EPOCHS), bw0),
+             dict(policies=pols, stagger=8, seed=1)),
+            ("city", city_cluster(), walk_trace(float(CITY_EPOCHS), bw0),
+             dict(policies=("adaptive",), stagger=CITY_STAGGER, seed=0)))
+
+
+def result_arrays(res) -> dict:
+    out = {k: getattr(res, k) for k in ("est_bandwidth_Bps", "est_arrival_rate",
+                                        "est_endo_rate", "est_exo_rate")}
+    for name, p in res.policies.items():
+        out.update({f"{name}/choices": p.choices, f"{name}/latencies_s": p.latencies_s,
+                    f"{name}/edge_loads": p.edge_loads})
+    return out
+
+
+def cluster_rank_worker(rank: int, world: int, out_dir: str) -> None:
+    """One rank of the cluster_ranks phase, a spawned process on the card:
+    both calls on the rank path, timed, counted and digested; then rank 0,
+    with the group gone, runs the same calls in one process (the blocked
+    twin, shards = world) and holds its own results against them. Writes
+    ``rank{rank}.json``."""
+    import hashlib
+    from datetime import timedelta
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the ranks share this host only
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.fleet import cluster as pc
+    from repro_torch.fleet import simulate_cluster
+    from repro_torch.kernels.decision_scan.ops import decision_scan
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=180))
+    runs, kept = {}, {}
+    for name, spec, trace, kw in rank_runs():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        decision_scan.launches = 0
+        before = dict(pc.RANK_PATH)
+        t0 = time.perf_counter()
+        res = simulate_cluster(spec, trace, shards=world, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        arrays = result_arrays(res)
+        runs[name] = dict(
+            wall_s=wall, launches=decision_scan.launches,
+            runs=pc.RANK_PATH["runs"] - before["runs"],
+            collectives=pc.RANK_PATH["collectives"] - before["collectives"],
+            collective_s=pc.RANK_PATH["collective_s"] - before["collective_s"],
+            peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+            epochs=trace.n_epochs, clients=spec.n_clients,
+            digest={k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+                    for k, v in arrays.items()})
+        if rank == 0:
+            kept[name] = arrays
+        del res, arrays
+        torch.cuda.empty_cache()
+    digests = [None] * world
+    dist.all_gather_object(digests, {n: r["digest"] for n, r in runs.items()})
+    dist.barrier()
+    dist.destroy_process_group()
+    out = dict(rank=rank, runs=runs)
+    if rank == 0:
+        out["ranks_identical"] = {n: all(d[n] == digests[0][n] for d in digests) for n in runs}
+        out["in_process"] = {}
+        for name, spec, trace, kw in rank_runs():
+            t0 = time.perf_counter()
+            res = simulate_cluster(spec, trace, shards=world, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            twin, mine = result_arrays(res), kept.pop(name)
+            del res
+            worst, bits = 0.0, True
+            for k, want in twin.items():
+                got = mine[k]
+                bits = bits and np.array_equal(got, want)
+                if k.endswith("/choices"):
+                    continue
+                scale = np.maximum(np.abs(want), 1e-15 / RANK_SUM_RTOL)
+                worst = max(worst, float(np.max(np.abs(got - want) / scale, initial=0.0)))
+            out["in_process"][name] = dict(
+                wall_s=wall, max_rel_err=worst, bit_equal=bits,
+                choices_equal=all(np.array_equal(mine[k], twin[k]) for k in twin
+                                  if k.endswith("/choices")))
+            del twin, mine
+            torch.cuda.empty_cache()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out, default=float))
+
+
+def phase_cluster_ranks(torch) -> dict:
+    """``simulate_cluster(shards=4)`` on the rank path: four spawned
+    processes on the one card in a gloo group (NCCL refuses two ranks on
+    one card), each with a quarter of the clients."""
+    import torch.multiprocessing as mp
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.spawn(cluster_rank_worker, args=(RANKS, tmp), nprocs=RANKS, join=False)
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t_phase > RANKS_DEADLINE_S:
+                    raise TimeoutError(f"the ranks passed {RANKS_DEADLINE_S} s")
+        except Exception as e:  # a rank raised (its traceback is in e) or hung
+            for p in ctx.processes:
+                p.kill()
+            fail(f"cluster_ranks: {e}")
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(RANKS)]
+    out["phase_s"] = time.perf_counter() - t_phase
+    launches = 0
+    for name, twin in ranks[0]["in_process"].items():
+        per = [r["runs"][name] for r in ranks]
+        t_n, n = per[0]["epochs"], per[0]["clients"]
+        launches += sum(p["launches"] for p in per)
+        counted = all(p["launches"] == p["collectives"] == t_n and p["runs"] == 1 for p in per)
+        same = ranks[0]["ranks_identical"][name]
+        close = twin["choices_equal"] and twin["max_rel_err"] <= RANK_SUM_RTOL
+        wall = max(p["wall_s"] for p in per)
+        coll_ms = [p["collective_s"] / t_n * 1e3 for p in per]
+        ok = counted and same and close
+        log(f"[cluster_ranks] {name} {n} clients x {t_n} epochs on {RANKS} ranks of one card: "
+            f"{wall:.2f} s wall ({t_n * n / wall:,.0f} client-epochs/s) beside one process "
+            f"{twin['wall_s']:.2f} s ({t_n * n / twin['wall_s']:,.0f}); per rank decision_scan "
+            f"launches {[p['launches'] for p in per]}, collectives "
+            f"{[p['collectives'] for p in per]}, rank-path runs {[p['runs'] for p in per]} "
+            f"(expected {t_n}, {t_n}, 1); collective ms an epoch "
+            f"{[round(c, 4) for c in coll_ms]}; peak MiB {[round(p['peak_mib'], 1) for p in per]}; "
+            f"ranks bit-identical {same}; against one process: choices equal "
+            f"{twin['choices_equal']}, max rel err {twin['max_rel_err']:.3e} (limit "
+            f"{RANK_SUM_RTOL:g}), bit-equal {twin['bit_equal']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"cluster_ranks {name}: counts {counted}, ranks identical {same}, "
+                            f"against one process {twin}")
+        out[name] = dict(clients=n, epochs=t_n, wall_s=wall, in_process_wall_s=twin["wall_s"],
+                         client_epochs_per_s=t_n * n / wall,
+                         in_process_client_epochs_per_s=t_n * n / twin["wall_s"],
+                         collective_ms_per_epoch=coll_ms, ranks=per, against_one_process=twin,
+                         ranks_identical=same)
+    out["launches"] = {"decision_scan": launches}
+    log(f"[cluster_ranks] phase wall time {out['phase_s']:.1f} s (budget 90 s); "
+        f"{launches} decision_scan launches over the ranks")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the tail path: batched quantiles, gates 1-5, the cluster in SLO mode
 
 
@@ -4669,6 +4852,8 @@ def main() -> int:
     cluster = phase_cluster(torch, decision_scan_reference)
     end_phase("cluster")
     torch.cuda.empty_cache()
+    cluster_ranks = phase_cluster_ranks(torch)
+    end_phase("cluster_ranks")
     tails = phase_tails(torch, decision_scan_reference)
     end_phase("tails")
     torch.cuda.empty_cache()
@@ -4754,6 +4939,7 @@ def main() -> int:
                        kserver_k4_bound_ms=t["kserver_k4_bound_ms"],
                        kserver_launches=fleet["launches"]["lindley_kserver"])
         if name == "decision_scan":  # the closed loop launches it one epoch at a time
+            row["cluster_ranks_launches"] = cluster_ranks["launches"][name]  # summed over ranks
             row.update(epoch_ms=t["epoch_device_ms"], epoch_eager_ms=t["epoch_eager_ms"],
                        epoch_library_ms=t["epoch_library_ms"],
                        epoch_bound_ms=t["epoch_bound_ms"], ms_stagger8_h015=t["ms_stagger8_h015"])
@@ -4765,8 +4951,9 @@ def main() -> int:
         kernels.append(row)
     RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid,
                   serve_local=serve_local, serve_xlstm=serve_xlstm, encdec=encdec, fleet=fleet,
-                  cluster=cluster, tails=tails, meanfield_plan=meanfield_plan, measure=measure,
-                  obs=obs, paper=paper, reproduce=reproduced, train=trained, dryrun=dried)
+                  cluster=cluster, cluster_ranks=cluster_ranks, tails=tails,
+                  meanfield_plan=meanfield_plan, measure=measure, obs=obs, paper=paper,
+                  reproduce=reproduced, train=trained, dryrun=dried)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(RESULT, indent=1, default=str))

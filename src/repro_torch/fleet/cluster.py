@@ -36,11 +36,15 @@ is never touched) on ``device`` (default: the card).
 
 from __future__ import annotations
 
+import time
+import zlib
 from dataclasses import dataclass, replace
+from functools import partial
 from typing import Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.latency import NetworkPath
 from ..core.manager import ON_DEVICE
@@ -384,10 +388,11 @@ def predict_terms(
 
 def _closed_loop(cst, cohort, bw_true, lam_true, exo_true, n_req_all, *, window: int,
                  stagger: int, dt: float, bw_alpha: float, bg_alpha: float,
-                 hysteresis: float, shards: int = 1, slo_quantile: float | None = None,
+                 hysteresis: float, total, slo_quantile: float | None = None,
                  tail_method: str = "asymptote"):
     """Decisions, loads and estimates of the adaptive policy over all T
-    epochs, for the (possibly padded) client axis of ``lam_true``.
+    epochs, for the (possibly padded) client axis of ``lam_true``: the whole
+    fleet, or this rank's block of it.
 
     Carry: per-client EWMA bandwidth, the sliding-window ring of per-epoch
     Poisson arrival counts, per-client EWMA estimates of the *other* clients'
@@ -404,11 +409,15 @@ def _closed_loop(cst, cohort, bw_true, lam_true, exo_true, n_req_all, *, window:
     previous target in between.
 
     Within an epoch every per-client quantity is elementwise in the client
-    axis; the ONLY cross-client coupling is the endogenous-load total. With
-    ``shards > 1`` that total is summed per block of N / shards clients and
-    then over the blocks (the single-card twin of the reference's sharded
-    scan: the same math, the sum re-associated). With ``slo_quantile`` the
-    managers price q-quantiles instead of means."""
+    axis; the ONLY cross-client coupling is the endogenous-load total, which
+    ``total`` forms from the (N, E) offered loads: one sum over the clients
+    (``_flat_total``); per block of N / shards clients, then
+    over the blocks (``_blocked_total``, the single-process twin of the
+    reference's sharded scan: the same math, the sum re-associated); or this
+    rank's partial over its block, all-gathered and summed in rank order
+    (``_rank_total``, the twin of its ``shard_map``: one collective an
+    epoch). With ``slo_quantile`` the managers price q-quantiles instead of
+    means."""
     t_n, n = lam_true.shape
     e_n = exo_true.shape[1]
     dev = lam_true.device
@@ -453,10 +462,7 @@ def _closed_loop(cst, cohort, bw_true, lam_true, exo_true, n_req_all, *, window:
         # -- the loop closes: decisions become next epoch's edge loads -----
         off = choice[:, None] == edges[None, :]
         own = torch.where(off, lam_t[:, None], 0.0)
-        if shards == 1:
-            endo_total = own.sum(dim=0)
-        else:
-            endo_total = own.reshape(shards, n // shards, e_n).sum(dim=1).sum(dim=0)
+        endo_total = total(own)
         report = endo_total[None, :] - own
 
         choices[idx] = choice
@@ -486,6 +492,127 @@ def _pad_clients(cst, bw_true, lam_true, n_req, pad: int):
         return torch.cat([a, a.new_full((a.shape[0], pad), fill)], dim=1)
 
     return cst, padcols(bw_true, 1.0), padcols(lam_true, 0.0), padcols(n_req, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the endogenous-load total: over the fleet, over blocks, or over ranks
+# ---------------------------------------------------------------------------
+
+#: what the rank path did in this process: loops run, per-epoch collectives,
+#: and the host seconds spent in those collectives (waits for slower ranks
+#: included)
+RANK_PATH = {"runs": 0, "collectives": 0, "collective_s": 0.0}
+
+
+def _flat_total(own):
+    """The (E,) endogenous total of the (N, E) offered loads: one sum."""
+    return own.sum(dim=0)
+
+
+def _blocked_total(shards: int):
+    """The total summed per block of N / shards clients, then over the blocks."""
+    def total(own):
+        n, e_n = own.shape
+        return own.reshape(shards, n // shards, e_n).sum(dim=1).sum(dim=0)
+    return total
+
+
+def _rank_total(group, world: int, device):
+    """The total across the ranks of ``group``: this rank's partial over its
+    block, all-gathered into (world, E) and summed in rank order. That is the
+    blocked twin's association, and the same bits on every rank, which an
+    all-reduce (its summation order is the backend's) does not promise."""
+    # a group whose CUDA backend is not NCCL (gloo) gets the partial through
+    # host memory: this copy is the transport
+    via_host = device.type != "cpu" and "cuda:nccl" not in dist.get_backend_config(group)
+
+    def total(own):
+        part = own.sum(dim=0)
+        if via_host:
+            part = part.cpu()
+        parts = [torch.empty_like(part) for _ in range(world)]
+        t0 = time.perf_counter()
+        dist.all_gather(parts, part, group=group)
+        RANK_PATH["collective_s"] += time.perf_counter() - t0
+        RANK_PATH["collectives"] += 1
+        return torch.stack(parts).sum(dim=0).to(device)
+    return total
+
+
+def _rank_group(shards: int):
+    """The process group of the rank path, or None for the single-process
+    loop: the rank path runs when a group of exactly ``shards`` ranks is up."""
+    if shards == 1 or not dist.is_available() or not dist.is_initialized() \
+            or dist.get_world_size() != shards:
+        return None
+    if dist.get_backend() == "fake":
+        raise RuntimeError(
+            f"shards={shards} matches the world size of a 'fake' process group, which runs "
+            "no collective: the rank path's endogenous totals would be wrong")
+    if "cpu:" not in dist.get_backend_config():
+        raise RuntimeError(
+            f"the rank path gathers its estimates through host memory; the process group's "
+            f"backends ({dist.get_backend_config()}) carry no host tensor (use gloo, or "
+            "torch's default cpu:gloo,cuda:nccl)")
+    return dist.group.WORLD
+
+
+def _crc(*arrays) -> int:
+    crc = 0
+    for a in arrays:
+        crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
+    return crc
+
+
+def _check_header(group, header: dict[str, int]) -> None:
+    """All-gather every rank's ``header`` and raise, naming each field and
+    rank that differs from rank 0's: ranks fed other inputs would otherwise
+    sum other fleets' loads without an error."""
+    mine = torch.tensor(list(header.values()), dtype=torch.int64)
+    rows = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(rows, mine, group=group)
+    bad = [f"{name} (rank {r}: {int(row[i])}, rank 0: {int(rows[0][i])})"
+           for r, row in enumerate(rows) for i, name in enumerate(header) if row[i] != rows[0][i]]
+    if bad:
+        raise ValueError("the ranks called simulate_cluster with different inputs: "
+                         + "; ".join(bad))
+
+
+def _gather_clients(group, world: int, blocks: torch.Tensor, n: int) -> torch.Tensor:
+    """Every rank's (T, N / world, ...) block, in rank order, as one (T, n,
+    ...) host tensor without the padding (host memory carries it: the city
+    pool's estimates are over a GB)."""
+    blocks = blocks.cpu()
+    parts = [torch.empty_like(blocks) for _ in range(world)]
+    dist.all_gather(parts, blocks, group=group)
+    return torch.cat(parts, dim=1)[:, :n]
+
+
+def _closed_loop_ranks(group, cst, bw, lam, exo, counts, *, stagger: int, **loop_kw):
+    """The closed loop with one block of clients on each rank of ``group``
+    (the twin of the reference's ``shard_map``): the clients padded to a
+    multiple of the world size, the inert dummies on the last ranks; each
+    rank's cohorts and spec rates those of its clients' global indices; one
+    collective an epoch. Returns the whole fleet's choices (T, N) on the
+    loop's device and its estimates on the host, the same on every rank."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    n = lam.shape[1]
+    n_pad = n + (-n) % world
+    cst_p, bw_p, lam_p, counts_p = _pad_clients(cst, bw, lam, counts, n_pad - n)
+    nb = n_pad // world
+    blk = slice(rank * nb, (rank + 1) * nb)
+    cohort = (torch.arange(n_pad, device=lam.device) % stagger).to(torch.int32)
+    choice, _loads, bw_e, lam_e, endo_e, exo_e = _closed_loop(
+        dict(cst_p, lam_spec=cst_p["lam_spec"][blk]), cohort[blk].contiguous(),
+        bw_p[:, blk].contiguous(), lam_p[:, blk].contiguous(), exo,
+        counts_p[:, blk].contiguous(), stagger=stagger,
+        total=_rank_total(group, world, lam.device), **loop_kw)
+    RANK_PATH["runs"] += 1
+    choices = _gather_clients(group, world, choice, n).to(lam.device)
+    est_bw, est_lam = (_gather_clients(group, world, a, n).numpy() for a in (bw_e, lam_e))
+    del bw_e, lam_e
+    est_endo = _gather_clients(group, world, endo_e, n).numpy()
+    return choices, est_bw, est_lam, est_endo, exo_e.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -624,6 +751,31 @@ def _score_assignment(cst, lam_true, bw_true, exo_true, choices, slo_quantile=No
     return lat.cpu().numpy(), endo_total.cpu().numpy()
 
 
+def _score_ranks(group, cst, lam_true, bw_true, exo_true, choices, slo_quantile=None,
+                 tail_method: str = "asymptote") -> tuple[np.ndarray, np.ndarray]:
+    """:func:`_score_assignment` on the rank path: each rank scores one block
+    of epochs of the whole fleet's ``choices`` (an epoch's scores depend on
+    that epoch alone), and the blocks are all-gathered through host memory.
+    Each rank does 1 / world of the scoring, and every rank returns the same
+    (T, N) latencies and (T, E) loads."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    t_n, n = lam_true.shape
+    per = -(-t_n // world)
+    lo, hi = min(rank * per, t_n), min((rank + 1) * per, t_n)
+    lat = torch.zeros((per, n), dtype=FLOAT)
+    loads = torch.zeros((per, exo_true.shape[1]), dtype=FLOAT)
+    if hi > lo:
+        mine = _score_assignment(cst, lam_true[lo:hi], bw_true[lo:hi], exo_true[lo:hi],
+                                 choices[lo:hi], slo_quantile, tail_method)
+        lat[:hi - lo], loads[:hi - lo] = (torch.from_numpy(a) for a in mine)
+    out = []
+    for blocks in (lat, loads):
+        parts = [torch.empty_like(blocks) for _ in range(world)]
+        dist.all_gather(parts, blocks, group=group)
+        out.append(torch.cat(parts)[:t_n].numpy())
+    return out[0], out[1]
+
+
 # ---------------------------------------------------------------------------
 # results
 # ---------------------------------------------------------------------------
@@ -722,8 +874,23 @@ def simulate_cluster(
     ``shards`` splits the client axis into that many blocks for the
     endogenous-load sum, padding with inert zero-rate dummies when it does
     not divide N: decisions match ``shards=1`` exactly, float outputs to the
-    re-association of that one sum. The decide step runs over every client
-    at once either way.
+    re-association of that one sum. The sum takes one of three forms (see
+    ``_closed_loop``), as the reference picks ``shard_map`` when it has
+    ``shards`` devices and its vmapped blocks otherwise:
+
+      * ``shards=1``: one sum over the fleet;
+      * a ``torch.distributed`` group of exactly ``shards`` ranks is up: the
+        rank path. Each rank runs the loop over its own block (one
+        ``decision_scan`` launch an epoch on N / shards clients) and forms
+        the total from every rank's partial, all-gathered once an epoch and
+        summed in rank order. Every rank must call with the same arguments
+        (an all-gathered header of the shapes, settings and checksums of the
+        trace and counts refuses any mismatch); the blocks are gathered
+        after the loop, each rank scores a block of epochs of the whole
+        fleet (``_score_ranks``), and every rank returns the same result. A
+        ``"fake"`` group, which runs no collective, is refused;
+      * otherwise: the blocked twin in this process, summed per block, then
+        over the blocks, the decide step over every client at once.
 
     ``slo_quantile`` switches decisions AND true-condition scoring from
     expected latencies to q-quantiles (``tail_method``, the asymptote by
@@ -771,6 +938,7 @@ def simulate_cluster(
 
     results: dict[str, ClusterPolicyResult] = {}
     est_bw = est_lam = est_endo = est_exo = None
+    counts = None
     if "adaptive" in policies:
         if n_req is None:
             gen = torch.Generator(device=dev)
@@ -781,21 +949,40 @@ def simulate_cluster(
             if tuple(counts.shape) != (t_n, spec.n_clients):
                 raise ValueError(f"n_req must be ({t_n}, {spec.n_clients}), got "
                                  f"{tuple(counts.shape)}")
-        n_pad = spec.n_clients + (-spec.n_clients) % shards
-        cst_p, bw_p, lam_p, counts_p = _pad_clients(cst, bw, lam, counts,
-                                                    n_pad - spec.n_clients)
-        cohort = (torch.arange(n_pad, device=dev) % stagger).to(torch.int32)
-        choice_t, _loads, bw_e, lam_e, endo_e, exo_e = _closed_loop(
-            cst_p, cohort, bw_p, lam_p, exo, counts_p, window=int(rate_window_epochs),
-            stagger=int(stagger), dt=float(traces.epoch_s), bw_alpha=float(bw_alpha),
-            bg_alpha=float(bg_alpha), hysteresis=float(hysteresis), shards=int(shards),
-            slo_quantile=slo_quantile, tail_method=tail_method)
-        keep = spec.n_clients
-        choice_t = choice_t[:, :keep].contiguous()
-        est_bw, est_lam = bw_e[:, :keep].cpu().numpy(), lam_e[:, :keep].cpu().numpy()
-        est_endo, est_exo = endo_e[:, :keep].cpu().numpy(), exo_e.cpu().numpy()
-        del endo_e
-        lat, loads = _score_assignment(cst, lam, bw, exo, choice_t, slo_quantile, tail_method)
+    loop_kw = dict(window=int(rate_window_epochs), stagger=int(stagger),
+                   dt=float(traces.epoch_s), bw_alpha=float(bw_alpha),
+                   bg_alpha=float(bg_alpha), hysteresis=float(hysteresis),
+                   slo_quantile=slo_quantile, tail_method=tail_method)
+    group = _rank_group(shards)
+    score = _score_assignment
+    if group is not None:
+        settings = (repr(spec), tuple(policies), loop_kw, float(saturation_penalty_s))
+        _check_header(group, {
+            "epochs": t_n, "clients": spec.n_clients, "edges": e_n, "stagger": int(stagger),
+            "window": int(rate_window_epochs),
+            "settings": _crc(np.frombuffer(repr(settings).encode(), np.uint8)),
+            "trace": _crc(traces.bandwidth_Bps, traces.arrival_rate, exo_np),
+            "counts": 0 if counts is None else _crc(counts.cpu().numpy())})
+        score = partial(_score_ranks, group)
+
+    if counts is not None:
+        if group is not None:
+            choice_t, est_bw, est_lam, est_endo, est_exo = _closed_loop_ranks(
+                group, cst, bw, lam, exo, counts, **loop_kw)
+        else:
+            n_pad = spec.n_clients + (-spec.n_clients) % shards
+            cst_p, bw_p, lam_p, counts_p = _pad_clients(cst, bw, lam, counts,
+                                                        n_pad - spec.n_clients)
+            cohort = (torch.arange(n_pad, device=dev) % stagger).to(torch.int32)
+            choice_t, _loads, bw_e, lam_e, endo_e, exo_e = _closed_loop(
+                cst_p, cohort, bw_p, lam_p, exo, counts_p,
+                total=_flat_total if shards == 1 else _blocked_total(int(shards)), **loop_kw)
+            keep = spec.n_clients
+            choice_t = choice_t[:, :keep].contiguous()
+            est_bw, est_lam = bw_e[:, :keep].cpu().numpy(), lam_e[:, :keep].cpu().numpy()
+            est_endo, est_exo = endo_e[:, :keep].cpu().numpy(), exo_e.cpu().numpy()
+            del endo_e
+        lat, loads = score(cst, lam, bw, exo, choice_t, slo_quantile, tail_method)
         lat, saturated = clamp_saturation(lat, saturation_penalty_s)
         choices = choice_t.cpu().numpy()
         results["adaptive"] = ClusterPolicyResult("adaptive", lat, choices, loads, saturated)
@@ -812,7 +999,7 @@ def simulate_cluster(
 
     for name, tgt in static_targets.items():
         choices = torch.full((t_n, spec.n_clients), tgt, dtype=torch.int32, device=dev)
-        lat, loads = _score_assignment(cst, lam, bw, exo, choices, slo_quantile, tail_method)
+        lat, loads = score(cst, lam, bw, exo, choices, slo_quantile, tail_method)
         lat, saturated = clamp_saturation(lat, saturation_penalty_s)
         results[name] = ClusterPolicyResult(name, lat, choices.cpu().numpy(), loads,
                                             saturated)
