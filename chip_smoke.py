@@ -237,6 +237,27 @@ Phases; any failure exits non-zero before the result lines are printed:
      model-FLOP floor, tokens/s, forward and backward on CUDA events and a
      profile of 3 steps; and the reduced config in bf16 trained 6 steps and
      resumed from its step-3 checkpoint, steps 4-6 bit-equal;
+ 13b. train_hybrid: jamba's training path through the selective scan's
+     backward kernel. The kernel against its plain reverse loop and the
+     forward's chunk states against the plain ones, through the wrapper
+     under grad (one launch each way) and through every plan neighbour (G
+     of 4, 8, 16; both y reductions), at jamba's training shape (1, 4096,
+     8192, 16) bf16 with strided B and C, a B = 2 shape and fp32 shapes at
+     N of 1, 4, 16 (T ragged, T below a chunk), with and without h0 and
+     dh_final; its time at the training shape beside its bound, the plain
+     loop's and the forward's with and without the chunk states; the
+     gradient gate of one mixer at jamba's widths at 1 x 4096 (kernel path
+     within 1.5x the plain bf16 path's rel-L2 to the fp32 plain path, a
+     control with 16 lanes a channel passing, three planted faults failing:
+     the walk back restarted one chunk off, dy one step late, dB and dC
+     exchanged); one full-width superblock (13.30 B parameters, bf16, seed
+     0) through ``loss_fn`` and its backward at 1 x 4096 after a warm step:
+     launches exact (2 rmsnorm, 31 fused, 2 flash, 14 ssm_scan, 7
+     ssm_scan_backward under remat), every gradient finite, the mamba, MoE
+     and attention gradients nonzero, peak under 80 GB, forward and
+     backward on CUDA events and the backward kernel's device share from a
+     profile; and ``launch/train.py --arch jamba_v0_1_52b --tiny`` for 20
+     steps in bf16 (launches a step exact, losses finite and falling);
  14. dryrun: the sharding layer's launchers on the host (ROADMAP A11b), in
      child processes started after the build and run beside the card's
      phases at the lowest priority, each in its own fake world of 512 ranks
@@ -252,16 +273,16 @@ Phases; any failure exits non-zero before the result lines are printed:
      equal to what that phase's model, AdamW state and batch held on the
      card, its temp bytes beside the measured peak and its FLOPs beside the
      model-FLOP floor and the measured step (reported);
- 15. report: one ``kernels`` JSON line (all six kernels and the fused RMSNorm
-     entry; the serving kernels also with their launches in the measure
+ 15. report: one ``kernels`` JSON line (all six kernels, the fused RMSNorm
+     entry and the selective scan's backward; the serving kernels also with their launches in the measure
      phase's full-width simulated run, in serve_local and in encdec, the
      RMSNorm entries in serve_xlstm, flash and decode with their gemma2 and
      seamless timing rows, and they
      and the decision scan with their launches in the obs phase, the
      decision scan also with its launches summed over the ranks of
      cluster_ranks; every
-     kernel with its launches in the reproduce phase and in the train
-     phase's 30 steps), the card's
+     kernel with its launches in the reproduce phase, in the train phase's
+     30 steps and in train_hybrid's superblock step), the card's
      name and power limit as nvidia-smi gives them, and the final
      ``{"ok": true, ...}`` line.
 Everything it measures also goes to ``chiprun_out/chip_smoke.json``.
@@ -1107,7 +1128,8 @@ def serving_launches(L: int, prefills: int, decodes: int) -> dict[str, int]:
     return {"rmsnorm": 2 * prefills + decodes,
             "rmsnorm_add": (2 * L - 1) * prefills + 2 * L * decodes,
             "flash_attention": L * prefills, "decode_attention": L * decodes,
-            "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0}
+            "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0,
+            "ssm_scan_backward": 0}
 
 
 # the slice's cell: 16 Poisson requests at 20 rps, prompts 256 +/- 64, 32 new
@@ -1847,7 +1869,8 @@ def phase_serve_hybrid(torch, refs) -> dict:
               "rmsnorm_add": (2 * L - 1) * n_prefill + 2 * L * n_decode,
               "flash_attention": n_attn * n_prefill, "decode_attention": n_attn * n_decode,
               "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0,
-              "ssm_scan": n_mamba * (n_prefill + n_decode)}
+              "ssm_scan": n_mamba * (n_prefill + n_decode),
+              "ssm_scan_backward": 0}
     check_launches("serve_hybrid", launches, expect,
                    f"{n_prefill} prefills (2 rmsnorm + {2 * L - 1} rmsnorm_add + {n_attn} flash + "
                    f"{n_mamba} ssm_scan each) and {n_decode} decode steps (1 rmsnorm + {2 * L} "
@@ -1902,7 +1925,8 @@ def xlstm_launches(cfg, prefills: int, decodes: int) -> tuple[dict[str, int], st
     counts = {"rmsnorm": (2 + X) * prefills + (1 + X) * decodes,
               "rmsnorm_add": (L - 1) * prefills + L * decodes,
               "flash_attention": 0, "decode_attention": 0, "lindley_scan": 0,
-              "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0}
+              "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0,
+              "ssm_scan_backward": 0}
     formula = (f"per prefill 1 + X + 1 = {2 + X} rmsnorm and L - 1 = {L - 1} rmsnorm_add, per "
                f"decode step 1 + X = {1 + X} and L = {L} (L = {L} blocks, X = {X} head norms)")
     return counts, formula
@@ -2041,7 +2065,8 @@ def encdec_launches(cfg, prefills: int, decodes: int) -> tuple[dict[str, int], s
     counts = {"rmsnorm": 3 * prefills + decodes,
               "rmsnorm_add": (2 * Le + 3 * L - 1) * prefills + 3 * L * decodes,
               "flash_attention": (Le + 2 * L) * prefills, "decode_attention": 2 * L * decodes,
-              "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0}
+              "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0,
+              "ssm_scan_backward": 0}
     formula = (f"per encode + prefill 3 rmsnorm, 2Le + 3L - 1 = {2 * Le + 3 * L - 1} "
                f"rmsnorm_add, Le + 2L = {Le + 2 * L} flash; per decode step 1 rmsnorm, 3L = "
                f"{3 * L} rmsnorm_add, 2L = {2 * L} decode (Le = {Le}, L = {L})")
@@ -4266,7 +4291,8 @@ def train_launches(cfg, steps: int) -> tuple[dict[str, int], str]:
     L = cfg.num_layers
     counts = {"rmsnorm": 2 * steps, "rmsnorm_add": (4 * L - 1) * steps,
               "flash_attention": 2 * L * steps, "decode_attention": 0, "lindley_scan": 0,
-              "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0}
+              "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0,
+              "ssm_scan_backward": 0}
     formula = (f"per step 1 + 1 rmsnorm, 2L + 2L - 1 = {4 * L - 1} rmsnorm_add, L + L = {2 * L} "
                f"flash (L = {L}: each layer's forward once more under remat)")
     return counts, formula
@@ -4573,6 +4599,424 @@ def phase_train(torch, refs) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_hybrid: jamba's gradients through the selective-scan backward kernel
+
+# the backward against its plain reverse loop, relative to each gradient's
+# largest entry: fp32 outputs are fp32 sums over T, D or N in another order,
+# 1e-5 (tests/test_torch_kernel_grads.py; the first card run read at most
+# 2.5e-7 at fp32 inputs and 5.2e-7 for dA at jamba's 1 x 4096); bf16 outputs
+# (ddt, du, dB, dC) are rounded once by both, so one bf16 step (2^-7 of the
+# entry) beside that order term
+SCAN_GRAD_REL = 1e-5
+SCAN_GRAD_NAMES = ("ddt", "dBc", "dCc", "du", "dA", "dh0")
+HYBRID_TRAIN_S = 4096  # jamba's training sequence (its train_4k shape), batch 1
+HYBRID_TINY_ARGV = ["--arch", "jamba_v0_1_52b", "--tiny", "--steps", "20", "--log-every", "1",
+                    "--device", "cuda"]
+HYBRID_TINY_STEPS = 20
+
+
+def scan_grad_tol(got, want) -> dict:
+    scale = float(want.float().abs().max()) if want.numel() else 0.0
+    return dict(atol=SCAN_GRAD_REL * max(scale, 1e-30),
+                rtol=2**-7 if str(got.dtype) == "torch.bfloat16" else 0.0)
+
+
+def phase_check_ssm_grad(torch, ck: Checker) -> None:
+    """The backward kernel against the plain reverse loop, and the forward's
+    chunk states against the plain ones: through the wrapper under grad
+    (``_Scan``: the forward kernel once, the backward once) and through every
+    plan neighbour (G of 4, 8, 16 lanes per channel, each y reduction of the
+    forward), at jamba's training shape, a B = 2 shape and fp32 shapes at N
+    of 1, 4 and 16 with T ragged against the chunk and below one tile, with
+    and without h0 and dh_final."""
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import (
+        ssm_scan_backward_reference,
+        ssm_scan_chunk_states,
+    )
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8642)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ((1, HYBRID_TRAIN_S, 8192, 16), bf16, False, False, True, "jamba training, strided B/C"),
+        ((2, 1000, 8192, 16), bf16, True, True, True, "B = 2, h0 and dh_final"),
+        ((2, 37, 200, 1), f32, True, True, False, "N = 1, T ragged, D ragged"),
+        ((2, 130, 96, 4), f32, False, True, False, "N = 4, dh_final only"),
+        ((3, 53, 256, 16), f32, True, False, True, "N = 16, h0 only, strided B/C"),
+        ((2, 5, 64, 16), f32, False, False, False, "T below a chunk and a tile"),
+    ]
+    for shape, dtype, h0, dh, fused, note in cases:
+        what = f"{shape} {str(dtype)[6:]}: {note}"
+
+        def case(shape=shape, dtype=dtype, h0=h0, dh=dh, fused=fused, what=what):
+            B, T, D, N = shape
+            args = scan_inputs(torch, gen, *shape, dtype, h0=h0, fused=fused)
+            dy = torch.randn(B, T, D, generator=gen, device="cuda").to(dtype)
+            dhf = torch.randn(B, D, N, generator=gen, device="cuda") if dh else None
+            want = ssm_scan_backward_reference(*args, dy, dhf)
+            want_states = ssm_scan_chunk_states(args[0], args[1], args[3], args[4], args[5],
+                                                ops.CHUNK)
+
+            def held(tag, got, states):
+                ck.compare("ssm_scan", f"chunk states {tag}", states, want_states, SCAN_H_TOL)
+                for name, g, w in zip(SCAN_GRAD_NAMES, got, want):
+                    if g.dtype != w.dtype:
+                        FAILURES.append(f"ssm_scan_backward {tag}: {name} {g.dtype} != {w.dtype}")
+                    ck.compare("ssm_scan_backward", f"{name} {tag}", g, w, scan_grad_tol(g, w))
+
+            # the wrapper under grad: its Function, one launch each way
+            leaves = [a.detach().clone().requires_grad_() if a is not None else None
+                      for a in args]
+            before = (ops.ssm_scan.launches, ops.ssm_scan_backward.launches)
+            y, hf = ops.ssm_scan(*leaves)
+            torch.autograd.backward([y, hf] if dh else [y], [dy, dhf] if dh else [dy])
+            torch.cuda.synchronize()
+            counts = (ops.ssm_scan.launches - before[0], ops.ssm_scan_backward.launches - before[1])
+            if counts != (1, 1):
+                FAILURES.append(f"ssm_scan under grad {what}: launches {counts}, not (1, 1)")
+            for name, leaf, w in zip(SCAN_GRAD_NAMES, leaves, want):
+                if leaf is not None:  # no h0: dh0 is held below, from the kernel's entry
+                    ck.compare("ssm_scan_backward", f"{name} {what} (through the wrapper)",
+                               leaf.grad, w, scan_grad_tol(leaf.grad, w))
+            for group in ops.GROUPS:
+                for reduce in ops.REDUCTIONS:
+                    p = ops.scan_plan(B, T, D, N, args[3].element_size(), n_sm, group=group,
+                                      reduce=reduce)
+                    _, _, states = ops._launch(*args, p, states=True)
+                    g = ops._launch_backward(*args[:5], dy, dhf, states, group)
+                    held(f"G {group} {reduce} {shape}", g, states)
+            del want, want_states
+        ck.run("ssm_scan_backward", what, case)
+    torch.cuda.synchronize()
+
+
+def scan_bwd_bound(B, T, D, N, elt: int, dh: bool) -> tuple[float, str, dict]:
+    """max(bytes / HBM rate, exps / MUFU rate, flops / fp32 peak) for one
+    backward: dt, u and dy read and ddt and du written at their dtype (5 per
+    (t, d)), B and C read and dB and dC written (4 per (t, n)), the saved
+    states read (one (D, N) fp32 state per 16 steps), A read and dA written,
+    dh_final read when given and dh0 written; one exponential per (t, d, n)
+    (the decays kept for the walk back) and 22 fp32 operations per (t, d, n)
+    (the chunk's recompute: dt A, (dt u) B and its multiply-add, 4; the walk
+    back: dh from C dy, a h, A a h + u B, the ddt, du and dA sums, the dB and
+    dC terms and the decay of dh, 18)."""
+    nbytes = (5 * B * T * D * elt + 4 * B * T * N * elt + B * -(-T // 16) * D * N * 4
+              + 2 * D * N * 4 + (1 + dh) * B * D * N * 4)
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_exp = B * T * D * N / MUFU_OPS * 1e3
+    t_flop = 22 * B * T * D * N / FP32_OPS * 1e3
+    b_ms, b_by = max((t_bytes, "bytes"), (t_exp, "operations"), (t_flop, "operations"))
+    return b_ms, b_by, dict(bytes_ms=t_bytes, exp_ms=t_exp, flop_ms=t_flop, bytes=nbytes)
+
+
+def phase_time_ssm_grad(torch) -> dict:
+    """The backward at jamba's training shape (1, 4096, 8192, 16) bf16: device
+    time per call by CUDA-graph replay beside its bound, the plain reverse
+    loop's (one call in a graph) and its eager time; no single PyTorch call
+    computes it. Beside it the forward kernel at the same shape with and
+    without the chunk states, and the backward with each lane group."""
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_backward_reference
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(56)
+    shape = (1, HYBRID_TRAIN_S, 8192, 16)
+    B, T, D, N = shape
+    args = scan_inputs(torch, gen, *shape, torch.bfloat16, fused=True)
+    dy = torch.randn(B, T, D, generator=gen, device="cuda").bfloat16()
+    plan = ops._plan(args[3], N)
+    _, _, states = ops._launch(*args, plan, states=True)
+    b_ms, b_by, parts = scan_bwd_bound(*shape, 2, False)
+    r = dict(shape=f"dt, u, dy ({B},{T},{D}) bf16, N {N} (jamba training, B/C strided)",
+             ms=device_ms(torch, lambda: ops.ssm_scan_backward(*args, dy, None, states)),
+             plain_ms=device_ms(torch, lambda: ssm_scan_backward_reference(*args, dy, None),
+                                calls=1, replays=1),
+             library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_parts=parts,
+             eager_ms=eager_ms(torch, lambda: ops.ssm_scan_backward(*args, dy, None, states),
+                               iters=10, warmup=2),
+             forward_ms=device_ms(torch, lambda: ops._launch(*args, plan)),
+             forward_states_ms=device_ms(torch, lambda: ops._launch(*args, plan, states=True)),
+             forward_bound_ms=scan_bound(B, T, D, N, 2, False)[0],
+             plan_group=max(plan.group, ops.BWD_MIN_GROUP))
+    r["groups_ms"] = {g: device_ms(torch, lambda g=g: ops._launch_backward(*args[:5], dy, None,
+                                                                           states, g))
+                      for g in ops.GROUPS}
+    log(f"[time] {'ssm_scan_bwd':16s} {r['shape']:44s} kernel {r['ms']:.4f} ms  plain "
+        f"{r['plain_ms']:.4f} ms  library none (no single call)  bound {b_ms:.5f} ms ({b_by}: "
+        f"bytes {parts['bytes_ms']:.5f} ({parts['bytes'] / 1e9:.3f} GB), exps "
+        f"{parts['exp_ms']:.5f}, fp32 {parts['flop_ms']:.5f});  eager from Python: kernel "
+        f"{r['eager_ms']:.4f} ms; by lanes per channel {r['groups_ms']} (the wrapper's G "
+        f"{r['plan_group']})")
+    log(f"[time] {'ssm_scan':16s} forward at {shape} bf16: {r['forward_ms']:.4f} ms, with the "
+        f"chunk states {r['forward_states_ms']:.4f} ms (bound {r['forward_bound_ms']:.5f} ms)")
+    return r
+
+
+# kernel-path vs plain-path gradients of one full-width mamba mixer: the
+# gate of the train phase (FP32_ERROR_RATIO times the plain bf16 path's rel-L2)
+def scan_faults(torch) -> dict:
+    """The planted backward faults the mixer's gradient gate must refuse, each
+    a swap around the kernels' launches: the backward restarted from the
+    chunk state one chunk off (each chunk from the one before's), dy read one
+    step late in the walk back, and dB and dC exchanged."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    forward, backward = ops._kernel_forward, ops._launch_backward
+
+    def chunk_off(*a):
+        y, h, states = forward(*a)
+        return y, h, torch.roll(states, 1, dims=1).contiguous()
+
+    def dy_late(dt, Bc, Cc, u, A, dy, *rest):
+        return backward(dt, Bc, Cc, u, A, torch.roll(dy, 1, dims=1).contiguous(), *rest)
+
+    def swapped_bc(*a):
+        ddt, dB, dC, du, dA, dh0 = backward(*a)
+        return ddt, dC, dB, du, dA, dh0
+
+    return {"backward restarted one chunk off": {"kernels.ssm_scan.ops:_kernel_forward": chunk_off},
+            "dy one step late in the walk back": {"kernels.ssm_scan.ops:_launch_backward": dy_late},
+            "dB and dC exchanged": {"kernels.ssm_scan.ops:_launch_backward": swapped_bc}}
+
+
+def mixer_grad_gate(torch) -> dict:
+    """One mamba mixer at jamba's widths (d 4096, d_inner 8192, N 16, dt rank
+    256) at 1 x 4096, gradients of every parameter and of x for a random
+    cotangent: the kernel path in bf16 against the plain path in fp32 on the
+    same weights, within FP32_ERROR_RATIO times the plain bf16 path's rel-L2
+    (the plain scan under autograd: the port's CPU path); a control (the
+    kernels with 16 lanes a channel, both ways) must pass and the planted
+    faults must fail."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_reference
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.params import ParamTree
+
+    cfg = get_config("jamba_v0_1_52b")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    p16 = ParamTree(SSM.mamba_template(cfg), path="mixer", seed=0, dtype=torch.bfloat16,
+                    device=torch.device("cuda"))
+    with torch.no_grad():  # A_log and dt_bias as trained mixers hold them (not all ones / zeros)
+        p16.A_log.copy_(torch.randn(p16.A_log.shape, generator=gen, device="cuda") * 0.5)
+        p16.dt_bias.copy_(torch.randn(p16.dt_bias.shape, generator=gen, device="cuda") - 2.0)
+    x = torch.randn(1, HYBRID_TRAIN_S, cfg.d_model, generator=gen, device="cuda").bfloat16()
+    cot = torch.randn(1, HYBRID_TRAIN_S, cfg.d_model, generator=gen, device="cuda").bfloat16()
+
+    def grads(dtype, plain=False, swaps=None):
+        p = copy.deepcopy(p16).to(dtype).requires_grad_(True)
+        xi = x.to(dtype, copy=True).requires_grad_()
+        sites = {"models.ssm:ssm_scan": ssm_scan_reference} if plain else {}
+        with swapped({**sites, **(swaps or {})}):
+            SSM.mamba_forward(p, xi, cfg).backward(cot.to(dtype))
+        out = {"x": xi.grad.float(), **{k: v.grad.float() for k, v in p.named_parameters()}}
+        del p, xi
+        return out
+
+    ref = grads(torch.float32, plain=True)
+    counts0 = (ops.ssm_scan.launches, ops.ssm_scan_backward.launches)
+    variants = {"plain": dict(dtype=torch.bfloat16, plain=True),
+                "kernel": dict(dtype=torch.bfloat16),
+                "control": dict(dtype=torch.bfloat16, swaps={
+                    "kernels.ssm_scan.ops:_plan": lambda u, n: ops.scan_plan(
+                        *u.shape, n, u.element_size(), ops._sm_count(u.device.index), group=16,
+                        reduce="shuffle")})}
+    variants.update({f"fault: {k}": dict(dtype=torch.bfloat16, swaps=v)
+                     for k, v in scan_faults(torch).items()})
+    errs = {}
+    for name, kw in variants.items():
+        g = grads(**kw)
+        errs[name] = {n: float((g[n] - ref[n]).norm() / ref[n].norm().clamp_min(1e-30))
+                      for n in ref}
+        if name == "kernel":
+            norms = {n: float(g[n].norm()) for n in g}
+        del g
+    counts = (ops.ssm_scan.launches - counts0[0], ops.ssm_scan_backward.launches - counts0[1])
+    plain = errs["plain"]
+    out = {"plain_rel_l2": plain, "seconds": time.perf_counter() - t0, "readings": {},
+           "kernel_path_launches": counts}
+    log(f"[train_hybrid] mixer gradients at full width (d 4096, d_inner 8192, N 16, dt rank 256), "
+        f"1 x {HYBRID_TRAIN_S}: the plain bf16 path's rel_l2 to fp32 median "
+        f"{float(np.median(list(plain.values()))):.3e}, max {max(plain.values()):.3e} over "
+        f"{len(plain)} gradients; the kernel paths launched {counts[0]} forwards and {counts[1]} "
+        "backwards (one each per kernel-path variant)")
+    if counts != (len(variants) - 1, len(variants) - 1):
+        FAILURES.append(f"train_hybrid mixer gate: kernel launches {counts}, not one each per "
+                        f"kernel-path variant ({len(variants) - 1})")
+    for name in variants:
+        if name == "plain":
+            continue
+        ratios = {n: errs[name][n] / max(plain[n], 1e-30) for n in plain}
+        worst = max(ratios, key=ratios.get)
+        fault = name.startswith("fault")
+        ok = (ratios[worst] > FP32_ERROR_RATIO) if fault else (ratios[worst] <= FP32_ERROR_RATIO)
+        verdict = ("caught" if ok else "MISSED") if fault else ("ok" if ok else "FAIL")
+        log(f"[train_hybrid] mixer gradients, {name}: worst ratio {ratios[worst]:.3f} ({worst}: "
+            f"rel_l2 {errs[name][worst]:.3e} against the plain bf16 path's {plain[worst]:.3e}), "
+            f"median {float(np.median(list(ratios.values()))):.3f} (limit {FP32_ERROR_RATIO:g}) "
+            f"{verdict}")
+        out["readings"][name] = dict(worst_ratio=ratios[worst], worst=worst, rel_l2=errs[name])
+        if not ok:
+            FAILURES.append(f"train_hybrid mixer gradient gate, {name}: {ratios[worst]:.3e} "
+                            f"against {FP32_ERROR_RATIO:g}")
+    ok = all(v > 0 and math.isfinite(v) for v in norms.values())
+    if not ok:
+        FAILURES.append(f"train_hybrid: kernel-path mixer gradients zero or not finite: {norms}")
+    out["kernel_grad_norms"] = norms
+    return out
+
+
+def hybrid_step_launches(cfg, steps: int, remat: bool) -> tuple[dict[str, int], str]:
+    """Every kernel's launches for ``steps`` loss + backward passes of a
+    hybrid decoder of L layers (M mamba, L - M attention): per pass rmsnorm
+    1, rmsnorm_add 2L, flash L - M, ssm_scan M and ssm_scan_backward M; under
+    remat each layer's forward once more (rmsnorm 1, rmsnorm_add 2L - 1,
+    flash L - M, ssm_scan M: the final norm and head are not recomputed)."""
+    L = cfg.num_layers
+    M = sum(s.mixer == "mamba" for s in cfg.superblock) * cfg.num_superblocks
+    k = 2 if remat else 1
+    counts = {"rmsnorm": k * steps, "rmsnorm_add": (2 * L + (2 * L - 1) * remat) * steps,
+              "flash_attention": k * (L - M) * steps, "decode_attention": 0, "lindley_scan": 0,
+              "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": k * M * steps,
+              "ssm_scan_backward": M * steps}
+    formula = (f"per step {k} rmsnorm, {2 * L + (2 * L - 1) * remat} rmsnorm_add, "
+               f"{k * (L - M)} flash, {k * M} ssm_scan, {M} ssm_scan_backward (L = {L}, M = {M} "
+               f"mamba layers{'; each layer again under remat' if remat else ''})")
+    return counts, formula
+
+
+def phase_train_hybrid(torch) -> dict:
+    """jamba's training path on the card through the selective-scan backward:
+    the backward kernel against its plain version, its time and bound; the
+    gradient gate of one full-width mixer with its planted faults; one
+    full-width superblock's ``loss_fn`` and backward at 1 x 4096 (launches
+    exact, everything finite, peak under 80 GB); and ``launch/train.py
+    --arch jamba_v0_1_52b --tiny`` for 20 steps in bf16."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM, loss_fn
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    ck = Checker(torch)
+    phase_check_ssm_grad(torch, ck)
+    out["max_err"] = ck.max_err
+    torch.cuda.empty_cache()
+    out["timing"] = phase_time_ssm_grad(torch)
+    torch.cuda.empty_cache()
+    out["mixer_gate"] = mixer_grad_gate(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one full-width superblock (8 layers: 7 mamba, 4 MoE, 1 attention): loss and backward
+    cfg = dataclasses.replace(get_config("jamba_v0_1_52b"), num_superblocks=1)
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=0)
+    model.requires_grad_(True)
+    batch = make_batch(cfg, 1, HYBRID_TRAIN_S, step=0, seed=0, device="cuda")
+    loss, _ = loss_fn(model, batch)  # a first step warms cuBLAS and the allocator
+    loss.backward()
+    del loss
+    model.zero_grad(set_to_none=True)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    loss, _ = loss_fn(model, batch)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    expect, formula = hybrid_step_launches(cfg, 1, remat=cfg.remat == "full")
+    check_launches("train_hybrid", launches, expect, f"one loss + backward: {formula}")
+    params = dict(model.named_parameters())
+    loss = float(loss.detach())
+    finite = math.isfinite(loss) and all(bool(torch.isfinite(p.grad).all())
+                                         for p in params.values())
+    nonzero = {n: float(params[n].grad.float().norm()) for n in (
+        "layers.0.mamba.in_proj", "layers.0.mamba.A_log", "layers.0.mamba.x_proj",
+        "layers.7.mamba.dt_proj", "layers.4.attn.wq", "layers.1.moe.wi", "embed.embedding")}
+    n_params = model.num_params()
+    out["superblock"] = dict(params=n_params, loss=loss, forward_ms=fwd_ms,
+                             backward_ms=bwd_ms, peak_bytes=peak, peak_gib=peak / 2**30,
+                             launches=launches, launch_formula=formula, grad_norms=nonzero,
+                             build_and_warm_s=build_s)
+    ok = finite and all(v > 0 for v in nonzero.values()) and peak < 80e9
+    log(f"[train_hybrid] {cfg.name}, one superblock at full width ({n_params:,} params, bf16, "
+        f"remat {cfg.remat}): loss {loss:.5f}, every gradient finite: {finite}; forward "
+        f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms (CUDA events); peak memory "
+        f"{peak / 2**30:.2f} GiB (limit 80 GB); gradient norms {nonzero}: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"train_hybrid superblock: finite {finite}, norms {nonzero}, peak "
+                        f"{peak / 2**30:.2f} GiB")
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(model, batch)
+        loss.backward()
+
+    prof = profile_calls(torch, f"{cfg.name} one superblock, loss + backward, 1 x "
+                         f"{HYBRID_TRAIN_S}", step, n=2)
+    if prof:
+        bwd_kernel = sum(k["ms"] for k in prof["top"] if "ssm_scan_bwd" in k["name"])
+        out["superblock"].update(profile=prof, scan_backward_device_ms=bwd_kernel,
+                                 scan_backward_share=bwd_kernel / bwd_ms)
+        log(f"[train_hybrid] the scan's backward kernels: {bwd_kernel:.3f} ms of device time a "
+            f"step ({bwd_kernel / bwd_ms:.1%} of the backward's {bwd_ms:.3f} ms)")
+    del model, batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # launch/train.py's own path: the reduced config in bf16
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, model, _ = train.run(HYBRID_TINY_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    expect, formula = hybrid_step_launches(model.cfg, HYBRID_TINY_STEPS,
+                                           remat=model.cfg.remat == "full")
+    check_launches("train_hybrid", launches, expect, f"{HYBRID_TINY_STEPS} steps: {formula}")
+    losses = [r["loss"] for r in trainer.metrics_log]
+    last5 = float(np.mean(losses[-5:]))
+    finite = len(losses) == HYBRID_TINY_STEPS and all(math.isfinite(v) for v in losses)
+    falls = last5 < losses[0]
+    out["tiny"] = dict(argv=HYBRID_TINY_ARGV, losses=losses, launches=launches,
+                       launch_formula=formula, wall_s=wall, dtype=model.cfg.dtype)
+    log(f"[train_hybrid] launch.train {' '.join(HYBRID_TINY_ARGV)}: {model.cfg.name} in "
+        f"{model.cfg.dtype}, {HYBRID_TINY_STEPS} steps in {wall:.2f} s; losses finite: {finite}; "
+        f"first {losses[0]:.4f}, mean of the last five {last5:.4f}: "
+        f"{'ok' if finite and falls else 'FAIL'}")
+    if not (finite and falls):
+        FAILURES.append(f"train_hybrid tiny: losses {losses}")
+    del trainer, model
+    out["launches"] = out["superblock"]["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train_hybrid] phase wall time {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+
 def tensor_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -4780,7 +5224,7 @@ def main() -> int:
     )
     from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_reference, rmsnorm_reference
-    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan, ssm_scan_backward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_reference
 
     ops = (rmsnorm, rmsnorm_add, flash_attention, decode_attention)
@@ -4791,7 +5235,7 @@ def main() -> int:
                            "ssm_scan"), refs + (ssm_scan_reference,)))
     lindley = (lindley_scan, lindley_kserver)
     lindley_refs = (lindley_scan_reference, lindley_kserver_reference)
-    COUNTED.extend(ops + lindley + (decision_scan, ssm_scan))
+    COUNTED.extend(ops + lindley + (decision_scan, ssm_scan, ssm_scan_backward))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     card = smi[0].strip() if smi else "nvidia-smi gave nothing"
@@ -4875,6 +5319,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = phase_train(torch, model_refs)
     end_phase("train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_trained = phase_train_hybrid(torch)
+    end_phase("train_hybrid")
     dried = phase_dryrun(dry_started, trained)
     end_phase("dryrun")
 
@@ -4892,6 +5340,9 @@ def main() -> int:
                           "src/repro/kernels/decision_scan/decision_scan.py:87"),
         "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan/ssm_scan.py:64"),
+        # no TPU kernel: the reference differentiates its lax.scan there
+        "ssm_scan_backward": ("src/repro_torch/csrc/ssm_scan.cu",
+                              "src/repro/models/ssm.py:89-110"),
     }
     kernels = []
     for name, path_launches in (("rmsnorm", serve), ("rmsnorm_add", serve),
@@ -4930,6 +5381,7 @@ def main() -> int:
             row["obs_launches"] = obs["launches"][name]
         row["reproduce_launches"] = reproduced["launches"][name]  # the reproduce phase
         row["train_launches"] = trained["launches"][name]  # 30 steps of launch/train.py
+        row["train_hybrid_launches"] = hybrid_trained["launches"][name]  # jamba's superblock step
         if name in ("lindley_scan", "decision_scan"):  # launched on the new paths too
             row.update(tails_launches=tails["launches"][name],
                        meanfield_plan_launches=meanfield_plan["launches"][name])
@@ -4947,13 +5399,25 @@ def main() -> int:
             p = timing[name][1]
             row.update(prefill_shape=p["shape"], prefill_ms=p["ms"], prefill_plain_ms=p["plain_ms"],
                        prefill_bound_ms=p["bound_ms"], prefill_bound_by=p["bound_by"],
-                       prefill_eager_ms=p["eager_ms"])
+                       prefill_eager_ms=p["eager_ms"],
+                       forward_states_ms=hybrid_trained["timing"]["forward_states_ms"])
         kernels.append(row)
+    t = hybrid_trained["timing"]  # the backward: launched on jamba's training path only
+    kernels.append({
+        "name": "ssm_scan_backward", "route": "cuda", "source": where["ssm_scan_backward"][0],
+        "replaces": where["ssm_scan_backward"][1],
+        "launches": hybrid_trained["launches"]["ssm_scan_backward"],
+        "max_abs_err": hybrid_trained["max_err"]["ssm_scan_backward"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "shape": t["shape"], "eager_ms": t["eager_ms"],
+        "train_hybrid_launches": hybrid_trained["launches"]["ssm_scan_backward"],
+        "tiny_train_launches": hybrid_trained["tiny"]["launches"]["ssm_scan_backward"]})
     RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid,
                   serve_local=serve_local, serve_xlstm=serve_xlstm, encdec=encdec, fleet=fleet,
                   cluster=cluster, cluster_ranks=cluster_ranks, tails=tails,
                   meanfield_plan=meanfield_plan, measure=measure, obs=obs, paper=paper,
-                  reproduce=reproduced, train=trained, dryrun=dried)
+                  reproduce=reproduced, train=trained, train_hybrid=hybrid_trained,
+                  dryrun=dried)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(RESULT, indent=1, default=str))

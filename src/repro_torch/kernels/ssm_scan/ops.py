@@ -7,10 +7,18 @@ read through their strides (the model passes column slices of the ``x_proj``
 output, whose rows are dtr + 2N wide) with unit stride on N; A (D, N) fp32;
 h0 (B, D, N) fp32 or None for zeros. N is at most ``N_MAX``. Anything else
 raises. ``ssm_scan.launches`` counts the kernel's launches (CPU calls never
-touch it); the kernel has no backward, so on the card an input that
-requires grad under grad mode raises (``_build.refuse_grad``). ``scan_plan``
-sizes the kernel's CTAs: lanes per channel, channels per CTA, steps per
-staged tile and how y's partial sums are reduced across a channel's lanes.
+touch it). ``scan_plan`` sizes the kernel's CTAs: lanes per channel,
+channels per CTA, steps per staged tile and how y's partial sums are
+reduced across a channel's lanes.
+
+On the card, when grad mode is on and an input requires grad, the call goes
+through ``_Scan``: the forward kernel also saves the state before every
+chunk of ``CHUNK`` steps, and the backward is ``ssm_scan_backward``, the
+hand-written backward kernel of the same file (its own ``.launches``; it
+spreads a channel over the forward plan's lanes, at least
+``BWD_MIN_GROUP``). On the CPU autograd differentiates the plain loop;
+``ssm_scan_backward`` there is the plain reverse loop
+(``ssm_scan_backward_reference``).
 """
 
 from __future__ import annotations
@@ -22,10 +30,11 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .ref import ssm_scan_reference
+from .ref import ssm_scan_backward_reference, ssm_scan_reference
 
-__all__ = ["ssm_scan", "scan_plan", "smem_bytes", "SsmPlan", "N_MAX", "GROUPS", "REDUCTIONS",
-           "THREADS", "TILE_T", "FILL_THREADS", "SMEM_LIMIT"]
+__all__ = ["ssm_scan", "ssm_scan_backward", "scan_plan", "smem_bytes", "bwd_smem_bytes",
+           "SsmPlan", "N_MAX", "GROUPS", "REDUCTIONS", "THREADS", "TILE_T", "FILL_THREADS",
+           "SMEM_LIMIT", "CHUNK", "BWD_MIN_GROUP"]
 
 N_MAX = 16  # a channel's states, padded with zeros to N_MAX (csrc/ssm_scan.cu: STATES)
 GROUPS = (4, 8, 16)  # lanes per channel the kernel is built for; each holds N_MAX // G states
@@ -37,9 +46,16 @@ THREADS = 128  # per CTA (csrc/ssm_scan.cu: MAX_THREADS), so THREADS // G channe
 TILE_T = 64  # steps staged per tile, at most (csrc/ssm_scan.cu: its entry's check)
 FILL_THREADS = 128  # threads per SM the plan asks of the grid before it spreads a channel wider
 SMEM_LIMIT = 232_448  # shared memory one CTA may take on an H100
+CHUNK = 16  # steps between the states the forward saves for the backward (csrc: CHUNK)
+# the backward's fewest lanes per channel: at 4 a CTA holds 32 channels and
+# bwd_smem_bytes(32) = 78 KB (two CTAs an SM), at 8 half that (five); 1.957
+# against 2.236 ms at jamba's (1, 4096, 8192, 16) bf16 (chip_smoke.py on an
+# H100 80GB HBM3 at 700 W)
+BWD_MIN_GROUP = 8
 _DTYPES = (torch.bfloat16, torch.float32)
 _PTR, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGTYPES = ((_INT,) + (_PTR,) * 8 + (_INT,) * 4 + (_LL,) * 4 + (_INT,) * 6 + (_PTR,))
+_ARGTYPES = ((_INT,) + (_PTR,) * 8 + (_INT,) * 4 + (_LL,) * 4 + (_INT,) * 6 + (_PTR,) * 2)
+_BWD_ARGTYPES = ((_INT,) + (_PTR,) * 17 + (_INT,) * 4 + (_LL,) * 4 + (_INT,) * 3 + (_PTR,))
 
 
 class SsmPlan(NamedTuple):
@@ -63,6 +79,13 @@ def smem_bytes(tile_t: int, channels: int, n: int, elt: int) -> int:
     raw = 2 * (2 * _r16(tile_t * channels * elt) + 2 * _r16(tile_t * n * elt))
     fp32 = _r16(tile_t * channels * 8) + tile_t * N_MAX * 8
     return raw + fp32 + _r16(tile_t * channels * 4)
+
+
+def bwd_smem_bytes(channels: int) -> int:
+    """The backward's shared memory (csrc/ssm_scan.cu: ``bwd_layout``): per
+    step of a chunk, h_{t-1} and the decay per channel and state (N_MAX), (dt,
+    dt u, u, dy) and (ddt, du) per channel, (B, C) per state."""
+    return CHUNK * (channels * (2 * N_MAX * 4 + 16 + 8) + N_MAX * 8)
 
 
 @functools.lru_cache(maxsize=4096)  # a plan per shape: the wrapper asks for one on every call
@@ -150,21 +173,142 @@ def _async_rows(dt, Bc, Cc, u, plan: SsmPlan) -> bool:
                 or any(v * elt % 16 for v in sizes))
 
 
-def _launch(dt, Bc, Cc, u, A, h0, plan: SsmPlan):
+def _launch(dt, Bc, Cc, u, A, h0, plan: SsmPlan, *, states: bool = False):
     """One launch of the kernel with ``plan`` (the wrapper's, or a neighbour
-    of it to time)."""
+    of it to time). With ``states`` it also returns the state before every
+    chunk of ``CHUNK`` steps, (B, ceil(T / CHUNK), D, N) fp32."""
     B, T, D = u.shape
     N = A.shape[1]
     y = torch.empty_like(u)
     h_final = torch.empty((B, D, N), dtype=torch.float32, device=u.device)
+    saved = (torch.empty((B, -(-T // CHUNK), D, N), dtype=torch.float32, device=u.device)
+             if states else None)
     fn = _build.function("ssm_scan", "ssm_scan_launch", _ARGTYPES)
     code = fn(_build.DTYPE_CODES[u.dtype], dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
               u.data_ptr(), A.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
               h_final.data_ptr(), B, T, D, N, Bc.stride(0), Bc.stride(1), Cc.stride(0),
               Cc.stride(1), plan.group, plan.channels, plan.tile_t, REDUCTIONS.index(plan.reduce),
-              int(_async_rows(dt, Bc, Cc, u, plan)), plan.smem, _build.stream_handle())
+              int(_async_rows(dt, Bc, Cc, u, plan)), plan.smem,
+              None if saved is None else saved.data_ptr(), _build.stream_handle())
     _build.check(code, "ssm_scan")
-    return y, h_final
+    return (y, h_final, saved) if states else (y, h_final)
+
+
+def _plan(u: torch.Tensor, N: int) -> SsmPlan:
+    B, T, D = u.shape
+    return scan_plan(B, T, D, N, u.element_size(), _sm_count(u.device.index))
+
+
+def _kernel_forward(dt, Bc, Cc, u, A, h0):
+    """The forward kernel with the wrapper's plan, saving the chunk states."""
+    return _launch(dt, Bc, Cc, u, A, h0, _plan(u, A.shape[1]), states=True)
+
+
+def _check_backward(dt, Bc, Cc, u, A, h0, dy, dh_final, states) -> None:
+    """The backward's inputs beyond the forward's: dy as y (u's dtype and
+    shape), dh_final (B, D, N) fp32 or None, the chunk states (B, ceil(T /
+    CHUNK), D, N) fp32 or None (the kernel needs them; the plain loop
+    recomputes every state); on the card all of them contiguous on the
+    inputs' card."""
+    B, T, D = u.shape
+    N = A.shape[1]
+    if dy.dtype != u.dtype or dy.shape != u.shape:
+        raise ValueError(f"ssm_scan_backward: dy must be y's {tuple(u.shape)} {u.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    for name, t, shape in (("dh_final", dh_final, (B, D, N)),
+                           ("states", states, (B, -(-T // CHUNK), D, N))):
+        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != shape):
+            raise ValueError(f"ssm_scan_backward: {name} must be {shape} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if u.device.type != "cuda":
+        return
+    if states is None:
+        raise ValueError("ssm_scan_backward on the card restarts from the forward's chunk "
+                         "states; got none")
+    device = torch.cuda.current_device()
+    for name, t in (("dy", dy), ("dh_final", dh_final), ("states", states)):
+        if t is None:
+            continue
+        if t.device.type != "cuda" or t.device.index != device:
+            raise ValueError(f"{name} is on {t.device}, but the kernel runs on cuda:{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssm_scan_backward takes a contiguous {name}, got strides "
+                             f"{t.stride()}")
+
+
+def _launch_backward(dt, Bc, Cc, u, A, dy, dh_final, states, group: int):
+    """One call of the backward's C entry (its walk and its sums over CTAs)
+    with ``group`` lanes per channel (the wrapper's, or another to test)."""
+    B, T, D = u.shape
+    N = A.shape[1]
+    channels = THREADS // group
+    dev = u.device
+    ddt, du = torch.empty_like(dt), torch.empty_like(u)
+    dBc = torch.empty((B, T, N), dtype=Bc.dtype, device=dev)
+    dCc = torch.empty((B, T, N), dtype=Cc.dtype, device=dev)
+    dA = torch.empty((D, N), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((B, D, N), dtype=torch.float32, device=dev)
+    part_b, part_c = (torch.empty((-(-D // channels), B, T, N), dtype=torch.float32, device=dev)
+                      for _ in range(2))
+    part_a = torch.empty((B, D, N), dtype=torch.float32, device=dev)
+    fn = _build.function("ssm_scan", "ssm_scan_backward_launch", _BWD_ARGTYPES)
+    code = fn(_build.DTYPE_CODES[u.dtype], dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+              u.data_ptr(), dy.data_ptr(), A.data_ptr(), states.data_ptr(),
+              None if dh_final is None else dh_final.data_ptr(), ddt.data_ptr(), du.data_ptr(),
+              dBc.data_ptr(), dCc.data_ptr(), dA.data_ptr(), dh0.data_ptr(), part_b.data_ptr(),
+              part_c.data_ptr(), part_a.data_ptr(), B, T, D, N, Bc.stride(0), Bc.stride(1),
+              Cc.stride(0), Cc.stride(1), group, channels, bwd_smem_bytes(channels),
+              _build.stream_handle())
+    _build.check(code, "ssm_scan")
+    return ddt, dBc, dCc, du, dA, dh0
+
+
+def ssm_scan_backward(dt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, u: torch.Tensor,
+                      A: torch.Tensor, h0: torch.Tensor | None, dy: torch.Tensor,
+                      dh_final: torch.Tensor | None = None, states: torch.Tensor | None = None):
+    """The scan's gradients (ddt, dBc, dCc, du, dA, dh0) for dy (y's gradient)
+    and dh_final (h_final's, None for zeros): ddt, du and dBc, dCc in their
+    inputs' dtype, dA and dh0 fp32. On the card from the forward's chunk
+    states (``_launch(..., states=True)``; h0 is then in state 0), on the CPU
+    by the plain reverse loop. Wrong dtypes, shapes or strides raise."""
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssm_scan_backward runs on the CPU or a CUDA card, not {u.device}")
+    if u.device.type == "cuda":
+        _check(dt, Bc, Cc, u, A, h0)
+    _check_backward(dt, Bc, Cc, u, A, h0, dy, dh_final, states)
+    if u.device.type == "cpu":
+        return ssm_scan_backward_reference(dt, Bc, Cc, u, A, h0, dy, dh_final)
+    group = max(_plan(u, A.shape[1]).group, BWD_MIN_GROUP)
+    out = _launch_backward(dt, Bc, Cc, u, A, dy, dh_final, states, group)
+    ssm_scan_backward.launches += 1
+    return out
+
+
+ssm_scan_backward.launches = 0
+
+
+class _Scan(torch.autograd.Function):
+    """(y, h_final) = forward(dt, Bc, Cc, u, A, h0) (the kernel on the card;
+    the plain version in the CPU tests), which also returns the chunk states;
+    differentiated by ``ssm_scan_backward``. Inputs that do not require grad
+    get None."""
+
+    @staticmethod
+    def forward(ctx, dt, Bc, Cc, u, A, h0, forward):
+        y, h_final, states = forward(dt, Bc, Cc, u, A, h0)
+        ctx.save_for_backward(dt, Bc, Cc, u, A, h0, states)
+        ctx.set_materialize_grads(False)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        dt, Bc, Cc, u, A, h0, states = ctx.saved_tensors
+        dy = torch.zeros_like(u) if dy is None else dy.contiguous()
+        if dh_final is not None:
+            dh_final = dh_final.contiguous()
+        grads = ssm_scan_backward(dt, Bc, Cc, u, A, h0, dy, dh_final, states)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad)) + (None,)
 
 
 def ssm_scan(dt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, u: torch.Tensor,
@@ -176,12 +320,11 @@ def ssm_scan(dt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, u: torch.Tens
         return ssm_scan_reference(dt, Bc, Cc, u, A, h0)
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on the CPU or a CUDA card, not {u.device}")
-    _build.refuse_grad("ssm_scan", "ROADMAP B-perf kernel item 5 (a selective-scan backward)",
-                       dt, Bc, Cc, u, A, h0)
     _check(dt, Bc, Cc, u, A, h0)
-    B, T, D = u.shape
-    plan = scan_plan(B, T, D, A.shape[1], u.element_size(), _sm_count(u.device.index))
-    out = _launch(dt, Bc, Cc, u, A, h0, plan)
+    if _build.requires_grad(dt, Bc, Cc, u, A, h0):
+        out = _Scan.apply(dt, Bc, Cc, u, A, h0, _kernel_forward)
+    else:
+        out = _launch(dt, Bc, Cc, u, A, h0, _plan(u, A.shape[1]))
     ssm_scan.launches += 1
     return out
 

@@ -78,7 +78,11 @@ from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_reference, rmsnorm_reference
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_reference
+from repro_torch.kernels.ssm_scan.ref import (
+    ssm_scan_backward_reference,
+    ssm_scan_chunk_states,
+    ssm_scan_reference,
+)
 from repro_torch.launch.cluster_sim import default_cluster, default_meanfield
 from repro_torch.launch import euler_parity
 from repro_torch.launch.fleet_sweep import default_scenario
@@ -729,6 +733,77 @@ def test_ssm_scan_wrong_inputs_raise(gen):
         ssm_scan(dt, *(torch.cat([x, x], -1) for x in (Bc, Cc)), u, torch.cat([A, A], -1))
 
 
+# the backward's gradients against the plain reverse loop, relative to each
+# gradient's largest entry: fp32 outputs from fp32 sums over T, D or N in
+# another order, 1e-5 (tests/test_torch_kernel_grads.py); bf16 outputs (ddt,
+# du, dB, dC) rounded once by both, so one bf16 step (2^-7 of the entry) plus
+# that order term
+SCAN_GRAD = 1e-5
+GRAD_NAMES = ("ddt", "dBc", "dCc", "du", "dA", "dh0")
+
+
+def assert_scan_grads(got, want):
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        rtol = 2**-7 if g.dtype == torch.bfloat16 else 0.0
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        torch.testing.assert_close(g.float(), w.float(), atol=SCAN_GRAD * max(scale, 1e-30),
+                                   rtol=rtol, msg=name)
+
+
+# the backward's edges: T below a chunk, ragged against it, one step; N of
+# 1, 4, 7 and 16; D ragged in a CTA; strided B and C; with and without h0 and
+# dh_final
+SSM_GRAD_EDGES = [
+    (1, 241, 8192, 16, torch.bfloat16, False, False, True),  # jamba prefill's shape
+    (2, 37, 200, 16, torch.bfloat16, True, True, True),
+    (2, 33, 203, 7, torch.bfloat16, True, False, False),
+    (3, 130, 96, 1, torch.float32, False, True, False),
+    (2, 5, 128, 4, torch.float32, True, True, True),
+    (1, 1, 64, 16, torch.float32, False, False, False),
+]
+
+
+@pytest.mark.parametrize("B,T,D,N,dtype,h0,dh,fused", SSM_GRAD_EDGES)
+@pytest.mark.parametrize("group", scan_ops.GROUPS)
+@pytest.mark.parametrize("reduce", scan_ops.REDUCTIONS)
+def test_ssm_scan_backward_every_plan(gen, B, T, D, N, dtype, h0, dh, fused, group, reduce):
+    """The forward with chunk states under every plan neighbour, then the
+    backward kernel with that plan's lanes per channel, against the plain
+    chunk states and the plain reverse loop."""
+    args = scan_inputs(gen, B, T, D, N, dtype, h0, fused)
+    dy = randn(gen, B, T, D, dtype=dtype)
+    dhf = torch.randn(B, D, N, generator=gen, device="cuda") if dh else None
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = scan_ops.scan_plan(B, T, D, N, args[3].element_size(), n_sm, group=group,
+                              reduce=reduce)
+    _, _, states = scan_ops._launch(*args, plan, states=True)
+    got = scan_ops._launch_backward(*args[:5], dy, dhf, states, group)
+    torch.cuda.synchronize()
+    want = ssm_scan_chunk_states(args[0], args[1], args[3], args[4], args[5], scan_ops.CHUNK)
+    torch.testing.assert_close(states, want, **SCAN_H)
+    assert_scan_grads(got, ssm_scan_backward_reference(*args, dy, dhf))
+
+
+def test_ssm_scan_backward_wrong_inputs_raise(gen):
+    args = scan_inputs(gen, 2, 20, 64, 16, h0=True)
+    dy = randn(gen, 2, 20, 64)
+    states = scan_ops._launch(*args, scan_ops._plan(args[3], 16), states=True)[2]
+    before = scan_ops.ssm_scan_backward.launches
+    with pytest.raises(ValueError):
+        scan_ops.ssm_scan_backward(*args, dy, None, None)  # no chunk states
+    with pytest.raises(ValueError):
+        scan_ops.ssm_scan_backward(*args, dy, None, states[:, :1].contiguous())
+    with pytest.raises(ValueError):
+        scan_ops.ssm_scan_backward(*args, dy.float(), None, states)
+    with pytest.raises(ValueError):
+        scan_ops.ssm_scan_backward(*args, dy.transpose(1, 2).contiguous().transpose(1, 2),
+                                   None, states)  # not contiguous
+    with pytest.raises(ValueError):
+        scan_ops.ssm_scan_backward(*args, dy, None, states.cpu())
+    assert scan_ops.ssm_scan_backward.launches == before
+
+
 def test_mamba_layer_on_the_card_matches_its_plain_path(gen):
     """Reduced jamba's mixer in bf16 on the card, kernel vs plain scan: prefill
     then a decode step from the prefill's cache."""
@@ -1141,16 +1216,69 @@ def test_the_loss_gradient_reaches_layer_0_through_the_kernels(gen):
         assert float(g.float().norm()) > 0 and _rel_l2(g.cpu(), want) <= 5e-2, name
 
 
-def test_ssm_scan_and_decode_attention_refuse_grad(gen):
-    """Neither kernel has a backward: on the card an input that requires
-    grad under grad mode raises instead of returning a detached output;
-    without grad mode they launch as before."""
-    dt, Bc, Cc, u, A, h = scan_inputs(gen, 1, 8, 64, 16)
-    u.requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP B-perf"):
-        ssm_scan(dt, Bc, Cc, u, A, h)
+def test_ssm_scan_under_grad_matches_the_plain_backward(gen):
+    """Under grad mode the scan goes through its autograd Function: one
+    forward launch (saving the chunk states) and one backward launch, the
+    gradients of the inputs that require grad (h_final's included) those of
+    the plain reverse loop; without grad mode it launches as before."""
+    dt, Bc, Cc, u, A, h = scan_inputs(gen, 2, 40, 256, 16, h0=True)
+    leaves = [t.clone().requires_grad_() for t in (dt, u, A, h)]
+    dy, dhf = randn(gen, 2, 40, 256), torch.randn(2, 256, 16, generator=gen, device="cuda")
+    before = (ssm_scan.launches, scan_ops.ssm_scan_backward.launches)
+    y, hf = ssm_scan(leaves[0], Bc, Cc, leaves[1], leaves[2], leaves[3])
+    ((y.float() * dy.float()).sum() + (hf * dhf).sum()).backward()
+    torch.cuda.synchronize()
+    assert (ssm_scan.launches, scan_ops.ssm_scan_backward.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    want = ssm_scan_backward_reference(dt, Bc, Cc, u, A, h, dy, dhf)
+    assert_scan_grads([leaves[0].grad, want[1], want[2], leaves[1].grad, leaves[2].grad,
+                       leaves[3].grad], want)
     with torch.no_grad():
-        ssm_scan(dt, Bc, Cc, u, A, h)
+        ssm_scan(*leaves[:1], Bc, Cc, *leaves[1:])
+
+
+def test_mamba_layer_gradients_on_the_card_match_its_plain_path(gen):
+    """Reduced jamba's mixer in bf16 (N 16) under grad: every parameter's and
+    the input's gradient through the kernels against the plain scan under
+    autograd, by rel-L2 to the plain path in fp32; the kernel path within
+    1.5x the plain bf16 path's error (the gate of chip_smoke.py's
+    train_hybrid phase)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.params import ParamTree
+
+    cfg = dataclasses.replace(get_config("jamba_v0_1_52b").reduced(), dtype="bfloat16",
+                              mamba_d_state=16)
+    p32 = ParamTree(SSM.mamba_template(cfg), path="m", seed=0, dtype=torch.bfloat16,
+                    device=torch.device("cuda")).float()
+    x = randn(gen, 2, 70, cfg.d_model)
+
+    def grads(dtype, plain):
+        p = copy.deepcopy(p32).to(dtype).requires_grad_(True)
+        xi = x.to(dtype, copy=True).requires_grad_()
+        saved = SSM.ssm_scan
+        if plain:
+            SSM.ssm_scan = ssm_scan_reference
+        try:
+            SSM.mamba_forward(p, xi, cfg).float().square().mean().backward()
+        finally:
+            SSM.ssm_scan = saved
+        return {"x": xi.grad.float(), **{k: v.grad.float() for k, v in p.named_parameters()}}
+
+    ref, plain, kernel = grads(torch.float32, True), grads(torch.bfloat16, True), \
+        grads(torch.bfloat16, False)
+    for name in ref:
+        assert float(kernel[name].norm()) > 0, name
+        assert _rel_l2(kernel[name], ref[name]) <= 1.5 * _rel_l2(plain[name], ref[name]), name
+
+
+def test_decode_attention_refuses_grad(gen):
+    """decode attention has no backward: on the card an input that requires
+    grad under grad mode raises instead of returning a detached output;
+    without grad mode it launches as before."""
     q = randn(gen, 2, 1, 8, 64).requires_grad_()
     kc, vc = randn(gen, 2, 32, 2, 64), randn(gen, 2, 32, 2, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP B-perf"):
