@@ -43,7 +43,16 @@ Phases; any failure exits non-zero before the result lines are printed:
      unmasked over (4, 1500) and a ragged (1, 613), cross prefill (4, 2 on
      1500), (1, 37 on 613) and more queries than keys (2, 300 on 100), a
      causal or windowed Sq > Skv refused, decode over 4 x 1500 frames at
-     pos 1499 and 612;
+     pos 1499 and 612; the training path's backward kernels against their
+     fp32 plain backwards: flash's at hd 16, 32, 64, 128 and 256 (internvl2's
+     heads, gemma2's local layer with q past the cap, seamless's cross both
+     ways, jamba's heads with the queries a tail, ragged Sq), each gradient
+     by rel-L2 through the wrapper under grad (one launch each way), the
+     forward's LSE against the plain one, its output bit-equal with and
+     without the LSE, two backward calls bit-equal, and two planted faults
+     (the causal mask dropped, the LSE 0.5 off) that must fail; RMSNorm's
+     at both entries, bf16 and fp32, internvl2's, jamba's and gemma2's
+     widths, the same way;
   3. time: each kernel's device time per call (CUDA-graph replay between CUDA
      events; StarCoder2's and jamba's attention shapes) beside its plain
      version, one PyTorch library call for the same
@@ -66,6 +75,13 @@ Phases; any failure exits non-zero before the result lines are printed:
      soft-cap, where it builds; then seamless's (hd 64): flash unmasked over
      the encoder's (4, 1500) and a cross prefill (4, 2 on 1500), decode on
      4 x 1500 cross frames and a 66-slot self cache at pos 34, beside SDPA;
+     then the two backward kernels at the training path's shapes: flash's at
+     internvl2's (2, 4096, 14 on 2, 64) causal beside SDPA (``enable_gqa``)
+     forward + backward through autograd minus its forward, the forward
+     with and without the LSE beside SDPA's forward, and at jamba's
+     (1, 4096, 32 on 8, 128) beside its bound;
+     RMSNorm's at (8192, 896) bf16 with and without gs beside autograd
+     through ``F.rms_norm``;
   4. serve: StarCoder2-3B at full width (bf16, random weights from seed 0)
      serving 16 Poisson requests through the serving CLI's own path
      (``repro_torch.launch.serve.run``), with the launch counters reset just
@@ -223,20 +239,24 @@ Phases; any failure exits non-zero before the result lines are printed:
      and 3,840 text tokens through ``LM.prefill(..., prefix_embeds=)`` and 4
      decode steps, launch counts exact, the logits gate of serve_local with
      a planted fault (the prefix after the text). Gradients through the
-     kernels (bf16 forward kernels, fp32 torch backwards): one ``loss_fn`` +
+     kernels (bf16 forward kernels, the backward kernels): one ``loss_fn`` +
      backward at B 1 x S 1024 against the plain path in float32 on the same
      weights (norm scales drawn random), every parameter's gradient within
      1.5x the plain bf16 path's rel-L2 and the loss within 1.5x its
-     per-token RMS error, a control passing and two planted backward faults
-     (flash without the causal mask, RMSNorm without (1 + scale)) failing;
+     per-token RMS error, a control passing and three planted faults in the
+     backward kernels' launches (flash's without the causal mask, which
+     gives NaN; flash's with the causal edge one key late, which stays
+     finite; RMSNorm's dx without (1 + scale)) failing;
      layer 0's wq and the embedding with nonzero gradients. Then 30 steps of
      ``launch/train.py``'s own path at 2 x 4096 (prefix 256), lr 3e-4,
      warmup 5, AdamW, remat "full": losses finite and falling, launches per
      step exact (2 rmsnorm, 4L - 1 fused, 2L flash: each layer's forward
-     again under remat), peak memory under 80 GB, the step time beside the
-     model-FLOP floor, tokens/s, forward and backward on CUDA events and a
-     profile of 3 steps; and the reduced config in bf16 trained 6 steps and
-     resumed from its step-3 checkpoint, steps 4-6 bit-equal;
+     again under remat; 2L + 1 rmsnorm_backward and L
+     flash_attention_backward), peak memory under 80 GB, the step time
+     beside the model-FLOP floor, tokens/s, forward and backward on CUDA
+     events and a profile of 3 steps (the backward kernels' device time);
+     and the reduced config in bf16 trained 6 steps and resumed from its
+     step-3 checkpoint, steps 4-6 bit-equal;
  13b. train_hybrid: jamba's training path through the selective scan's
      backward kernel. The kernel against its plain reverse loop and the
      forward's chunk states against the plain ones, through the wrapper
@@ -253,7 +273,8 @@ Phases; any failure exits non-zero before the result lines are printed:
      exchanged); one full-width superblock (13.30 B parameters, bf16, seed
      0) through ``loss_fn`` and its backward at 1 x 4096 after a warm step:
      launches exact (2 rmsnorm, 31 fused, 2 flash, 14 ssm_scan, 7
-     ssm_scan_backward under remat), every gradient finite, the mamba, MoE
+     ssm_scan_backward, 1 flash_attention_backward and 17 rmsnorm_backward
+     under remat), every gradient finite, the mamba, MoE
      and attention gradients nonzero, peak under 80 GB, forward and
      backward on CUDA events and the backward kernel's device share from a
      profile; and ``launch/train.py --arch jamba_v0_1_52b --tiny`` for 20
@@ -274,7 +295,9 @@ Phases; any failure exits non-zero before the result lines are printed:
      card, its temp bytes beside the measured peak and its FLOPs beside the
      model-FLOP floor and the measured step (reported);
  15. report: one ``kernels`` JSON line (all six kernels, the fused RMSNorm
-     entry and the selective scan's backward; the serving kernels also with their launches in the measure
+     entry and the three backward kernels: the selective scan's, flash's and
+     RMSNorm's, with their launches in train, train_hybrid and its tiny
+     run; the serving kernels also with their launches in the measure
      phase's full-width simulated run, in serve_local and in encdec, the
      RMSNorm entries in serve_xlstm, flash and decode with their gemma2 and
      seamless timing rows, and they
@@ -1129,7 +1152,7 @@ def serving_launches(L: int, prefills: int, decodes: int) -> dict[str, int]:
             "rmsnorm_add": (2 * L - 1) * prefills + 2 * L * decodes,
             "flash_attention": L * prefills, "decode_attention": L * decodes,
             "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0,
-            "ssm_scan_backward": 0}
+            "ssm_scan_backward": 0, "flash_attention_backward": 0, "rmsnorm_backward": 0}
 
 
 # the slice's cell: 16 Poisson requests at 20 rps, prompts 256 +/- 64, 32 new
@@ -1602,9 +1625,11 @@ def kernel_vs_plain(torch, model, refs, limit: float, *, cache_len: int) -> dict
     return out
 
 
-def profile_calls(torch, label: str, fn, n: int = 5) -> dict | None:
+def profile_calls(torch, label: str, fn, n: int = 5, sums: tuple = ()) -> dict | None:
     """Device busy share, device operations (kernels, copies) per call and
-    time by kernel over ``n`` calls of ``fn``, after two warm calls."""
+    time by kernel over ``n`` calls of ``fn``, after two warm calls; with
+    ``sums``, the device time per call of every kernel whose name holds each
+    of those strings."""
     try:
         from torch.profiler import ProfilerActivity, profile
     except ImportError:
@@ -1638,8 +1663,12 @@ def profile_calls(torch, label: str, fn, n: int = 5) -> dict | None:
         "device time:")
     for ms, key, count in kernels[:8]:
         log(f"[profile]   {ms:8.4f} ms  x{count:<4d} {key[:90]}")
+    found = {part: sum(ms for ms, key, _ in kernels if part in key) for part in sums}
+    if found:
+        log(f"[profile]   device ms a call by kernel name: {found}")
     return {"wall_ms": wall_ms, "device_ms": dev_total, "device_ops": ops / n,
-            "top": [dict(ms=ms, name=key, per_call=count) for ms, key, count in kernels[:12]]}
+            "top": [dict(ms=ms, name=key, per_call=count) for ms, key, count in kernels[:12]],
+            "sums": found}
 
 
 def profile_decode(torch, model, *, slots: int, pos: int, cache_len: int) -> dict | None:
@@ -1870,7 +1899,7 @@ def phase_serve_hybrid(torch, refs) -> dict:
               "flash_attention": n_attn * n_prefill, "decode_attention": n_attn * n_decode,
               "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0,
               "ssm_scan": n_mamba * (n_prefill + n_decode),
-              "ssm_scan_backward": 0}
+              "ssm_scan_backward": 0, "flash_attention_backward": 0, "rmsnorm_backward": 0}
     check_launches("serve_hybrid", launches, expect,
                    f"{n_prefill} prefills (2 rmsnorm + {2 * L - 1} rmsnorm_add + {n_attn} flash + "
                    f"{n_mamba} ssm_scan each) and {n_decode} decode steps (1 rmsnorm + {2 * L} "
@@ -1926,7 +1955,7 @@ def xlstm_launches(cfg, prefills: int, decodes: int) -> tuple[dict[str, int], st
               "rmsnorm_add": (L - 1) * prefills + L * decodes,
               "flash_attention": 0, "decode_attention": 0, "lindley_scan": 0,
               "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0,
-              "ssm_scan_backward": 0}
+              "ssm_scan_backward": 0, "flash_attention_backward": 0, "rmsnorm_backward": 0}
     formula = (f"per prefill 1 + X + 1 = {2 + X} rmsnorm and L - 1 = {L - 1} rmsnorm_add, per "
                f"decode step 1 + X = {1 + X} and L = {L} (L = {L} blocks, X = {X} head norms)")
     return counts, formula
@@ -2066,7 +2095,7 @@ def encdec_launches(cfg, prefills: int, decodes: int) -> tuple[dict[str, int], s
               "rmsnorm_add": (2 * Le + 3 * L - 1) * prefills + 3 * L * decodes,
               "flash_attention": (Le + 2 * L) * prefills, "decode_attention": 2 * L * decodes,
               "lindley_scan": 0, "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0,
-              "ssm_scan_backward": 0}
+              "ssm_scan_backward": 0, "flash_attention_backward": 0, "rmsnorm_backward": 0}
     formula = (f"per encode + prefill 3 rmsnorm, 2Le + 3L - 1 = {2 * Le + 3 * L - 1} "
                f"rmsnorm_add, Le + 2L = {Le + 2 * L} flash; per decode step 1 rmsnorm, 3L = "
                f"{3 * L} rmsnorm_add, 2L = {2 * L} decode (Le = {Le}, L = {L})")
@@ -4281,43 +4310,351 @@ TRAIN_ARGV = ["--arch", "internvl2_1b", "--steps", "30", "--batch", "2", "--seq-
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 30, 2, 4096
 
 
+# ---------------------------------------------------------------------------
+# the backward kernels of flash attention and RMSNorm (the training path's)
+
+# the backward kernels' names in a profile (csrc/flash_attention.cu's three,
+# csrc/rmsnorm.cu's two, csrc/ssm_scan.cu's), for their device time a step
+BACKWARD_KERNEL_NAMES = ("flash_bwd", "rmsnorm_bwd", "ssm_scan_bwd")
+# each gradient's rel-L2 to the fp32 plain backward on the same bf16 values:
+# the forward's bf16 output (which D = rowsum(dO * O) reads), P and dS
+# rounded to bf16 on the tensor cores and the gradients stored in bf16 each
+# round at 2^-8 (the first card run read 2.3e-3 at every head dim; the bf16
+# RMSNorm backward 1.7e-3); fp32 RMSNorm gradients to 1e-5 (fp32 sums in
+# another order)
+GRAD_REL_L2 = 1e-2
+NORM_FP32_REL_L2 = 1e-5
+# (B, Sq, Skv, H, K, hd, causal, window, softcap, q scale, what)
+FLASH_GRAD_CASES = [
+    (1, 1024, 1024, 14, 2, 64, True, 0, 0.0, 1.0, "internvl2's training heads, S cut"),
+    (1, 700, 700, 16, 8, 256, True, 256, 50.0, 1.0, "gemma2's local layer, window 256"),
+    (1, 700, 700, 16, 8, 256, True, 256, 50.0, CAP_Q_SCALE, "the same, q past the cap"),
+    (2, 37, 300, 16, 16, 64, False, 0, 0.0, 1.0, "seamless's cross, Sq < Skv"),
+    (2, 300, 100, 16, 16, 64, False, 0, 0.0, 1.0, "seamless's cross, Sq > Skv"),
+    (1, 300, 400, 32, 8, 128, True, 0, 0.0, 1.0, "jamba's heads, the queries a tail"),
+    (2, 77, 77, 4, 2, 16, True, 0, 0.0, 1.0, "the reduced configs' hd 16, ragged"),
+    (2, 130, 130, 6, 3, 32, True, 40, 30.0, 1.0, "hd 32, ragged, window and cap"),
+]
+# (rows shape, dtype, with gs, what)
+NORM_GRAD_CASES = [
+    ((2, 4096, 896), "bfloat16", True, "internvl2's training rows, the fused entry"),
+    ((2, 4096, 896), "bfloat16", False, "the same, rmsnorm's entry"),
+    ((1, 4096, 4096), "bfloat16", True, "jamba's training rows"),
+    ((2, 64, 64), "bfloat16", True, "the reduced internvl2 (resume)"),
+    ((3, 97, 3584), "bfloat16", False, "gemma2's width, ragged rows"),
+    ((2, 333, 896), "float32", True, "fp32"),
+    ((5, 16), "float32", False, "fp32, one 16-element row"),
+]
+
+
+def grad_held(ck: Checker, name: str, what: str, got, want, limit: float, *,
+              fault: bool = False) -> None:
+    """A gradient against its plain version by rel-L2 (``limit``), finite;
+    its max abs error recorded. A planted ``fault`` must fail."""
+    diff = got.float() - want.float()
+    rel = _rel(got, want)
+    ok = bool(ck.torch.isfinite(got).all()) and got.shape == want.shape and rel <= limit
+    line = f"{what:60s} rel_l2 {rel:.3e} (limit {limit:g})"
+    if fault:
+        log(f"[check] {name:16s} {line}: planted fault {'caught' if not ok else 'MISSED'}")
+        if ok:
+            FAILURES.append(f"{name} {what}: the planted fault passed the check")
+        return
+    ck.max_err[name] = max(ck.max_err.get(name, 0.0), float(diff.abs().max()))
+    log(f"[check] {name:16s} {line} max_abs_err {float(diff.abs().max()):.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"{name} {what}: rel_l2 {rel:.3e}")
+
+
+def phase_check_flash_grad(torch, ck: Checker) -> None:
+    """The flash backward kernel against the fp32 plain backward
+    (``flash_attention_backward_reference``) on the same bf16 values, at every
+    head dim, each gradient by rel-L2: through the wrapper under grad (one
+    forward and one backward launch) and from the forward's saved LSE; the
+    LSE against the plain one; the forward's output with and without the LSE
+    bit-equal; two backward calls bit-equal; and two planted faults (the
+    causal mask dropped, the LSE off by 0.5) that must fail. Then the RMSNorm
+    backward kernel the same way, at both entries and dtypes."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_backward_reference,
+        flash_attention_reference,
+    )
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_reference
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4404)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    names = ("dq", "dk", "dv")
+    for B, Sq, Skv, H, K, hd, causal, window, cap, qs, note in FLASH_GRAD_CASES:
+        what = f"q ({B},{Sq},{H},{hd}) kv ({Skv},{K}) c{int(causal)} w{window} cap{cap:g}"
+
+        def case(B=B, Sq=Sq, Skv=Skv, H=H, K=K, hd=hd, causal=causal, window=window, cap=cap,
+                 qs=qs, what=f"{what} x{qs:g}: {note}"):
+            kw = dict(causal=causal, window=window, softcap=cap)
+            q, k, v = randn(B, Sq, H, hd, scale=qs), randn(B, Skv, K, hd), randn(B, Skv, K, hd)
+            do = randn(B, Sq, H, hd)
+            out, lse = fa._launch(q, k, v, **kw, return_lse=True)
+            ck.compare("flash_attention", f"output with the LSE == without, {what}", out,
+                       fa._launch(q, k, v, **kw), dict(atol=0.0, rtol=0.0))
+            _, want_lse = flash_attention_reference(q, k, v, **kw, return_lse=True)
+            ck.compare("flash_attention", f"LSE {what}", lse, want_lse, FP32_TOL)
+            want = flash_attention_backward_reference(
+                *(t.float() for t in (q, k, v, out, do)), **kw, chunk=512)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = (fa.flash_attention.launches, fa.flash_attention_backward.launches)
+            got = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves, do)
+            torch.cuda.synchronize()
+            counts = (fa.flash_attention.launches - before[0],
+                      fa.flash_attention_backward.launches - before[1])
+            if counts != (1, 1):
+                FAILURES.append(f"flash under grad {what}: launches {counts}, not (1, 1)")
+            for n, g, w in zip(names, got, want):
+                grad_held(ck, "flash_attention_backward", f"{n} {what}", g, w, GRAD_REL_L2)
+            again = [fa.flash_attention_backward(q, k, v, out, do, **kw, chunk=512, lse=lse)
+                     for _ in range(2)]
+            for n, a, b in zip(names, *again):
+                ck.compare("flash_attention_backward", f"{n} twice, bit-equal, {what}", a, b,
+                           dict(atol=0.0, rtol=0.0))
+            if (B, Sq, H, hd) == (1, 1024, 14, 64):
+                faults = {"the causal mask dropped": fa._launch_backward(
+                              q, k, v, out, do, lse, causal=False, window=0, softcap=0.0),
+                          "the LSE 0.5 too high": fa._launch_backward(
+                              q, k, v, out, do, lse + 0.5, **kw)}
+                for fault, grads in faults.items():
+                    worst = max(names, key=lambda n: _rel(grads[names.index(n)],
+                                                          want[names.index(n)]))
+                    i = names.index(worst)
+                    grad_held(ck, "flash_attention_backward", f"{worst} {what}, {fault}",
+                              grads[i], want[i], GRAD_REL_L2, fault=True)
+        ck.run("flash_attention_backward", what, case)
+        torch.cuda.empty_cache()
+
+    for shape, dt, with_gs, note in NORM_GRAD_CASES:
+        dtype = getattr(torch, dt)
+        what = f"x {shape} {dt}{' + gs' if with_gs else ''}: {note}"
+
+        def case(shape=shape, dtype=dtype, with_gs=with_gs, what=what):
+            x, r = randn(*shape, dtype=dtype, scale=3.0), randn(*shape, dtype=dtype)
+            sc = randn(shape[-1], dtype=dtype, scale=0.3)
+            gy, gs = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            limit = GRAD_REL_L2 if dtype == torch.bfloat16 else NORM_FP32_REL_L2
+            leaves = [t.clone().requires_grad_() for t in (x, r, sc)]
+            before = ((rn.rmsnorm.launches, rn.rmsnorm_add.launches),
+                      rn.rmsnorm_backward.launches)
+            if with_gs:  # the fused entry: s = x + r and its norm, both outputs used
+                s, y = rn.rmsnorm_add(*leaves, 1e-6)
+                got = torch.autograd.grad((s, y), leaves, (gs, gy))
+                xin = s.detach()
+            else:
+                y = rn.rmsnorm(leaves[0], leaves[2], 1e-6)
+                got = torch.autograd.grad(y, (leaves[0], leaves[2]), gy)
+                got = (got[0], None, got[1])
+                xin = x
+            torch.cuda.synchronize()
+            counts = ((rn.rmsnorm.launches, rn.rmsnorm_add.launches),
+                      rn.rmsnorm_backward.launches)
+            want_fwd = (before[0][0] + (not with_gs), before[0][1] + with_gs)
+            if counts != (want_fwd, before[1] + 1):
+                FAILURES.append(f"rmsnorm under grad {what}: launches {counts} from {before}")
+            plain_y = rn.rmsnorm_add(x, r, sc, 1e-6)[1] if with_gs else rn.rmsnorm(x, sc, 1e-6)
+            ck.compare("rmsnorm_backward", f"forward under grad == without, {what}", y, plain_y,
+                       dict(atol=0.0, rtol=0.0))
+            g_s = gs if with_gs else None
+            want = rmsnorm_backward_reference(xin.float(), sc.float(), gy.float(), 1e-6,
+                                              None if g_s is None else g_s.float())
+            grad_held(ck, "rmsnorm_backward", f"dx {what}", got[0], want[0], limit)
+            if with_gs:
+                grad_held(ck, "rmsnorm_backward", f"dr (= dx) {what}", got[1], want[0], limit)
+            grad_held(ck, "rmsnorm_backward", f"dscale {what}", got[2], want[1], limit)
+            a, b = (rn.rmsnorm_backward(xin, sc, gy, 1e-6, g_s) for _ in range(2))
+            for n, u, w in zip(("dx", "dscale"), a, b):
+                ck.compare("rmsnorm_backward", f"{n} twice, bit-equal, {what}", u, w,
+                           dict(atol=0.0, rtol=0.0))
+        ck.run("rmsnorm_backward", what, case)
+    torch.cuda.synchronize()
+
+
+def _rel(got, want) -> float:
+    rel = float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+    return rel if math.isfinite(rel) else math.inf
+
+
+def phase_time_backwards(torch, F) -> dict:
+    """The two backward kernels at the training path's shapes: device time
+    per call by CUDA-graph replay beside the bound, the plain version's (one
+    call in a graph) and a library yardstick the port never calls. Flash at
+    internvl2's (2, 4096, 14 on 2, 64) causal: the yardstick is SDPA with
+    ``enable_gqa`` forward + backward through autograd minus its forward
+    (CUDA events around eager calls); beside it the forward kernel with and
+    without the LSE and SDPA's forward. RMSNorm at (8192, 896) bf16 with gs
+    (the fused entry's backward) and without: the yardstick autograd through
+    ``F.rms_norm`` (forward + backward minus forward)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_backward_reference
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_reference
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4096)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    def minus(make_both, make_fwd):  # (fwd + bwd) - fwd on CUDA events, eager
+        try:
+            both, fwd = eager_ms(torch, make_both, iters=20), eager_ms(torch, make_fwd, iters=20)
+            return both - fwd, fwd, None
+        except Exception as exc:  # a yardstick that does not run is reported, not gated
+            return None, None, f"{type(exc).__name__}: {exc}"
+
+    out: dict = {}
+    B, S, H, K, hd = TRAIN_B, TRAIN_S, 14, 2, 64
+    q, k, v, do = randn(B, S, H, hd), randn(B, S, K, hd), randn(B, S, K, hd), randn(B, S, H, hd)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    o, lse = fa._launch(q, k, v, **kw, return_lse=True)
+    pairs = S * (S + 1) // 2
+    nbytes = 2 * (4 * B * S * H * hd + 4 * B * S * K * hd) + 4 * B * H * S
+    b_ms, b_by = bound(nbytes, 5 * 2 * hd * pairs * B * H, BF16_OPS)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    lib, lib_fwd, lib_err = minus(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), sdpa)
+    with torch.no_grad():
+        try:
+            sdpa_fwd = device_ms(torch, sdpa)
+        except Exception as exc:
+            sdpa_fwd, lib_err = None, f"{lib_err}; forward: {type(exc).__name__}: {exc}"
+    r = dict(shape=f"q, o, do ({B},{S},{H},{hd}) kv ({S},{K}) bf16 causal (internvl2 training)",
+             ms=device_ms(torch, lambda: fa.flash_attention_backward(q, k, v, o, do, **kw,
+                                                                     chunk=512, lse=lse)),
+             plain_ms=device_ms(torch, lambda: flash_attention_backward_reference(
+                 q, k, v, o, do, **kw, chunk=512), calls=1, replays=1),
+             library_ms=lib, library_forward_ms=lib_fwd, library_error=lib_err,
+             bound_ms=b_ms, bound_by=b_by,
+             eager_ms=eager_ms(torch, lambda: fa.flash_attention_backward(
+                 q, k, v, o, do, **kw, chunk=512, lse=lse), iters=10, warmup=2),
+             forward_lse_ms=device_ms(torch, lambda: fa._launch(q, k, v, **kw, return_lse=True)),
+             forward_ms=device_ms(torch, lambda: fa._launch(q, k, v, **kw)),
+             forward_bound_ms=bound(2 * (2 * B * S * H * hd + 2 * B * S * K * hd),
+                                    4 * hd * pairs * B * H, BF16_OPS)[0],
+             sdpa_forward_ms=sdpa_fwd)
+    out["flash_attention_backward"] = r
+    # jamba's attention layer (32 on 8 heads of 128)
+    jq, jk, jv, jdo = (randn(1, S, 32, 128), randn(1, S, 8, 128), randn(1, S, 8, 128),
+                       randn(1, S, 32, 128))
+    jo, jlse = fa._launch(jq, jk, jv, **kw, return_lse=True)
+    out["jamba"] = dict(
+        shape=f"q, o, do (1,{S},32,128) kv ({S},8) bf16 causal (jamba's attention layer)",
+        bound_ms=bound(2 * (4 * S * 32 * 128 + 4 * S * 8 * 128) + 4 * 32 * S,
+                       5 * 2 * 128 * pairs * 32, BF16_OPS)[0],
+        ms=device_ms(torch, lambda: fa.flash_attention_backward(jq, jk, jv, jo, jdo, **kw,
+                                                                chunk=512, lse=jlse)))
+    log(f"[time] {'flash_bwd':16s} {out['jamba']['shape']}: kernel {out['jamba']['ms']:.4f} ms  "
+        f"bound {out['jamba']['bound_ms']:.5f} ms")
+    del jq, jk, jv, jdo, jo, jlse
+    lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
+    log(f"[time] {'flash_bwd':16s} {r['shape']:44s} kernel {r['ms']:.4f} ms  plain "
+        f"{r['plain_ms']:.4f} ms  library (SDPA fwd+bwd - fwd) {lib_s}  bound {b_ms:.5f} ms "
+        f"({b_by});  eager from Python: kernel {r['eager_ms']:.4f} ms"
+        f"{'; library error: ' + lib_err if lib_err else ''}")
+    log(f"[time] {'flash_attention':16s} forward at the training shape: {r['forward_ms']:.4f} ms, "
+        f"with the LSE {r['forward_lse_ms']:.4f} ms (bound {r['forward_bound_ms']:.5f} ms); SDPA "
+        f"forward {'n/a' if sdpa_fwd is None else f'{sdpa_fwd:.4f} ms'}")
+    del q, k, v, do, o, lse, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+
+    rows, d = TRAIN_B * TRAIN_S, 896
+    x, sc, gy, gs = randn(rows, d, scale=3.0), randn(d, scale=0.3), randn(rows, d), randn(rows, d)
+    xl, wl = x.clone().requires_grad_(), (1.0 + sc.float()).bfloat16().requires_grad_()
+
+    def lib_norm():
+        return F.rms_norm(xl, (d,), wl, 1e-6)
+
+    for tag, g_s in (("rmsnorm_backward", gs), ("rmsnorm_backward_no_gs", None)):
+        nbytes = 2 * ((3 + (g_s is not None)) * rows * d + 2 * d)
+        b_ms, b_by = bound(nbytes, 10 * rows * d, FP32_OPS)
+        lib, lib_fwd, lib_err = minus(lambda: torch.autograd.grad(lib_norm(), (xl, wl), gy),
+                                      lib_norm)
+        r = dict(shape=f"x, gy{', gs' if g_s is not None else ''} ({rows},{d}) bf16",
+                 ms=device_ms(torch, lambda: rn.rmsnorm_backward(x, sc, gy, 1e-6, g_s)),
+                 plain_ms=device_ms(torch, lambda: rmsnorm_backward_reference(x, sc, gy, 1e-6,
+                                                                              g_s)),
+                 library_ms=lib, library_forward_ms=lib_fwd, library_error=lib_err,
+                 bound_ms=b_ms, bound_by=b_by,
+                 eager_ms=eager_ms(torch, lambda: rn.rmsnorm_backward(x, sc, gy, 1e-6, g_s)),
+                 plan=list(rn.norm_backward_plan(rows, d, 2)))
+        out[tag] = r
+        lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
+        log(f"[time] {'rmsnorm_bwd':16s} {r['shape']:44s} kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library (F.rms_norm fwd+bwd - fwd) {lib_s}  bound "
+            f"{b_ms:.5f} ms ({b_by});  eager from Python: kernel {r['eager_ms']:.4f} ms; plan "
+            f"{r['plan']}{'; library error: ' + lib_err if lib_err else ''}")
+    return out
+
+
 def train_launches(cfg, steps: int) -> tuple[dict[str, int], str]:
     """Every kernel's launches for ``steps`` training steps of a dense
     L-layer decoder under remat "full" (each layer's forward runs again in
     the backward pass; the final norm and the head do not), and the formula:
     per step rmsnorm 1 + 1 (layer 0's norm1, twice), rmsnorm_add 2L (the
     later norm1s, the norm2s, the final norm) + 2L - 1 (their layers again),
-    flash L + L."""
+    flash L + L; the backward kernels once per forward op: rmsnorm_backward
+    2L + 1 (both norm entries), flash_attention_backward L."""
     L = cfg.num_layers
     counts = {"rmsnorm": 2 * steps, "rmsnorm_add": (4 * L - 1) * steps,
               "flash_attention": 2 * L * steps, "decode_attention": 0, "lindley_scan": 0,
               "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": 0,
-              "ssm_scan_backward": 0}
+              "ssm_scan_backward": 0, "flash_attention_backward": L * steps,
+              "rmsnorm_backward": (2 * L + 1) * steps}
     formula = (f"per step 1 + 1 rmsnorm, 2L + 2L - 1 = {4 * L - 1} rmsnorm_add, L + L = {2 * L} "
-               f"flash (L = {L}: each layer's forward once more under remat)")
+               f"flash (L = {L}: each layer's forward once more under remat); backward kernels "
+               f"once per norm and attention of the forward: {2 * L + 1} rmsnorm_backward, {L} "
+               "flash_attention_backward")
     return counts, formula
 
 
 def grad_faults(torch) -> dict:
     """The planted faults the gradient gate must refuse, each a swap of a
-    backward: flash's without the causal mask, RMSNorm's without the
-    (1 + scale) factor (both entries' backward is ``rmsnorm_backward``)."""
+    backward kernel's launch (what the card runs under autograd): flash's
+    backward kernel without the causal mask (exp(score - lse) overflows: NaN
+    gradients); flash's with the causal edge one key late (each query also
+    sees the next key, P from the true LSE: finite, so the gate's ratio must
+    catch it; the keys run one past the end, a copy of the last, whose
+    gradient is dropped); RMSNorm's backward kernel without the (1 + scale)
+    factor in dx (both norm entries' backward)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rmsnorm import ops as rn
 
-    backward, norm_backward = fa.flash_attention_backward, rn.rmsnorm_backward
+    backward, norm_backward = fa._launch_backward, rn._launch_backward
 
-    def unmasked(q, k, v, o, do, **kw):
-        return backward(q, k, v, o, do, **{**kw, "causal": False})
+    def unmasked(q, k, v, o, do, lse, **kw):
+        return backward(q, k, v, o, do, lse, **{**kw, "causal": False})
 
-    def no_scale(x, scale, gy, eps=1e-6, gs=None):
-        dx, _ = norm_backward(x, torch.zeros_like(scale), gy, eps, gs)
-        return dx, norm_backward(x, scale, gy, eps, gs)[1]
+    def edge_late(q, k, v, o, do, lse, **kw):  # Skv + 1 keys: the queries' offset one more
+        Skv = k.shape[1]
+        dq, dk, dv = backward(q, *(torch.cat([t, t[:, -1:]], dim=1) for t in (k, v)), o, do, lse,
+                              **kw)
+        return dq, dk[:, :Skv], dv[:, :Skv]
+
+    def no_scale(x, scale, gy, gs, eps, plan):
+        dx, _ = norm_backward(x, torch.zeros_like(scale), gy, gs, eps, plan)
+        return dx, norm_backward(x, scale, gy, gs, eps, plan)[1]
 
     return {"flash backward without the causal mask":
-            {"kernels.flash_attention.ops:flash_attention_backward": unmasked},
+            {"kernels.flash_attention.ops:_launch_backward": unmasked},
+            "flash backward with the causal edge one key late":
+            {"kernels.flash_attention.ops:_launch_backward": edge_late},
             "RMSNorm backward without the (1 + scale) factor":
-            {"kernels.rmsnorm.ops:rmsnorm_backward": no_scale}}
+            {"kernels.rmsnorm.ops:_launch_backward": no_scale}}
 
 
 def grads_of(torch, model, batch, refs: dict | None = None, swaps: dict | None = None):
@@ -4347,7 +4684,7 @@ def token_losses(torch, model, batch, refs: dict | None = None):
 
 def grad_gate(torch, model, refs) -> dict:
     """The full-width model's gradients through the kernels (bf16 forward
-    kernels, the fp32 backwards) held against the plain path in float32 on
+    kernels, the backward kernels) held against the plain path in float32 on
     the same weights and batch, above the plain bf16 path's own error: every
     parameter's gradient by its rel-L2, the kernel path's at most
     FP32_ERROR_RATIO times the plain bf16 path's; and the loss, whose error
@@ -4356,8 +4693,9 @@ def grad_gate(torch, model, refs) -> dict:
     batch, the control's 1.6e-5, an H100 80GB HBM3 at 700 W): the kernel
     path's loss error at most FP32_ERROR_RATIO times the plain bf16 path's
     per-token RMS error. A control (the plain path with the norms' sums
-    reordered) must pass and two planted backward faults must fail. The norm
-    scales are drawn N(0, 0.3^2) first, so that every (1 + scale) counts."""
+    reordered) must pass and three planted backward faults must fail (a NaN or
+    inf reading counts as the worst). The norm scales are drawn N(0, 0.3^2)
+    first, so that every (1 + scale) counts."""
     import numpy as np
 
     from repro_torch.data.pipeline import make_batch
@@ -4406,9 +4744,11 @@ def grad_gate(torch, model, refs) -> dict:
         if name == "plain":
             continue
         ratios = {n: errs[name][n] / max(plain[n], 1e-30) for n in plain}
-        worst = max(ratios, key=ratios.get)
+        worst = max(ratios, key=lambda n: ratios[n] if math.isfinite(ratios[n]) else math.inf)
         lr = dloss[name] / max(token_rms, 1e-30)
         reading = max(ratios[worst], lr)
+        if not (math.isfinite(ratios[worst]) and math.isfinite(lr)):  # NaN or inf: the worst
+            reading = math.inf
         fault = name.startswith("fault")
         ok = (reading > FP32_ERROR_RATIO) if fault else (reading <= FP32_ERROR_RATIO)
         verdict = ("caught" if ok else "MISSED") if fault else ("ok" if ok else "FAIL")
@@ -4437,7 +4777,7 @@ def phase_train(torch, refs) -> dict:
     """internvl2_1b at full width: the prefix (A14) through prefill and decode
     with exact launch counts and the logits gate (a planted fault: the prefix
     after the text); the loss's gradients through the kernels against the
-    plain path (two planted backward faults); 30 steps of ``launch/train.py``
+    plain path (three planted backward faults); 30 steps of ``launch/train.py``
     (launches per step exact, losses finite and falling, peak memory, step
     time against the model-FLOP floor, a profile); and a bit-exact resume of
     the reduced config in bf16 from a checkpoint."""
@@ -4560,11 +4900,17 @@ def phase_train(torch, refs) -> dict:
     model.zero_grad(set_to_none=True)
     fwd_ms, bwd_ms = split[-1]
     prof = profile_calls(torch, f"{cfg.name} training step, {TRAIN_B} x {TRAIN_S}",
-                         lambda: trainer.step_fn(model, state, batch), n=3)
+                         lambda: trainer.step_fn(model, state, batch), n=3,
+                         sums=BACKWARD_KERNEL_NAMES)
     out["train"].update(forward_ms=fwd_ms, backward_ms=bwd_ms, split_ms=split, profile=prof)
     share = f", {bwd_ms / prof['device_ms']:.1%} of the step's device time" if prof else ""
     log(f"[train] forward (loss_fn) {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms on CUDA events: "
         f"the backward {bwd_ms / (fwd_ms + bwd_ms):.1%} of the two{share}")
+    if prof:
+        kern = sum(prof["sums"][k] for k in ("flash_bwd", "rmsnorm_bwd"))
+        out["train"].update(backward_kernels_ms=kern, backward_kernels_share=kern / bwd_ms)
+        log(f"[train] the flash and RMSNorm backward kernels: {kern:.3f} ms of device time a "
+            f"step ({kern / bwd_ms:.1%} of the backward's {bwd_ms:.3f} ms)")
     del trainer, model, state, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -4878,18 +5224,22 @@ def mixer_grad_gate(torch) -> dict:
 def hybrid_step_launches(cfg, steps: int, remat: bool) -> tuple[dict[str, int], str]:
     """Every kernel's launches for ``steps`` loss + backward passes of a
     hybrid decoder of L layers (M mamba, L - M attention): per pass rmsnorm
-    1, rmsnorm_add 2L, flash L - M, ssm_scan M and ssm_scan_backward M; under
-    remat each layer's forward once more (rmsnorm 1, rmsnorm_add 2L - 1,
-    flash L - M, ssm_scan M: the final norm and head are not recomputed)."""
+    1, rmsnorm_add 2L, flash L - M, ssm_scan M and the backward kernels once
+    per forward op (ssm_scan_backward M, flash_attention_backward L - M,
+    rmsnorm_backward 2L + 1); under remat each layer's forward once more
+    (rmsnorm 1, rmsnorm_add 2L - 1, flash L - M, ssm_scan M: the final norm
+    and head are not recomputed)."""
     L = cfg.num_layers
     M = sum(s.mixer == "mamba" for s in cfg.superblock) * cfg.num_superblocks
     k = 2 if remat else 1
     counts = {"rmsnorm": k * steps, "rmsnorm_add": (2 * L + (2 * L - 1) * remat) * steps,
               "flash_attention": k * (L - M) * steps, "decode_attention": 0, "lindley_scan": 0,
               "lindley_kserver": 0, "decision_scan": 0, "ssm_scan": k * M * steps,
-              "ssm_scan_backward": M * steps}
+              "ssm_scan_backward": M * steps, "flash_attention_backward": (L - M) * steps,
+              "rmsnorm_backward": (2 * L + 1) * steps}
     formula = (f"per step {k} rmsnorm, {2 * L + (2 * L - 1) * remat} rmsnorm_add, "
-               f"{k * (L - M)} flash, {k * M} ssm_scan, {M} ssm_scan_backward (L = {L}, M = {M} "
+               f"{k * (L - M)} flash, {k * M} ssm_scan, {M} ssm_scan_backward, {L - M} "
+               f"flash_attention_backward, {2 * L + 1} rmsnorm_backward (L = {L}, M = {M} "
                f"mamba layers{'; each layer again under remat' if remat else ''})")
     return counts, formula
 
@@ -4974,13 +5324,14 @@ def phase_train_hybrid(torch) -> dict:
         loss.backward()
 
     prof = profile_calls(torch, f"{cfg.name} one superblock, loss + backward, 1 x "
-                         f"{HYBRID_TRAIN_S}", step, n=2)
+                         f"{HYBRID_TRAIN_S}", step, n=2, sums=BACKWARD_KERNEL_NAMES)
     if prof:
         bwd_kernel = sum(k["ms"] for k in prof["top"] if "ssm_scan_bwd" in k["name"])
         out["superblock"].update(profile=prof, scan_backward_device_ms=bwd_kernel,
                                  scan_backward_share=bwd_kernel / bwd_ms)
         log(f"[train_hybrid] the scan's backward kernels: {bwd_kernel:.3f} ms of device time a "
             f"step ({bwd_kernel / bwd_ms:.1%} of the backward's {bwd_ms:.3f} ms)")
+        out["superblock"]["backward_kernels_ms"] = prof["sums"]
     del model, batch, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5215,14 +5566,14 @@ def main() -> int:
     from repro_torch.kernels.decision_scan.ref import decision_scan_reference
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_reference
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_backward
     from repro_torch.kernels.flash_attention.ref import flash_attention_reference
     from repro_torch.kernels.lindley_scan.ops import lindley_kserver, lindley_scan
     from repro_torch.kernels.lindley_scan.ref import (
         lindley_kserver_reference,
         lindley_scan_reference,
     )
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add, rmsnorm_backward
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_reference, rmsnorm_reference
     from repro_torch.kernels.ssm_scan.ops import ssm_scan, ssm_scan_backward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_reference
@@ -5235,7 +5586,8 @@ def main() -> int:
                            "ssm_scan"), refs + (ssm_scan_reference,)))
     lindley = (lindley_scan, lindley_kserver)
     lindley_refs = (lindley_scan_reference, lindley_kserver_reference)
-    COUNTED.extend(ops + lindley + (decision_scan, ssm_scan, ssm_scan_backward))
+    COUNTED.extend(ops + lindley + (decision_scan, ssm_scan, ssm_scan_backward,
+                                   flash_attention_backward, rmsnorm_backward))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     card = smi[0].strip() if smi else "nvidia-smi gave nothing"
@@ -5254,6 +5606,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_check_ssm(torch, ck, ssm_scan, ssm_scan_reference)
     torch.cuda.empty_cache()
+    phase_check_flash_grad(torch, ck)
+    torch.cuda.empty_cache()
     end_phase("check")
     timing = phase_time(torch, F, ops, refs)
     timing["lindley_scan"] = [phase_time_lindley(torch, lindley, lindley_refs)]
@@ -5261,6 +5615,8 @@ def main() -> int:
     timing["decision_scan"] = [phase_time_decision(torch, decision_scan, decision_scan_reference)]
     torch.cuda.empty_cache()
     timing["ssm_scan"] = phase_time_ssm(torch, ssm_scan, ssm_scan_reference)
+    torch.cuda.empty_cache()
+    timing["backwards"] = phase_time_backwards(torch, F)
     torch.cuda.empty_cache()
     timing["serve_local"] = phase_time_gemma2(torch, F, flash_attention, decode_attention,
                                               flash_attention_reference,
@@ -5343,6 +5699,10 @@ def main() -> int:
         # no TPU kernel: the reference differentiates its lax.scan there
         "ssm_scan_backward": ("src/repro_torch/csrc/ssm_scan.cu",
                               "src/repro/models/ssm.py:89-110"),
+        # no TPU kernel: XLA differentiates the reference's attention and rms_norm
+        "flash_attention_backward": ("src/repro_torch/csrc/flash_attention.cu",
+                                     "src/repro/models/attention.py:96-192"),
+        "rmsnorm_backward": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/models/layers.py:24"),
     }
     kernels = []
     for name, path_launches in (("rmsnorm", serve), ("rmsnorm_add", serve),
@@ -5376,6 +5736,10 @@ def main() -> int:
             row["encdec_launches"] = encdec["launches"][name]  # seamless
         if name in ("flash_attention", "decode_attention"):  # seamless's hd-64 shapes
             row["encdec_timing"] = timing["encdec"][name]
+        if name == "flash_attention":  # internvl2's training shape, beside SDPA's forward
+            b = timing["backwards"]["flash_attention_backward"]
+            row["train_shape"] = {k: b[k] for k in ("forward_ms", "forward_lse_ms",
+                                                    "forward_bound_ms", "sdpa_forward_ms")}
         if name in ("rmsnorm", "rmsnorm_add", "flash_attention", "decode_attention",
                     "decision_scan"):  # the obs phase: the demo's engine, the traced loop
             row["obs_launches"] = obs["launches"][name]
@@ -5412,6 +5776,20 @@ def main() -> int:
         "library_ms": None, "shape": t["shape"], "eager_ms": t["eager_ms"],
         "train_hybrid_launches": hybrid_trained["launches"]["ssm_scan_backward"],
         "tiny_train_launches": hybrid_trained["tiny"]["launches"]["ssm_scan_backward"]})
+    for name in ("flash_attention_backward", "rmsnorm_backward"):  # launched in training only
+        t = timing["backwards"][name]
+        row = {"name": name, "route": "cuda", "source": where[name][0], "replaces": where[name][1],
+               "launches": trained["launches"][name], "max_abs_err": ck.max_err[name],
+               **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "shape", "eager_ms")},
+               "train_launches": trained["launches"][name],
+               "train_hybrid_launches": hybrid_trained["launches"][name],
+               "tiny_train_launches": hybrid_trained["tiny"]["launches"][name]}
+        if name == "flash_attention_backward":  # jamba's attention layer, 1 a superblock step
+            row["jamba"] = timing["backwards"]["jamba"]
+        if name == "rmsnorm_backward":  # rmsnorm's entry (no gs), 2 of its 49 a step
+            row["no_gs"] = timing["backwards"]["rmsnorm_backward_no_gs"]
+        kernels.append(row)
     RESULT.update(kernels=kernels, timing=timing, serve=serve, serve_hybrid=hybrid,
                   serve_local=serve_local, serve_xlstm=serve_xlstm, encdec=encdec, fleet=fleet,
                   cluster=cluster, cluster_ranks=cluster_ranks, tails=tails,

@@ -10,11 +10,15 @@ touch it).
 
 Gradients: where grad mode is on and q, k or v requires grad, a CUDA call
 goes through an ``autograd.Function`` whose forward is the same kernel
-launch, saving q, k, v and the output, and whose backward is
-``flash_attention_backward``: torch operations in fp32 over query chunks
-of ``chunk`` rows, each recomputing its scores (the reference has no
-backward kernel; XLA differentiates its query-chunked attention,
-rematerialising each chunk's scores).
+launch, also writing each row's log-sum-exp, and saving q, k, v, the output
+and that LSE, and whose backward is ``flash_attention_backward``: on the card
+the backward kernel of the same file (D = rowsum(dO * O); dK/dV per query
+head and key tile, a kv head's parts then added in head order; dQ per query
+tile; no atomics, so repeatable bit for bit), counted by
+``flash_attention_backward.launches``; on the CPU the plain chunked backward
+(``ref.flash_attention_backward_reference``; the reference has no backward
+kernel: XLA differentiates its query-chunked attention, rematerialising
+each chunk's scores).
 """
 
 from __future__ import annotations
@@ -24,64 +28,44 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import NEG_INF, flash_attention_reference
+from .ref import flash_attention_backward_reference, flash_attention_reference
 
 __all__ = ["flash_attention", "flash_attention_backward", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # instantiated in csrc/flash_attention.cu
-_ARGTYPES = (
-    (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 12
-    + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
-)
+_TAIL = (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 12 + _TAIL
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 15 + _TAIL
 
 
 def flash_attention_backward(q, k, v, o, do, *, causal: bool, window: int, softcap: float,
-                             chunk: int):
+                             chunk: int, lse=None):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` with output ``o``, given
-    ``do``, in fp32, over query chunks of ``chunk`` rows. For each chunk, over
-    the keys it can see (up to its last query when causal, from its first
-    query's window on when windowed): the scores again (scale, soft-cap,
-    mask), P = softmax, dV += P^T dO, dP = dO V^T, D = rowsum(dO * O),
-    dS = P * (dP - D) times the soft-cap's tanh derivative and the scale,
-    dQ = dS K, dK += dS^T Q; a KV head's dk and dv sum over its query group.
-    Each gradient is returned in its input's dtype."""
-    B, Sq, H, hd = q.shape
-    Skv, K = k.shape[1], k.shape[2]
-    G = H // K
-    off = Skv - Sq  # the queries are the last Sq of the Skv positions
-    scale = hd**-0.5
-    kf, vf = k.float(), v.float()
-    dq = torch.empty((B, Sq, K, G, hd), dtype=torch.float32, device=q.device)
-    dk = torch.zeros((B, Skv, K, hd), dtype=torch.float32, device=q.device)
-    dv = torch.zeros_like(dk)
-    for s in range(0, Sq, chunk):
-        e = min(s + chunk, Sq)
-        hi = min(Skv, e + off) if causal else Skv
-        lo = max(0, s + off - window + 1) if window > 0 else 0
-        qc, oc, doc = (t[:, s:e].float().reshape(B, e - s, K, G, hd) for t in (q, o, do))
-        kb, vb = kf[:, lo:hi], vf[:, lo:hi]
-        scores = torch.einsum("bqkgh,bskh->bkgqs", qc, kb) * scale
-        if softcap > 0:
-            t = torch.tanh(scores / softcap)
-            scores = softcap * t
-        q_pos = torch.arange(s, e, device=q.device)[:, None] + off
-        k_pos = torch.arange(lo, hi, device=q.device)[None, :]
-        mask = torch.ones((e - s, hi - lo), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= k_pos <= q_pos
-        if window > 0:
-            mask &= k_pos > q_pos - window
-        p = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
-        dv[:, lo:hi] += torch.einsum("bkgqs,bqkgh->bskh", p, doc)
-        dp = torch.einsum("bqkgh,bskh->bkgqs", doc, vb)
-        delta = (doc * oc).sum(-1).permute(0, 2, 3, 1)[..., None]  # (B, K, G, c, 1)
-        ds = p * (dp - delta)
-        if softcap > 0:
-            ds = ds * (1.0 - t * t)
-        ds = ds * scale
-        dq[:, s:e] = torch.einsum("bkgqs,bskh->bqkgh", ds, kb)
-        dk[:, lo:hi] += torch.einsum("bkgqs,bqkgh->bskh", ds, qc)
-    return dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    ``do``, each in its input's dtype. CPU tensors take the plain backward
+    (``chunk`` query rows at a time; ``lse`` unread); CUDA tensors the
+    backward kernel, which reads the forward's ``lse`` (B, H, Sq) fp32 and
+    takes what the forward kernel takes (bf16, a head dim of ``HEAD_DIMS``);
+    anything else raises."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, do, causal=causal, window=window,
+                                                  softcap=softcap, chunk=chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward runs on the CPU or a CUDA card, not "
+                         f"{q.device}")
+    _check(q, k, v, causal, window, "flash_attention_backward")
+    B, Sq, H, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o and do must be q's {tuple(q.shape)} {q.dtype}; got "
+                         f"{tuple(o.shape)} {o.dtype} and {tuple(do.shape)} {do.dtype}")
+    if (lse is None or lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"the backward kernel reads the forward's log-sum-exp, ({B}, {H}, {Sq}) "
+                         f"float32 contiguous on {q.device}; got "
+                         f"{None if lse is None else (tuple(lse.shape), lse.dtype, lse.device)}")
+    _build.check_cuda_tensors(q=q, k=k, v=v, o=o, do=do)
+    grads = _launch_backward(q, k, v, o, do, lse, causal=causal, window=window, softcap=softcap)
+    flash_attention_backward.launches += 1
+    return grads
 
 
 class _Flash(torch.autograd.Function):
@@ -90,15 +74,16 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, chunk, forward):
-        out = forward(q, k, v, causal=causal, window=window, softcap=softcap)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = forward(q, k, v, causal=causal, window=window, softcap=softcap,
+                           return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = dict(causal=causal, window=window, softcap=softcap, chunk=chunk)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, do, **ctx.args)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, do.contiguous(), lse=lse, **ctx.args)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -117,6 +102,18 @@ def flash_attention(
                                          softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on the CPU or a CUDA card, not {q.device}")
+    _check(q, k, v, causal, window, "flash_attention")
+    _build.check_cuda_tensors(q=q, k=k, v=v)
+    if _build.requires_grad(q, k, v):
+        out = _Flash.apply(q, k, v, causal, window, softcap, chunk, _launch)
+    else:
+        out = _launch(q, k, v, causal=causal, window=window, softcap=softcap)
+    flash_attention.launches += 1
+    return out
+
+
+def _check(q, k, v, causal: bool, window: int, name: str) -> None:
+    """What the forward and backward kernels take; raises on anything else."""
     B, Sq, H, hd = q.shape
     Bk, Skv, K, hdk = k.shape
     if tuple(v.shape) != tuple(k.shape) or Bk != B or hdk != hd or K == 0 or H % K:
@@ -127,29 +124,49 @@ def flash_attention(
                          f"keys: Sq {Sq} > Skv {Skv} is refused (only unmasked attention, "
                          "causal=False and window=0, takes more queries than keys)")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"flash_attention kernel takes bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise TypeError(f"{name} kernel takes bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {hd}")
-    _build.check_cuda_tensors(q=q, k=k, v=v)
-    if _build.requires_grad(q, k, v):
-        out = _Flash.apply(q, k, v, causal, window, softcap, chunk, _launch)
-    else:
-        out = _launch(q, k, v, causal=causal, window=window, softcap=softcap)
-    flash_attention.launches += 1
-    return out
+        raise ValueError(f"{name} kernel takes head_dim in {HEAD_DIMS}, got {hd}")
 
 
-def _launch(q, k, v, *, causal: bool, window: int, softcap: float) -> torch.Tensor:
+def _launch(q, k, v, *, causal: bool, window: int, softcap: float, return_lse: bool = False):
+    """One forward launch: the output, and with ``return_lse`` also each
+    row's log-sum-exp, (B, H, Sq) fp32 (the backward's input)."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     fn = _build.function("flash_attention", "flash_attention_launch", _ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              B, H, K, Sq, Skv, hd,
+              None if lse is None else lse.data_ptr(), B, H, K, Sq, Skv, hd,
               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
               hd**-0.5, int(causal), int(window), float(softcap), _build.stream_handle())
     _build.check(code, "flash_attention")
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _launch_backward(q, k, v, o, do, lse, *, causal: bool, window: int, softcap: float):
+    """One call of the backward's C entry: three launches, four where H > K
+    (each query head's dK and dV as fp32 parts, then their sum per kv head)."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Skv, K, hd), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    parts = ([torch.empty((B, Skv, H, hd), dtype=torch.float32, device=q.device)
+              for _ in range(2)] if H > K else [None, None])
+    fn = _build.function("flash_attention", "flash_attention_backward_launch", _BWD_ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+              *(None if t is None else t.data_ptr() for t in parts), B, H, K, Sq, Skv, hd,
+              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+              *do.stride()[:3],
+              hd**-0.5, int(causal), int(window), float(softcap), _build.stream_handle())
+    _build.check(code, "flash_attention")
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
+flash_attention_backward.launches = 0

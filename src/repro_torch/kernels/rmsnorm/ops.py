@@ -10,9 +10,14 @@ them). ``norm_plan`` sizes the launch: threads per row, rows per CTA and
 
 Gradients: where grad mode is on and an input requires grad, a CUDA call
 goes through an ``autograd.Function`` whose forward is the same kernel
-launch and whose backward is ``rmsnorm_backward`` (torch operations in
-fp32: the reference has no backward kernel, XLA differentiates its
-``rms_norm``). Otherwise the wrappers launch directly, as serving does.
+launch and whose backward is ``rmsnorm_backward``: on the card the backward
+kernel of the same file (a row pass that keeps each thread's dscale sums in
+registers over the rows it walks, then a pass adding the per-CTA sums in a
+fixed order: no atomics, repeatable bit for bit), planned by
+``norm_backward_plan`` and counted by ``rmsnorm_backward.launches``; on the
+CPU the plain fp32 version (``ref.rmsnorm_backward_reference``; the
+reference has no backward kernel, XLA differentiates its ``rms_norm``).
+Otherwise the wrappers launch directly, as serving does.
 """
 
 from __future__ import annotations
@@ -24,10 +29,10 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .ref import rmsnorm_add_reference, rmsnorm_reference
+from .ref import rmsnorm_add_reference, rmsnorm_backward_reference, rmsnorm_reference
 
-__all__ = ["rmsnorm", "rmsnorm_add", "rmsnorm_backward", "norm_plan", "NormPlan", "ROW_THREADS", "VECTORS",
-           "ROW_VECTORS", "CTA_THREADS"]
+__all__ = ["rmsnorm", "rmsnorm_add", "rmsnorm_backward", "norm_plan", "norm_backward_plan",
+           "NormPlan", "ROW_THREADS", "VECTORS", "ROW_VECTORS", "CTA_THREADS", "BWD_SLOTS"]
 
 ROW_THREADS = (32, 64, 128, 256, 512)  # threads per row the kernel takes (a warp up to a CTA)
 VECTORS = (1, 2, 4, 8, 16)  # 16-byte vectors per thread it is built for (csrc/rmsnorm.cu)
@@ -37,6 +42,11 @@ _PTR, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _NORM_ARGS = (_INT, _PTR, _PTR, _PTR, _LL, _INT, ctypes.c_float, _INT, _INT, _INT, _PTR)
 _ADD_ARGS = (_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _LL, _INT, ctypes.c_float, _INT, _INT, _INT,
              _PTR)
+_BWD_ARGS = (_INT,) + (_PTR,) * 7 + (_LL, _INT, ctypes.c_float, _INT, _INT, _INT, _INT, _PTR)
+# the backward's row slots at most (CTAs x rows per CTA), each writing one
+# fp32 row of dscale sums: enough CTAs to keep the card's memory busy, and
+# scratch of a few MB at the training widths (1,024 x 896 x 4 B = 3.7 MB)
+BWD_SLOTS = 1024
 
 
 class NormPlan(NamedTuple):
@@ -69,6 +79,14 @@ def norm_plan(rows: int, d: int, elt: int, *, threads_per_row: int | None = None
         raise ValueError(f"rmsnorm: {per_cta} rows of {tpr} threads exceed a CTA of "
                          f"{ROW_THREADS[-1]}")
     return NormPlan(tpr, per_cta, vectors, -(-rows // per_cta))
+
+
+def norm_backward_plan(rows: int, d: int, elt: int) -> NormPlan:
+    """The backward's launch: the forward's row layout (``norm_plan``) on at
+    most ``BWD_SLOTS // rows_per_cta`` CTAs, each walking the row groups that
+    many apart; ``ctas`` x ``rows_per_cta`` slots of dscale sums."""
+    plan = norm_plan(rows, d, elt)
+    return plan._replace(ctas=min(plan.ctas, max(1, BWD_SLOTS // plan.rows_per_cta)))
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor, name: str) -> None:
@@ -112,21 +130,42 @@ def _plan(x: torch.Tensor) -> NormPlan:
 
 def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, gy: torch.Tensor,
                      eps: float = 1e-6, gs: torch.Tensor | None = None):
-    """(dx, dscale) of y = x * rstd * (1 + scale), rstd = rsqrt(mean(x^2) + eps),
-    in fp32: with u = gy * (1 + scale) and x_hat = x * rstd,
-    dx = rstd * (u - x_hat * mean(u * x_hat)) and dscale = sum over rows of
-    gy * x_hat. ``gs``, the gradient reaching ``x`` directly (``rmsnorm_add``'s
-    s), is added to dx."""
-    xf = x.float()
-    rstd = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    xhat = xf * rstd
-    g = gy.float()
-    u = g * (1.0 + scale.float())
-    dx = rstd * (u - xhat * torch.mean(u * xhat, dim=-1, keepdim=True))
-    dscale = (g * xhat).reshape(-1, x.shape[-1]).sum(0)
-    if gs is not None:
-        dx = dx + gs.float()
-    return dx.to(x.dtype), dscale.to(scale.dtype)
+    """(dx, dscale) of ``rmsnorm(x, scale, eps)`` given ``gy``; ``gs``, the
+    gradient reaching ``x`` directly (``rmsnorm_add``'s s), is added to dx.
+    Each in its input's dtype. CPU tensors take the plain fp32 version; CUDA
+    tensors the backward kernel, which takes what the forward takes (fp32 or
+    bf16, contiguous, rows of whole 16-byte vectors); anything else raises."""
+    if x.device.type == "cpu":
+        return rmsnorm_backward_reference(x, scale, gy, eps, gs)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_backward runs on the CPU or a CUDA card, not {x.device}")
+    _check(x, scale, "rmsnorm_backward")
+    for name, t in (("gy", gy), ("gs", gs)):
+        if t is not None and (t.dtype != x.dtype or t.shape != x.shape or t.device != x.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be x's {tuple(x.shape)} {x.dtype} on {x.device}, "
+                             f"contiguous; got {tuple(t.shape)} {t.dtype} on {t.device}")
+    _build.check_cuda_tensors(x=x, scale=scale, gy=gy, **({} if gs is None else {"gs": gs}))
+    d = x.shape[-1]
+    plan = norm_backward_plan(x.numel() // d if d else 0, d, x.element_size())
+    grads = _launch_backward(x, scale, gy, gs, eps, plan)
+    rmsnorm_backward.launches += 1
+    return grads
+
+
+def _launch_backward(x, scale, gy, gs, eps: float, plan: NormPlan):
+    """One call of the backward's C entry (the row pass and the dscale sum)."""
+    d = x.shape[-1]
+    dx, dscale = torch.empty_like(x), torch.empty_like(scale)
+    partial = torch.empty((plan.ctas * plan.rows_per_cta, d), dtype=torch.float32,
+                          device=x.device)
+    fn = _build.function("rmsnorm", "rmsnorm_backward_launch", _BWD_ARGS)
+    code = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), scale.data_ptr(), gy.data_ptr(),
+              None if gs is None else gs.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+              partial.data_ptr(), x.numel() // d, d, eps, plan.threads_per_row,
+              plan.rows_per_cta, plan.vectors, plan.ctas, _build.stream_handle())
+    _build.check(code, "rmsnorm")
+    return dx, dscale
 
 
 class _Norm(torch.autograd.Function):
@@ -142,7 +181,7 @@ class _Norm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, scale = ctx.saved_tensors
-        dx, dscale = rmsnorm_backward(x, scale, gy, ctx.eps)
+        dx, dscale = rmsnorm_backward(x, scale, gy.contiguous(), ctx.eps)
         return dx, dscale, None, None
 
 
@@ -160,7 +199,7 @@ class _NormAdd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gs, gy):
         s, scale = ctx.saved_tensors
-        ds, dscale = rmsnorm_backward(s, scale, gy, ctx.eps, gs)
+        ds, dscale = rmsnorm_backward(s, scale, gy.contiguous(), ctx.eps, gs.contiguous())
         return ds, ds, dscale, None, None
 
 
@@ -213,3 +252,4 @@ def rmsnorm_add(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
 
 rmsnorm.launches = 0
 rmsnorm_add.launches = 0
+rmsnorm_backward.launches = 0

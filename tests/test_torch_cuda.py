@@ -1128,11 +1128,13 @@ def test_simulate_fleet_one_row_repeats_bit_for_bit(gen):  # gen: skips without 
 
 
 # ---------------------------------------------------------------------------
-# training: the kernels under autograd (bf16 forward kernels, fp32 torch
-# backwards) against autograd through the plain versions in float32 on the
+# training: the kernels under autograd (bf16 forward kernels, the backward
+# kernels) against autograd through the plain versions in float32 on the
 # same bf16-valued inputs. Each gradient is held by its rel-L2, 1e-2: the
-# kernel's bf16 output (which the flash backward's D = rowsum(dO * O) reads)
-# and the gradients' storage in bf16 each round at 2^-8.
+# kernel's bf16 output (which the flash backward's D = rowsum(dO * O) reads),
+# P and dS rounded to bf16 on the tensor cores and the gradients' storage in
+# bf16 each round at 2^-8. Every backward launch goes to the kernel (its
+# counter), and two backward calls on the same inputs are bit-equal.
 
 GRAD_REL_L2 = 1e-2
 
@@ -1146,22 +1148,64 @@ def _rel_l2(got, want):
     (1, 600, 600, 8, 4, 256, True, 256, 50.0),  # gemma2's local layer
     (2, 37, 300, 16, 16, 64, False, 0, 0.0),  # seamless's cross-attention
     (1, 100, 333, 4, 2, 128, True, 0, 0.0),  # the queries the tail of the keys
+    (2, 77, 77, 4, 2, 16, True, 0, 0.0),  # the reduced configs' head dim, ragged
+    (1, 130, 130, 6, 3, 32, True, 40, 30.0),  # hd 32, window and soft-cap
+    (1, 300, 300, 32, 8, 128, True, 0, 0.0),  # jamba's 32 heads on 8
+    (2, 300, 100, 16, 16, 64, False, 0, 0.0),  # more queries than keys, unmasked
 ])
 def test_flash_attention_gradients_on_the_card(gen, B, Sq, Skv, H, K, hd, causal, window,
                                                softcap):
+    from repro_torch.kernels.flash_attention import ops as fa
+
     q = randn(gen, B, Sq, H, hd).requires_grad_()
     k, v = (randn(gen, B, Skv, K, hd).requires_grad_() for _ in range(2))
     do = randn(gen, B, Sq, H, hd)
-    before = flash_attention.launches
+    before = (flash_attention.launches, fa.flash_attention_backward.launches)
     out = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap, chunk=256)
-    assert flash_attention.launches == before + 1 and out.grad_fn is not None
+    assert flash_attention.launches == before[0] + 1 and out.grad_fn is not None
     got = torch.autograd.grad(out, (q, k, v), do)
+    assert fa.flash_attention_backward.launches == before[1] + 1  # the kernel, once
     leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
     ref = flash_attention_reference(*leaves, causal=causal, window=window, softcap=softcap)
     want = torch.autograd.grad(ref, leaves, do.float())
     torch.testing.assert_close(out.float(), ref.detach(), **BF16)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16 and _rel_l2(g, w) <= GRAD_REL_L2
+    # bit-equal on a second call: no atomics in the backward
+    kw = dict(causal=causal, window=window, softcap=softcap, chunk=256)
+    o, lse = fa._launch(q.detach(), k.detach(), v.detach(), causal=causal, window=window,
+                        softcap=softcap, return_lse=True)
+    assert torch.equal(o, out.detach())  # the LSE leaves the output's bits alone
+    args = (q.detach(), k.detach(), v.detach(), o, do)
+    again = fa.flash_attention_backward(*args, **kw, lse=lse)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_flash_attention_backward_refuses_what_it_cannot_take(gen):
+    """The backward kernel needs the forward's LSE and takes what the forward
+    takes; anything else raises, with no launch and no fall-back."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    q, k, v, do = randn(gen, 1, 40, 4, 64), randn(gen, 1, 40, 2, 64), randn(gen, 1, 40, 2, 64), \
+        randn(gen, 1, 40, 4, 64)
+    o, lse = fa._launch(q, k, v, causal=True, window=0, softcap=0.0, return_lse=True)
+    kw = dict(causal=True, window=0, softcap=0.0, chunk=16)
+    before = fa.flash_attention_backward.launches
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        fa.flash_attention_backward(q, k, v, o, do, **kw)  # no lse
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        fa.flash_attention_backward(q, k, v, o, do, **kw, lse=lse[:, :2].contiguous())
+    with pytest.raises(TypeError):
+        fa.flash_attention_backward(q.float(), k.float(), v.float(), o.float(), do.float(),
+                                    **kw, lse=lse)
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward(q, k, v, o, do[:, :, :, ::2], **kw, lse=lse)
+    q48 = randn(gen, 1, 40, 4, 48)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_backward(q48, randn(gen, 1, 40, 2, 48), randn(gen, 1, 40, 2, 48), q48,
+                                    q48, **kw, lse=lse)
+    assert fa.flash_attention_backward.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1170,26 +1214,71 @@ def test_rmsnorm_gradients_on_the_card(gen, dtype):
     r = randn(gen, 2, 512, 896, dtype=dtype).requires_grad_()
     sc = (randn(gen, 896, dtype=dtype) * 0.3).requires_grad_()
     gs, gy = randn(gen, 2, 512, 896, dtype=dtype), randn(gen, 2, 512, 896, dtype=dtype)
-    before = (rmsnorm.launches, rmsnorm_add.launches)
+    before = (rmsnorm.launches, rmsnorm_add.launches, norm_ops.rmsnorm_backward.launches)
     y = rmsnorm(x, sc, 1e-6)
     s, y2 = rmsnorm_add(x, r, sc, 1e-6)
     assert (rmsnorm.launches, rmsnorm_add.launches) == (before[0] + 1, before[1] + 1)
     assert y.grad_fn is not None and y2.grad_fn is not None
     got = torch.autograd.grad((y, s, y2), (x, r, sc), (gy, gs, gy))
+    assert norm_ops.rmsnorm_backward.launches == before[2] + 2  # one kernel call per entry
     leaves = [t.detach().float().requires_grad_() for t in (x, r, sc)]
     ref_s, ref_y2 = rmsnorm_add_reference(*leaves, 1e-6)
     outs = (rmsnorm_reference(leaves[0], leaves[2], 1e-6), ref_s, ref_y2)
     want = torch.autograd.grad(outs, leaves, (gy.float(), gs.float(), gy.float()))
     for g, w in zip(got, want):
         assert g.dtype == dtype and _rel_l2(g, w) <= GRAD_REL_L2
+    # bit-equal on a second call: dscale's sums over CTAs in a fixed order
+    xs = s.detach()
+    first = norm_ops.rmsnorm_backward(xs, sc.detach(), gy, 1e-6, gs)
+    second = norm_ops.rmsnorm_backward(xs, sc.detach(), gy, 1e-6, gs)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("shape", [(5, 16), (3, 97, 256), (8192, 896), (4096, 4096),
+                                   (7, 3584), (2, 1024)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_backward_every_width(gen, shape, dtype):
+    """The backward kernel against the plain fp32 backward at the widths
+    norm_plan takes (one row of 16 up to 4096, ragged row counts), with gs
+    and without: bf16 by rel-L2 1e-2, fp32 to 1e-5 of each gradient's
+    largest entry (fp32 sums in another order)."""
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_reference
+
+    x, sc = randn(gen, *shape, dtype=dtype) * 3, randn(gen, shape[-1], dtype=dtype) * 0.3
+    gy, gs = randn(gen, *shape, dtype=dtype), randn(gen, *shape, dtype=dtype)
+    for g_s in (None, gs):
+        got = norm_ops.rmsnorm_backward(x, sc, gy, 1e-6, g_s)
+        want = rmsnorm_backward_reference(x.float(), sc.float(), gy.float(), 1e-6,
+                                          None if g_s is None else g_s.float())
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            if dtype == torch.bfloat16:
+                assert _rel_l2(g, w) <= GRAD_REL_L2
+            else:
+                assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_rmsnorm_backward_refuses_what_it_cannot_take(gen):
+    x, sc, gy = randn(gen, 4, 64), randn(gen, 64), randn(gen, 4, 64)
+    before = norm_ops.rmsnorm_backward.launches
+    with pytest.raises(ValueError):
+        norm_ops.rmsnorm_backward(x, sc, gy.float())
+    with pytest.raises(ValueError):
+        norm_ops.rmsnorm_backward(x, sc, gy, 1e-6, gy[:2])
+    with pytest.raises(TypeError):
+        norm_ops.rmsnorm_backward(x.half(), sc.half(), gy.half())
+    with pytest.raises(ValueError):
+        norm_ops.rmsnorm_backward(randn(gen, 4, 12), randn(gen, 12), randn(gen, 4, 12))
+    assert norm_ops.rmsnorm_backward.launches == before
 
 
 def test_the_loss_gradient_reaches_layer_0_through_the_kernels(gen):
     """No silent detachment: the reduced internvl2 in bf16 with remat "full"
     on the card, one loss and backward: every kernel launched as the train
-    phase counts them, and the gradients of layer 0's wq and the embedding
-    nonzero and within 5e-2 rel-L2 of the same weights' float32 gradients on
-    the CPU (bf16 against float32 over two layers)."""
+    phase counts them (the backward kernels once per forward op), and the
+    gradients of layer 0's wq and the embedding nonzero and within 5e-2
+    rel-L2 of the same weights' float32 gradients on the CPU (bf16 against
+    float32 over two layers)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1200,12 +1289,15 @@ def test_the_loss_gradient_reaches_layer_0_through_the_kernels(gen):
                               remat="full")
     model = LM(cfg, seed=0).requires_grad_(True)
     batch = make_batch(cfg, 2, 64)
-    ops = (rmsnorm, rmsnorm_add, flash_attention)
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    ops = (rmsnorm, rmsnorm_add, flash_attention, fa.flash_attention_backward,
+           norm_ops.rmsnorm_backward)
     before = [op.launches for op in ops]
     loss, _ = loss_fn(model, batch)
     loss.backward()
     L = cfg.num_layers
-    assert [op.launches - b for op, b in zip(ops, before)] == [2, 4 * L - 1, 2 * L]
+    assert [op.launches - b for op, b in zip(ops, before)] == [2, 4 * L - 1, 2 * L, L, 2 * L + 1]
     cpu = LM(dataclasses.replace(cfg, dtype="float32"), device="cpu").requires_grad_(True)
     cpu.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
     cpu_loss, _ = loss_fn(cpu, {k: v.cpu() for k, v in batch.items()})
