@@ -406,11 +406,12 @@ DECISION_SHAPES = ((ACCEPT_EPOCHS, ACCEPT_CLIENTS, 5),
 # same association); the phase's budget is 90 s, the deadline twice that
 RANKS, RANK_SUM_RTOL, RANKS_DEADLINE_S = 4, 1e-12, 180.0
 # the tail path's sizes: p99, the fleet sweep's grid, a 512-row sample held
-# against the scalar tail; the SLO city pool cut to 300 of the mean-mode
+# against the scalar tail; the SLO city pool cut to 150 of the mean-mode
 # city's 600 epochs (600 took 112 s on the card, past the 90 s this run may
-# take alone), clients and edges whole
+# take alone; 300 took 83 s where the whole script passed 1,000 s), clients
+# and edges whole
 TAIL_Q, TAIL_SAMPLE = 0.99, 512
-CITY_SLO_EPOCHS = 300
+CITY_SLO_EPOCHS = 150
 
 
 def log(msg: str) -> None:
@@ -4313,9 +4314,11 @@ TRAIN_STEPS, TRAIN_B, TRAIN_S = 30, 2, 4096
 # ---------------------------------------------------------------------------
 # the backward kernels of flash attention and RMSNorm (the training path's)
 
-# the backward kernels' names in a profile (csrc/flash_attention.cu's three,
-# csrc/rmsnorm.cu's two, csrc/ssm_scan.cu's), for their device time a step
-BACKWARD_KERNEL_NAMES = ("flash_bwd", "rmsnorm_bwd", "ssm_scan_bwd")
+# the backward kernels' names in a profile (csrc/flash_attention.cu's four,
+# then its dK/dV and dQ kernels apart, csrc/rmsnorm.cu's two,
+# csrc/ssm_scan.cu's), for their device time a step
+BACKWARD_KERNEL_NAMES = ("flash_bwd", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                         "rmsnorm_bwd", "ssm_scan_bwd")
 # each gradient's rel-L2 to the fp32 plain backward on the same bf16 values:
 # the forward's bf16 output (which D = rowsum(dO * O) reads), P and dS
 # rounded to bf16 on the tensor cores and the gradients stored in bf16 each
@@ -4334,6 +4337,8 @@ FLASH_GRAD_CASES = [
     (1, 300, 400, 32, 8, 128, True, 0, 0.0, 1.0, "jamba's heads, the queries a tail"),
     (2, 77, 77, 4, 2, 16, True, 0, 0.0, 1.0, "the reduced configs' hd 16, ragged"),
     (2, 130, 130, 6, 3, 32, True, 40, 30.0, 1.0, "hd 32, ragged, window and cap"),
+    (2, 4096, 4096, 14, 2, 64, True, 0, 0.0, 1.0, "internvl2's training shape, full size"),
+    (1, 4096, 4096, 32, 8, 128, True, 0, 0.0, 1.0, "jamba's attention layer, full size"),
 ]
 # (rows shape, dtype, with gs, what)
 NORM_GRAD_CASES = [
@@ -4373,9 +4378,11 @@ def phase_check_flash_grad(torch, ck: Checker) -> None:
     head dim, each gradient by rel-L2: through the wrapper under grad (one
     forward and one backward launch) and from the forward's saved LSE; the
     LSE against the plain one; the forward's output with and without the LSE
-    bit-equal; two backward calls bit-equal; and two planted faults (the
-    causal mask dropped, the LSE off by 0.5) that must fail. Then the RMSNorm
-    backward kernel the same way, at both entries and dtypes."""
+    bit-equal; two backward calls bit-equal; and three planted faults that
+    must fail: the causal mask dropped, the LSE off by 0.5, and the band of
+    keys cut 64 keys short for the last 64 query rows (a window of Sq - 64:
+    the seam where the dK/dV and dQ sweeps choose the tiles they visit). Then
+    the RMSNorm backward kernel the same way, at both entries and dtypes."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_backward_reference,
@@ -4425,7 +4432,9 @@ def phase_check_flash_grad(torch, ck: Checker) -> None:
                 faults = {"the causal mask dropped": fa._launch_backward(
                               q, k, v, out, do, lse, causal=False, window=0, softcap=0.0),
                           "the LSE 0.5 too high": fa._launch_backward(
-                              q, k, v, out, do, lse + 0.5, **kw)}
+                              q, k, v, out, do, lse + 0.5, **kw),
+                          "the key band 64 keys short for the last 64 rows": fa._launch_backward(
+                              q, k, v, out, do, lse, causal=True, window=Sq - 64, softcap=0.0)}
                 for fault, grads in faults.items():
                     worst = max(names, key=lambda n: _rel(grads[names.index(n)],
                                                           want[names.index(n)]))
@@ -4489,12 +4498,14 @@ def phase_time_backwards(torch, F) -> dict:
     """The two backward kernels at the training path's shapes: device time
     per call by CUDA-graph replay beside the bound, the plain version's (one
     call in a graph) and a library yardstick the port never calls. Flash at
-    internvl2's (2, 4096, 14 on 2, 64) causal: the yardstick is SDPA with
-    ``enable_gqa`` forward + backward through autograd minus its forward
-    (CUDA events around eager calls); beside it the forward kernel with and
-    without the LSE and SDPA's forward. RMSNorm at (8192, 896) bf16 with gs
-    (the fused entry's backward) and without: the yardstick autograd through
-    ``F.rms_norm`` (forward + backward minus forward)."""
+    internvl2's (2, 4096, 14 on 2, 64) and jamba's (1, 4096, 32 on 8, 128)
+    causal, each with its kernels' split (profiled): the yardstick is SDPA with
+    ``enable_gqa`` forward + backward through autograd minus its forward, by
+    CUDA-graph replay and, beside it, eager on CUDA events; at internvl2's the
+    forward kernel with and without the LSE and SDPA's forward. RMSNorm at
+    (8192, 896) bf16 with gs (the fused entry's backward) and without: the
+    yardstick autograd through ``F.rms_norm`` (forward + backward minus
+    forward)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_backward_reference
     from repro_torch.kernels.rmsnorm import ops as rn
@@ -4513,64 +4524,76 @@ def phase_time_backwards(torch, F) -> dict:
         except Exception as exc:  # a yardstick that does not run is reported, not gated
             return None, None, f"{type(exc).__name__}: {exc}"
 
-    out: dict = {}
-    B, S, H, K, hd = TRAIN_B, TRAIN_S, 14, 2, 64
-    q, k, v, do = randn(B, S, H, hd), randn(B, S, K, hd), randn(B, S, K, hd), randn(B, S, H, hd)
-    kw = dict(causal=True, window=0, softcap=0.0)
-    o, lse = fa._launch(q, k, v, **kw, return_lse=True)
-    pairs = S * (S + 1) // 2
-    nbytes = 2 * (4 * B * S * H * hd + 4 * B * S * K * hd) + 4 * B * H * S
-    b_ms, b_by = bound(nbytes, 5 * 2 * hd * pairs * B * H, BF16_OPS)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    dot = do.transpose(1, 2)
+    def sdpa_yardstick(q, k, v, do) -> dict:
+        """SDPA (``enable_gqa``) forward + backward through autograd minus its
+        forward: device time by CUDA-graph replay, and eager on CUDA events."""
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2)
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        def fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
-    lib, lib_fwd, lib_err = minus(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), sdpa)
-    with torch.no_grad():
+        def both():
+            return torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+        r = {"library_error": None}
         try:
-            sdpa_fwd = device_ms(torch, sdpa)
-        except Exception as exc:
-            sdpa_fwd, lib_err = None, f"{lib_err}; forward: {type(exc).__name__}: {exc}"
-    r = dict(shape=f"q, o, do ({B},{S},{H},{hd}) kv ({S},{K}) bf16 causal (internvl2 training)",
-             ms=device_ms(torch, lambda: fa.flash_attention_backward(q, k, v, o, do, **kw,
-                                                                     chunk=512, lse=lse)),
-             plain_ms=device_ms(torch, lambda: flash_attention_backward_reference(
-                 q, k, v, o, do, **kw, chunk=512), calls=1, replays=1),
-             library_ms=lib, library_forward_ms=lib_fwd, library_error=lib_err,
-             bound_ms=b_ms, bound_by=b_by,
-             eager_ms=eager_ms(torch, lambda: fa.flash_attention_backward(
-                 q, k, v, o, do, **kw, chunk=512, lse=lse), iters=10, warmup=2),
-             forward_lse_ms=device_ms(torch, lambda: fa._launch(q, k, v, **kw, return_lse=True)),
-             forward_ms=device_ms(torch, lambda: fa._launch(q, k, v, **kw)),
-             forward_bound_ms=bound(2 * (2 * B * S * H * hd + 2 * B * S * K * hd),
-                                    4 * hd * pairs * B * H, BF16_OPS)[0],
-             sdpa_forward_ms=sdpa_fwd)
-    out["flash_attention_backward"] = r
-    # jamba's attention layer (32 on 8 heads of 128)
-    jq, jk, jv, jdo = (randn(1, S, 32, 128), randn(1, S, 8, 128), randn(1, S, 8, 128),
-                       randn(1, S, 32, 128))
-    jo, jlse = fa._launch(jq, jk, jv, **kw, return_lse=True)
-    out["jamba"] = dict(
-        shape=f"q, o, do (1,{S},32,128) kv ({S},8) bf16 causal (jamba's attention layer)",
-        bound_ms=bound(2 * (4 * S * 32 * 128 + 4 * S * 8 * 128) + 4 * 32 * S,
-                       5 * 2 * 128 * pairs * 32, BF16_OPS)[0],
-        ms=device_ms(torch, lambda: fa.flash_attention_backward(jq, jk, jv, jo, jdo, **kw,
-                                                                chunk=512, lse=jlse)))
-    log(f"[time] {'flash_bwd':16s} {out['jamba']['shape']}: kernel {out['jamba']['ms']:.4f} ms  "
-        f"bound {out['jamba']['bound_ms']:.5f} ms")
-    del jq, jk, jv, jdo, jo, jlse
-    lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
-    log(f"[time] {'flash_bwd':16s} {r['shape']:44s} kernel {r['ms']:.4f} ms  plain "
-        f"{r['plain_ms']:.4f} ms  library (SDPA fwd+bwd - fwd) {lib_s}  bound {b_ms:.5f} ms "
-        f"({b_by});  eager from Python: kernel {r['eager_ms']:.4f} ms"
-        f"{'; library error: ' + lib_err if lib_err else ''}")
-    log(f"[time] {'flash_attention':16s} forward at the training shape: {r['forward_ms']:.4f} ms, "
-        f"with the LSE {r['forward_lse_ms']:.4f} ms (bound {r['forward_bound_ms']:.5f} ms); SDPA "
-        f"forward {'n/a' if sdpa_fwd is None else f'{sdpa_fwd:.4f} ms'}")
-    del q, k, v, do, o, lse, qt, kt, vt, dot
-    torch.cuda.empty_cache()
+            r["library_forward_ms"] = device_ms(torch, fwd)
+            r["library_ms"] = device_ms(torch, both) - r["library_forward_ms"]
+        except Exception as exc:  # a yardstick that does not run is reported, not gated
+            r.update(library_ms=None, library_forward_ms=None,
+                     library_error=f"graph: {type(exc).__name__}: {exc}")
+        r["library_eager_ms"], r["library_forward_eager_ms"], err = minus(both, fwd)
+        if err:
+            r["library_error"] = f"{r['library_error'] or ''}; eager: {err}"
+        return r
+
+    def flash_row(B, S, H, K, hd, what) -> dict:
+        q, k, v, do = randn(B, S, H, hd), randn(B, S, K, hd), randn(B, S, K, hd), \
+            randn(B, S, H, hd)
+        o, lse = fa._launch(q, k, v, **kw, return_lse=True)
+        pairs = S * (S + 1) // 2
+        nbytes = 2 * (4 * B * S * H * hd + 4 * B * S * K * hd) + 4 * B * H * S
+        b_ms, b_by = bound(nbytes, 5 * 2 * hd * pairs * B * H, BF16_OPS)
+
+        def kernel():
+            return fa.flash_attention_backward(q, k, v, o, do, **kw, chunk=512, lse=lse)
+
+        r = dict(shape=f"q, o, do ({B},{S},{H},{hd}) kv ({S},{K}) bf16 causal ({what})",
+                 ms=device_ms(torch, kernel), bound_ms=b_ms, bound_by=b_by,
+                 plain_ms=device_ms(torch, lambda: flash_attention_backward_reference(
+                     q, k, v, o, do, **kw, chunk=512), calls=1, replays=1),
+                 eager_ms=eager_ms(torch, kernel, iters=10, warmup=2),
+                 plan=list(fa.backward_plan(B, S, S, H, K, hd)[:7]), **sdpa_yardstick(q, k, v, do))
+        prof = profile_calls(torch, f"flash backward {r['shape']}", kernel, n=5,
+                             sums=("flash_bwd_stats", "flash_bwd_dkdv_kernel",
+                                   "flash_bwd_dkdv_sum", "flash_bwd_dq_kernel"))
+        r["kernels_ms"] = prof["sums"] if prof else None
+        lib_s = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"[time] {'flash_bwd':16s} {r['shape']:44s} kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library (SDPA fwd+bwd - fwd, graph replay) {lib_s}, eager "
+            f"{r['library_eager_ms']}  bound {b_ms:.5f} ms ({b_by});  eager from Python: kernel "
+            f"{r['eager_ms']:.4f} ms; by kernel {r['kernels_ms']}"
+            f"{'; library error: ' + r['library_error'] if r['library_error'] else ''}")
+        if hd == 64:  # beside it, the forward kernel with and without the LSE and SDPA's
+            r.update(forward_lse_ms=device_ms(torch, lambda: fa._launch(q, k, v, **kw,
+                                                                        return_lse=True)),
+                     forward_ms=device_ms(torch, lambda: fa._launch(q, k, v, **kw)),
+                     forward_bound_ms=bound(2 * (2 * B * S * H * hd + 2 * B * S * K * hd),
+                                            4 * hd * pairs * B * H, BF16_OPS)[0],
+                     sdpa_forward_ms=r["library_forward_ms"])
+            log(f"[time] {'flash_attention':16s} forward at the training shape: "
+                f"{r['forward_ms']:.4f} ms, with the LSE {r['forward_lse_ms']:.4f} ms (bound "
+                f"{r['forward_bound_ms']:.5f} ms); SDPA forward (under grad) "
+                f"{r['library_forward_ms']}")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+        return r
+
+    out: dict = {}
+    kw = dict(causal=True, window=0, softcap=0.0)
+    out["flash_attention_backward"] = flash_row(TRAIN_B, TRAIN_S, 14, 2, 64, "internvl2 training")
+    out["jamba"] = flash_row(1, TRAIN_S, 32, 8, 128, "jamba's attention layer")
 
     rows, d = TRAIN_B * TRAIN_S, 896
     x, sc, gy, gs = randn(rows, d, scale=3.0), randn(d, scale=0.3), randn(rows, d), randn(rows, d)
@@ -4908,9 +4931,13 @@ def phase_train(torch, refs) -> dict:
         f"the backward {bwd_ms / (fwd_ms + bwd_ms):.1%} of the two{share}")
     if prof:
         kern = sum(prof["sums"][k] for k in ("flash_bwd", "rmsnorm_bwd"))
+        flash = prof["sums"]["flash_bwd"]
         out["train"].update(backward_kernels_ms=kern, backward_kernels_share=kern / bwd_ms)
         log(f"[train] the flash and RMSNorm backward kernels: {kern:.3f} ms of device time a "
-            f"step ({kern / bwd_ms:.1%} of the backward's {bwd_ms:.3f} ms)")
+            f"step ({kern / bwd_ms:.1%} of the backward's {bwd_ms:.3f} ms); flash's "
+            f"{flash:.3f} ms ({flash / prof['device_ms']:.1%} of the step's device time): dK/dV "
+            f"{prof['sums']['flash_bwd_dkdv_kernel']:.3f}, dQ "
+            f"{prof['sums']['flash_bwd_dq_kernel']:.3f} ms")
     del trainer, model, state, batch
     gc.collect()
     torch.cuda.empty_cache()

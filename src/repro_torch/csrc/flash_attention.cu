@@ -407,126 +407,114 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 
 // ---------------------------------------------------------------------------
 // Backward (no TPU counterpart: the reference differentiates its attention
-// with XLA). FlashAttention-2's split, with no atomics, so
-// the same inputs give the same bits:
-// - delta: D = rowsum(dO * O) in fp32, a group of hd / 8 lanes per row;
-// - dK/dV: one CTA per (query head, 64-key tile, b) (and half of the head
-//   dim at hd 256), heaviest causal tiles first; four warps of 16 keys each
-//   sweep the query tiles that see the tile (cp.async, two stages). Per step
-//   S^T = K Q^T and dP^T = V dO^T, P^T = exp(S^T - lse) from the forward's
-//   log-sum-exp, dS^T = P^T (dP^T - D) (times the soft-cap's 1 - tanh^2 and
-//   the scale), then dV += P^T dO and dK += dS^T Q with P and dS rounded to
-//   bf16 as A operands straight from the accumulators. dK and dV stay in
-//   fp32 registers and are written once: in bf16 where a kv head has one
-//   query head, else as that head's fp32 part, and a fourth launch adds a
-//   kv head's G parts in head order (a CTA per kv head looping over its
-//   group would leave internvl2's training grid at 256 CTAs, all resident
-//   and waiting on the heaviest causal tile's G x 64 steps);
-// - dQ: one CTA per (q head, 64-query tile, b), heaviest causal tiles first;
-//   four warps of 16 queries sweep the kv tiles the rows see (two stages):
-//   S, dP and dS again, dQ += dS K in registers, written once.
-// Every product is mma.sync m16n8k16 (bf16 operands through ldmatrix from
-// padded rows, fp32 sums). Tiles outside the causal band or the window are
-// never visited; masks run only on tiles that cross an edge. Rows past Sq
-// and keys past Skv load as zeros and get P = 0.
-// Bound on the card: operations, 5 products of 2 Sq Skv hd per head (halved
-// by the causal mask), 0.152 ms at internvl2's (2, 4096, 14 on 2, 64); this
-// design does 7 (S and dP twice) on mma.sync, below wgmma's rate. Measured by
-// chip_smoke.py on an H100 80GB HBM3 at 700 W: 1.35 ms there, 2.84 ms at
-// jamba's (1, 4096, 32 on 8, 128).
+// with XLA). FlashAttention-2's split on the forward's Hopper machinery, with
+// no atomics, so the same inputs give the same bits. Three launches, four
+// where a kv head has several query heads:
+// - stats: per (b, h, row) the pair (lse log2 e, D = rowsum(dO * O)) in fp32,
+//   rows padded to STATS_PAD with (+inf, 0), so a query past Sq gets P = 0
+//   whatever its (zero-filled) tile holds;
+// - dK/dV: one CTA per (query head, 128-key tile, b, 64 of hd's columns),
+//   heaviest causal tiles first. Two consumer warpgroups of 64 keys keep K
+//   and V resident in shared memory; a producer warp streams the Q and dO
+//   tiles of the query steps that see the key tile, with their stats, by TMA
+//   (a bulk copy for the stats) into a ring of DST stages, and gives up its
+//   registers (setmaxnreg 40). Per step S^T = K Q^T and dP^T = V dO^T (wgmma,
+//   both operands in shared memory), P^T = exp2(S^T - lse) and dS^T = P^T
+//   (dP^T - D) (the soft-cap's 1 - tanh^2 applied) on the accumulators, then
+//   dV += P^T dO and dK += dS^T Q (wgmma, P^T and dS^T as bf16 register A
+//   operands, dO and Q as transposed shared-memory B operands). dK and dV
+//   stay in fp32 registers and are written once (dK times the scale): in bf16
+//   where a kv head has one query head, else as that head's fp32 part, and a
+//   further launch adds a kv head's G parts in head order;
+// - dQ: one CTA per (query head, 128-query tile, b, 128 of hd's columns),
+//   heaviest causal tiles first, the forward's layout: Q and dO resident, K
+//   and V streamed through a ring; per step S = Q K^T and dP = dO V^T, P and
+//   dS on the accumulators, dQ += dS K (dS as register A operand, K as the
+//   transposed B operand); dQ stays in fp32 registers, written once.
+// Tiles outside the causal band or the window are never loaded (the ranges
+// are backward_plan's in kernels/flash_attention/ops.py, which the CPU tests
+// hold; the C entry refuses a plan whose tiles differ); the mask runs only on
+// tiles that cross an edge, as a second copy of the elementwise loop (a
+// per-element mask test on every tile cost more than the products); keys
+// past Skv are masked, rows past Sq read lse = +inf.
+// What bounds it: operations, 5 products of 2 Sq Skv hd per head, halved by
+// the causal mask (0.152 ms at internvl2's (2, 4096, 14 on 2, 64), 0.3475 ms
+// at jamba's (1, 4096, 32 on 8, 128)). This design does 7 (S and dP again in
+// the dQ kernel) and, at hd >= 128, S^T and dP^T once per 64-column split:
+// a CTA of 384 threads gets 168 registers a thread, and ptxas allocates no
+// more after setmaxnreg (a consumer holding dK and dV of 128 columns, 128
+// fp32 registers, spilled and ptxas serialized its wgmma). Registers and
+// shared memory (ptxas -v, sm_90a, CUDA 12.9): every dK/dV and dQ kernel 168
+// registers, no spills at any head dim; dK/dV 23,120 / 43,600 / 84,560 /
+// 166,480 / 198,200 bytes of shared memory at hd 16 / 32 / 64 / 128 / 256,
+// dQ 17,464 / 33,848 / 66,616 / 132,152 / 197,688; one CTA an SM.
+// dQ in a kernel of its own (design b) rather than folded into the dK/dV
+// sweep with a fixed-order fp32 sum (design a, 5 products): a folded build
+// (launch/flash_bwd_designs.py) was correct and bit-stable but 3.8-4x slower
+// (2.197 against 0.553 ms at internvl2's shape, 4.798 against 1.278 ms at
+// jamba's; H100 80GB HBM3, 700 W): each key tile waits in turn on the tile
+// before it for every query step it shares, and the dS^T staging and the
+// partial dQ overflow the 168 registers. PERF.md has the measurements.
 
 namespace bwd {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
+constexpr int NWG = 2;  // consumer warpgroups of both kernels, 64 rows each
+constexpr int THREADS = 128 * (NWG + 1);
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int STATS_PAD = 128;  // the stats' rows per (b, h) round up to this
 
 template <int HD>
 struct BCfg {
-  static constexpr int LD = HD + 8;                 // row stride in shared memory (elements):
-                                                    // ldmatrix rows on distinct banks
-  static constexpr int KV_ROWS = 16 * WARPS;        // keys per dK/dV CTA
-  static constexpr int BQ = HD >= 128 ? 32 : 64;    // queries per step of the dK/dV sweep
-  static constexpr int HDO = HD > 128 ? 128 : HD;   // dK/dV columns per CTA (registers)
+  static constexpr int BOXC = HD < 64 ? HD : 64;  // columns per TMA box (the forward's)
+  static constexpr int RB = BOXC * 2;             // bytes per box row = swizzle width
+  static constexpr int KPB = RB / 32;             // 16-column k-steps per box
+  // dK/dV kernel: BN keys resident, BQ queries a step, HDO of dK/dV's columns:
+  // 64 at most, so dK and dV take 64 fp32 registers a thread (a CTA at hd 128
+  // holding all 128 columns spills at the 168 registers a 384-thread CTA
+  // gets, and ptxas serializes its wgmma)
+  static constexpr int BN = 64 * NWG;
+  static constexpr int BQ = HD == 256 ? 32 : 64;
+  static constexpr int HDO = HD > 64 ? 64 : HD;
   static constexpr int NSPLIT = HD / HDO;
-  static constexpr int Q_ROWS = 16 * WARPS;         // queries per dQ CTA
-  static constexpr int BK = HD == 256 ? 32 : 64;    // keys per step of the dQ sweep
-  static constexpr int KV_TILE = KV_ROWS * LD * 2;  // bytes
-  static constexpr int QS_TILE = BQ * LD * 2;
-  static constexpr int DKV_BYTES = 2 * KV_TILE + 4 * QS_TILE + 4 * BQ * 4;
-  static constexpr int QT_TILE = Q_ROWS * LD * 2;
-  static constexpr int KS_TILE = BK * LD * 2;
-  static constexpr int DQ_BYTES = 2 * QT_TILE + 4 * KS_TILE + 2 * Q_ROWS * 4;
-  // CTAs per SM the registers are capped for: 3 at hd <= 64 (168 registers a
-  // thread, at most a 16-byte spill in ptxas' report, where uncapped the
-  // dK/dV kernel held two CTAs an SM), else 1 (the accumulators need more
-  // registers: capped, the wider head dims spill)
-  static constexpr int MIN_CTAS = HD <= 64 ? 3 : 1;
+  static constexpr int OFL = HDO / 2;                  // dK's, dV's accumulator floats
+  static constexpr int DST = HD == 256 ? 2 : 3;        // ring stages
+  static constexpr int KV_BYTES = BN * HD * 2;         // K or V
+  static constexpr int QS_BYTES = BQ * HD * 2;         // a step's Q or dO
+  static constexpr int ST_BYTES = BQ * 8;              // a step's (lse log2 e, D)
+  static constexpr int D_OFF_V = KV_BYTES;
+  static constexpr int D_OFF_Q = 2 * KV_BYTES;
+  static constexpr int D_OFF_O = D_OFF_Q + DST * QS_BYTES;
+  static constexpr int D_OFF_ST = D_OFF_O + DST * QS_BYTES;
+  static constexpr int D_OFF_BAR = D_OFF_ST + DST * ST_BYTES;
+  static constexpr int D_BYTES = D_OFF_BAR + 8 * (1 + 3 * DST) + 1024;  // + alignment slack
+  // dQ kernel: BM queries resident, BKV keys a step (32 at hd 256, as the
+  // forward), QHDO of dQ's columns (128 at most: 64 fp32 registers a thread)
+  static constexpr int BM = 64 * NWG;
+  static constexpr int BKV = HD == 256 ? 32 : 64;
+  static constexpr int QHDO = HD > 128 ? 128 : HD;
+  static constexpr int QSPLIT = HD / QHDO;
+  static constexpr int QST = 2;  // ring stages
+  static constexpr int QCH = QHDO < 64 ? 1 : QHDO / 64;  // 64-column chunks of dQ
+  static constexpr int QFL = QHDO < 64 ? QHDO / 2 : 32;
+  static constexpr int QT_BYTES = BM * HD * 2;
+  static constexpr int KS_BYTES = BKV * HD * 2;
+  static constexpr int Q_OFF_O = QT_BYTES;
+  static constexpr int Q_OFF_K = 2 * QT_BYTES;
+  static constexpr int Q_OFF_V = Q_OFF_K + QST * KS_BYTES;
+  static constexpr int Q_OFF_BAR = Q_OFF_V + QST * KS_BYTES;
+  static constexpr int Q_BYTES = Q_OFF_BAR + 8 * (1 + 3 * QST) + 1024;
+  static_assert(STATS_PAD % BQ == 0 && STATS_PAD % BM == 0, "a step's stats stay in the pad");
+  static_assert(D_BYTES <= 232448 && Q_BYTES <= 232448, "shared memory of one CTA");
 };
 
 struct BParams {
-  const bf16 *q, *k, *v, *dout;
-  const float *lse, *delta;  // (B, H, Sq)
-  bf16 *dq, *dk, *dv;        // contiguous (B, Sq, H, hd) and (B, Skv, K, hd)
-  float *part_k, *part_v;    // G > 1: each query head's dK, dV, (B, Skv, H, hd) fp32
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d_sb, d_ss, d_sh;
-  int H, K, G, Sq, Skv, q_offset, causal, window;
-  float scale, softcap, inv_softcap;
+  const float2* stats;  // (B, H, sq_pad): (lse log2 e, D), (+inf, 0) past Sq
+  bf16 *dq, *dk, *dv;   // contiguous (B, Sq, H, hd) and (B, Skv, K, hd)
+  float *part_k, *part_v;  // G > 1: each query head's dK, dV, (B, Skv, H, hd) fp32
+  int H, K, G, Sq, Skv, sq_pad, q_offset, causal, window;
+  float scale, softcap, inv_softcap, scale_log2e, softcap_log2e;
 };
-
-// rows [row0, row0 + ROWS) of head `head` of a (B, S, heads, HD) tensor into a
-// ROWS x LD tile, by cp.async; rows at or past S are zero-filled
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* base, long long sb,
-                                          long long ss, long long sh, int b, int head, int row0,
-                                          int S) {
-  constexpr int CH = HD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = row0 + r < S;
-    const bf16* src = ok ? base + b * sb + (row0 + r) * ss + head * sh + c * 8 : base;
-    repro::cp_async16(dst + (r * (HD + 8) + c * 8) * 2, src, ok ? 16 : 0);
-  }
-}
-
-// lse (as exp2 units) and D of rows [q0, q0 + ROWS) of (b, h); +inf and 0 past Sq
-template <int ROWS>
-__device__ __forceinline__ void load_stats(float* sl, float* sd, const BParams& p, int b, int h,
-                                           int q0) {
-  constexpr float LOG2E_ = 1.4426950408889634f;
-  const long long base = (static_cast<long long>(b) * p.H + h) * p.Sq;
-  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
-    const bool ok = q0 + i < p.Sq;
-    sl[i] = ok ? p.lse[base + q0 + i] * LOG2E_ : INFINITY;
-    sd[i] = ok ? p.delta[base + q0 + i] : 0.f;
-  }
-}
-
-// A fragment (16 x 16) of rows row0.., columns col0.. of a row-major tile
-__device__ __forceinline__ void ld_a(uint32_t (&a)[4], uint32_t tile, int ld, int row0,
-                                     int col0) {
-  const int l = threadIdx.x % 32;
-  repro::ldmatrix_x4(a, tile + ((row0 + l % 16) * ld + col0 + (l / 16) * 8) * 2);
-}
-// B fragments of two n8 blocks (n0.., n0 + 8..) over k0..k0 + 15 from a tile stored [n][k]
-__device__ __forceinline__ void ld_b_nk(uint32_t (&b)[4], uint32_t tile, int ld, int n0,
-                                        int k0) {
-  const int l = threadIdx.x % 32, mi = l / 8;
-  repro::ldmatrix_x4(b, tile + ((n0 + (mi >> 1) * 8 + l % 8) * ld + k0 + (mi & 1) * 8) * 2);
-}
-// the same from a tile stored [k][n] (transposed on the load)
-__device__ __forceinline__ void ld_b_kn(uint32_t (&b)[4], uint32_t tile, int ld, int k0,
-                                        int n0) {
-  const int l = threadIdx.x % 32, mi = l / 8;
-  repro::ldmatrix_x4_trans(b, tile + ((k0 + (mi & 1) * 8 + l % 8) * ld + n0 + (mi >> 1) * 8) * 2);
-}
-// accumulator n8 blocks 2j and 2j + 1 as the A fragment of k-chunk j, in bf16
-template <int N>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[N][4], int j) {
-  a[0] = repro::pack_bf16(c[2 * j][0], c[2 * j][1]);
-  a[1] = repro::pack_bf16(c[2 * j][2], c[2 * j][3]);
-  a[2] = repro::pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
-  a[3] = repro::pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
-}
 
 // key `key` visible to query row `qi` (qi < Sq, key < Skv, the masks)
 __device__ __forceinline__ bool visible(const BParams& p, int qi, int key) {
@@ -535,147 +523,231 @@ __device__ __forceinline__ bool visible(const BParams& p, int qi, int key) {
          (p.window <= 0 || key > pos - p.window);
 }
 
+// Must the pair of a key block [k_lo, k_end) and queries [q_lo, q_hi] be
+// masked (a key past Skv, or a pair across the causal or the window edge)?
+__device__ __forceinline__ bool block_masked(const BParams& p, int k_lo, int k_end, int q_lo,
+                                             int q_hi) {
+  return k_end > p.Skv || (p.causal && k_end - 1 > q_lo + p.q_offset) ||
+         (p.window > 0 && k_lo <= q_hi + p.q_offset - p.window);
+}
+
 // From the score s (Q K^T, unscaled) and dP of one (query, key): P into s and
-// dS (the scale and the soft-cap's derivative applied) into dp.
+// dS = P (dP - D), with the soft-cap's derivative, into dp. The scale of dS
+// is applied to dK and dQ once, in the epilogues.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 __device__ __forceinline__ void grad_entry(float& s, float& dp, float lse2, float d,
                                            const BParams& p, bool ok) {
-  constexpr float LOG2E_ = 1.4426950408889634f;
-  float x = s * p.scale, t = 0.f;
   if (p.softcap > 0.f) {
-    t = tanhf(x * p.inv_softcap);
-    x = p.softcap * t;
+    const float t = tanhf(s * p.scale * p.inv_softcap);
+    const float pr = ok ? ex2(p.softcap_log2e * t - lse2) : 0.f;
+    s = pr;
+    dp = pr * (dp - d) * (1.f - t * t);
+  } else {
+    const float pr = ok ? ex2(s * p.scale_log2e - lse2) : 0.f;
+    s = pr;
+    dp = pr * (dp - d);
   }
-  const float pr = ok ? exp2f(x * LOG2E_ - lse2) : 0.f;
-  float ds = pr * (dp - d);
-  if (p.softcap > 0.f) ds *= 1.f - t * t;
-  s = pr;
-  dp = ds * p.scale;
+}
+
+// An m64nN accumulator in bf16 as wgmma's A fragments (N / 16 of them): the
+// accumulator layout is the A layout.
+template <int N>
+__device__ __forceinline__ void pack_frags(const float (&c)[N], uint32_t (&a)[N / 8][4]) {
+  using repro::pack_bf16;
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// acc (64 x N) = A (64 rows of a K-major tile at `a`, ROWS_A rows a box) times
+// B^T (N rows of a K-major tile at `b`, ROWS_B rows a box), over HD: issued
+// and committed, not waited for.
+template <int HD, int ROWS_A, int ROWS_B, int N>
+__device__ __forceinline__ void issue_ss(float (&acc)[N], uint32_t a, uint32_t b) {
+  using C = BCfg<HD>;
+  using namespace repro;
+  zero(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int bx = kk / C::KPB, kin = kk % C::KPB;
+    const uint64_t da = wgmma_desc(a + bx * ROWS_A * C::RB + kin * 32, 16, 8 * C::RB, C::RB);
+    const uint64_t db = wgmma_desc(b + bx * ROWS_B * C::RB + kin * 32, 16, 8 * C::RB, C::RB);
+    wgmma_ss(acc, da, db, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// acc[c] (64 x 64 columns of chunk c) += A (registers, 64 x K) times B (K rows
+// of a tile at `b`, ROWS_B rows a box, read as the transposed operand from
+// box `box0` + c on): issued, not waited for.
+template <int HD, int ROWS_B, int K, int NC, int FL>
+__device__ __forceinline__ void issue_rs(float (&acc)[NC][FL], const uint32_t (&a)[K / 16][4],
+                                         uint32_t b, int box0) {
+  using C = BCfg<HD>;
+  using namespace repro;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const uint64_t db = wgmma_desc(b + (box0 + c) * ROWS_B * C::RB + kk * 16 * C::RB,
+                                     ROWS_B * C::RB, 8 * C::RB, C::RB);
+      wgmma_rs(acc[c], a[kk], db);
+    }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS, BCfg<HD>::MIN_CTAS)
-flash_bwd_dkdv_kernel(const BParams p) {
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap omap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, const BParams p) {
   using C = BCfg<HD>;
   using namespace repro;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const uint32_t sK = smem_u32(smem), sV = sK + C::KV_TILE, sQ0 = sV + C::KV_TILE;
-  float* rows0 = reinterpret_cast<float*>(smem + 2 * C::KV_TILE + 4 * C::QS_TILE);
-  const int split = blockIdx.x % C::NSPLIT, h = blockIdx.x / C::NSPLIT, kvh = h / p.G;
-  const int k0 = blockIdx.y * C::KV_ROWS, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles sit on 1 KB boundaries
+  const float2* sst = reinterpret_cast<const float2*>(smem_raw + (base - raw) + C::D_OFF_ST);
+  const uint32_t sK = base, sV = base + C::D_OFF_V, sQ = base + C::D_OFF_Q,
+                 sO = base + C::D_OFF_O, sS = base + C::D_OFF_ST;
+  const uint32_t kv_full = base + C::D_OFF_BAR;
+  auto q_full = [&](int s) { return kv_full + 8u * (1 + s); };
+  auto o_full = [&](int s) { return kv_full + 8u * (1 + C::DST + s); };
+  auto empty = [&](int s) { return kv_full + 8u * (1 + 2 * C::DST + s); };
 
-  // the queries that see a key of this tile, in BQ-row tiles
+  const int split = blockIdx.x % C::NSPLIT, h = blockIdx.x / C::NSPLIT, kvh = h / p.G;
+  const int k0 = blockIdx.y * C::BN, b = blockIdx.z;
+  // the query steps that see a key of this tile (backward_plan's dkdv_steps)
   const int q_lo = p.causal ? max(0, k0 - p.q_offset) : 0;
-  const int q_hi = p.window > 0 ? min(p.Sq, k0 + C::KV_ROWS - 1 + p.window - p.q_offset) : p.Sq;
+  const int q_hi = p.window > 0 ? min(p.Sq, k0 + C::BN - 1 + p.window - p.q_offset) : p.Sq;
   const int qt0 = q_lo / C::BQ;
   const int steps = q_hi > q_lo ? (q_hi + C::BQ - 1) / C::BQ - qt0 : 0;
 
-  load_rows<HD, C::KV_ROWS>(sK, p.k, p.k_sb, p.k_ss, p.k_sh, b, kvh, k0, p.Skv);
-  load_rows<HD, C::KV_ROWS>(sV, p.v, p.v_sb, p.v_ss, p.v_sh, b, kvh, k0, p.Skv);
-  auto issue = [&](int i) {  // step i: query tile qt0 + i
-    const int s = i & 1, q0 = (qt0 + i) * C::BQ;
-    const uint32_t sq = sQ0 + s * 2 * C::QS_TILE;
-    load_rows<HD, C::BQ>(sq, p.q, p.q_sb, p.q_ss, p.q_sh, b, h, q0, p.Sq);
-    load_rows<HD, C::BQ>(sq + C::QS_TILE, p.dout, p.d_sb, p.d_ss, p.d_sh, b, h, q0, p.Sq);
-    load_stats<C::BQ>(rows0 + s * 2 * C::BQ, rows0 + s * 2 * C::BQ + C::BQ, p, b, h, q0);
-  };
-  if (steps > 0) issue(0);
-  cp_async_commit();
-
-  float dk[C::HDO / 8][4], dv[C::HDO / 8][4];
-#pragma unroll
-  for (int n = 0; n < C::HDO / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const int key_a = k0 + warp * 16 + g;  // this thread's keys: key_a (c0, c1), key_a + 8 (c2, c3)
-
-  for (int i = 0; i < steps; ++i) {
-    if (i + 1 < steps) issue(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int s = i & 1, q0 = (qt0 + i) * C::BQ;
-    const uint32_t sQ = sQ0 + s * 2 * C::QS_TILE, sO = sQ + C::QS_TILE;
-    const float* sl = rows0 + s * 2 * C::BQ;
-    const float* sd = sl + C::BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries
-    float st[C::BQ / 8][4], dp[C::BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < C::BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      ld_a(ak, sK, C::LD, warp * 16, kk * 16);
-      ld_a(av, sV, C::LD, warp * 16, kk * 16);
-#pragma unroll
-      for (int np = 0; np < C::BQ / 16; ++np) {
-        uint32_t bq[4], bo[4];
-        ld_b_nk(bq, sQ, C::LD, np * 16, kk * 16);
-        ld_b_nk(bo, sO, C::LD, np * 16, kk * 16);
-        mma_bf16(st[2 * np], ak, bq[0], bq[1]);
-        mma_bf16(st[2 * np + 1], ak, bq[2], bq[3]);
-        mma_bf16(dp[2 * np], av, bo[0], bo[1]);
-        mma_bf16(dp[2 * np + 1], av, bo[2], bo[3]);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < C::DST; ++s) {
+      mbar_init(q_full(s), 1);
+      mbar_init(o_full(s), 1);
+      mbar_init(empty(s), NWG * 128);
     }
-    // P^T and dS^T; the mask only where the tile pair crosses an edge
-    const bool need_mask = q0 + C::BQ > p.Sq || k0 + C::KV_ROWS > p.Skv ||
-                           (p.causal && k0 + C::KV_ROWS - 1 > q0 + p.q_offset) ||
-                           (p.window > 0 && k0 <= q0 + C::BQ - 1 + p.q_offset - p.window);
-#pragma unroll
-    for (int n = 0; n < C::BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = n * 8 + 2 * t + (e & 1);
-        const bool ok = !need_mask || visible(p, q0 + ql, key_a + 8 * (e >> 1));
-        grad_entry(st[n][e], dp[n][e], sl[ql], sd[ql], p, ok);
-      }
-    // dV += P^T dO and dK += dS^T Q over the BQ queries, this CTA's columns
-#pragma unroll
-    for (int j = 0; j < C::BQ / 16; ++j) {
-      uint32_t ap[4], as[4];
-      acc_to_a(ap, st, j);
-      acc_to_a(as, dp, j);
-#pragma unroll
-      for (int cp = 0; cp < C::HDO / 16; ++cp) {
-        uint32_t bo[4], bq[4];
-        const int col = split * C::HDO + cp * 16;
-        ld_b_kn(bo, sO, C::LD, j * 16, col);
-        ld_b_kn(bq, sQ, C::LD, j * 16, col);
-        mma_bf16(dv[2 * cp], ap, bo[0], bo[1]);
-        mma_bf16(dv[2 * cp + 1], ap, bo[2], bo[3]);
-        mma_bf16(dk[2 * cp], as, bq[0], bq[1]);
-        mma_bf16(dk[2 * cp + 1], as, bq[2], bq[3]);
-      }
-    }
-    __syncthreads();  // this stage is reloaded by the next step's issue
+    mbar_fence_init();
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = key_a + 8 * half;
-    if (key >= p.Skv) continue;
-    const long long row = static_cast<long long>(b) * p.Skv + key;
-    if (p.G == 1) {
-      const long long off = (row * p.K + kvh) * HD + split * C::HDO + 2 * t;
-#pragma unroll
-      for (int n = 0; n < C::HDO / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(p.dk + off + n * 8) =
-            pack_bf16(dk[n][2 * half], dk[n][2 * half + 1]);
-        *reinterpret_cast<uint32_t*>(p.dv + off + n * 8) =
-            pack_bf16(dv[n][2 * half], dv[n][2 * half + 1]);
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);  // uniform
+  if (wg == NWG) {
+    // ---- producer: K and V once, then each step's Q, dO and stats ----
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == NWG * 128 && steps > 0) {
+      mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
+      for (int bx = 0; bx < HD / C::BOXC; ++bx) {
+        tma_load_4d(sK + bx * C::BN * C::RB, &kmap, kv_full, bx * C::BOXC, kvh, k0, b);
+        tma_load_4d(sV + bx * C::BN * C::RB, &vmap, kv_full, bx * C::BOXC, kvh, k0, b);
       }
-    } else {
-      const long long off = (row * p.H + h) * HD + split * C::HDO + 2 * t;
+      const float2* st = p.stats + (static_cast<long long>(b) * p.H + h) * p.sq_pad;
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % C::DST, q0 = (qt0 + i) * C::BQ;
+        mbar_wait(empty(s), ((i / C::DST) & 1) ^ 1);
+        mbar_expect_tx(q_full(s), C::QS_BYTES);
+        for (int bx = 0; bx < HD / C::BOXC; ++bx)
+          tma_load_4d(sQ + s * C::QS_BYTES + bx * C::BQ * C::RB, &qmap, q_full(s), bx * C::BOXC,
+                      h, q0, b);
+        mbar_expect_tx(o_full(s), C::QS_BYTES + C::ST_BYTES);
+        for (int bx = 0; bx < HD / C::BOXC; ++bx)
+          tma_load_4d(sO + s * C::QS_BYTES + bx * C::BQ * C::RB, &omap, o_full(s), bx * C::BOXC,
+                      h, q0, b);
+        bulk_load(sS + s * C::ST_BYTES, st + q0, C::ST_BYTES, o_full(s));
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: keys kw_lo .. kw_lo + 63 ----
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, qd = lane % 4;
+    const int kw_lo = k0 + wg * 64;
+    const int key_a = kw_lo + warp * 16 + lane / 4;  // rows of c0/c1; key_a + 8: c2/c3
+    float dk[1][C::OFL], dv[1][C::OFL];  // one 64-column chunk each (issue_rs's shape)
+    zero(dk[0]);
+    zero(dv[0]);
+    if (steps > 0) mbar_wait(kv_full, 0);
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % C::DST, q0 = (qt0 + i) * C::BQ;
+      const uint32_t ph = (i / C::DST) & 1;
+      float st[C::BQ / 2], dp[C::BQ / 2];
+      mbar_wait(q_full(s), ph);
+      issue_ss<HD, C::BN, C::BQ>(st, sK + wg * 64 * C::RB, sQ + s * C::QS_BYTES);
+      mbar_wait(o_full(s), ph);
+      issue_ss<HD, C::BN, C::BQ>(dp, sV + wg * 64 * C::RB, sO + s * C::QS_BYTES);
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dp);
+      const float2* ls = sst + s * C::BQ;
+      auto grads = [&](bool mask) {  // inlined twice: the mask only where a tile needs it
 #pragma unroll
-      for (int n = 0; n < C::HDO / 8; ++n) {
-        *reinterpret_cast<float2*>(p.part_k + off + n * 8) =
-            make_float2(dk[n][2 * half], dk[n][2 * half + 1]);
-        *reinterpret_cast<float2*>(p.part_v + off + n * 8) =
-            make_float2(dv[n][2 * half], dv[n][2 * half + 1]);
+        for (int j = 0; j < C::BQ / 2; ++j) {
+          const int col = 8 * (j / 4) + 2 * qd + (j & 1);
+          const float2 l = ls[col];
+          grad_entry(st[j], dp[j], l.x, l.y, p,
+                     !mask || visible(p, q0 + col, key_a + ((j & 2) ? 8 : 0)));
+        }
+      };
+      if (block_masked(p, kw_lo, kw_lo + 64, q0, min(q0 + C::BQ, p.Sq) - 1))
+        grads(true);
+      else
+        grads(false);
+      uint32_t pa[C::BQ / 16][4], sa[C::BQ / 16][4];
+      pack_frags(st, pa);
+      pack_frags(dp, sa);
+      fence_regs(pa);
+      fence_regs(sa);
+      fence_regs(dv[0]);
+      fence_regs(dk[0]);
+      wgmma_fence();
+      const int box0 = split * C::HDO / C::BOXC;
+      issue_rs<HD, C::BQ, C::BQ>(dv, pa, sO + s * C::QS_BYTES, box0);
+      issue_rs<HD, C::BQ, C::BQ>(dk, sa, sQ + s * C::QS_BYTES, box0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv[0]);
+      fence_regs(dk[0]);
+      fence_regs(pa);
+      fence_regs(sa);
+      mbar_arrive(empty(s));
+    }
+
+    // ---- epilogue: this thread's two keys, its pairs of columns ----
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = key_a + 8 * half;
+      if (key >= p.Skv) continue;
+      const long long row = static_cast<long long>(b) * p.Skv + key;
+#pragma unroll
+      for (int j = 2 * half; j < C::OFL; j += 4) {
+        const int col = split * C::HDO + 8 * (j / 4) + 2 * qd;
+        if (p.G == 1) {
+          const long long off = (row * p.K + kvh) * HD + col;
+          *reinterpret_cast<uint32_t*>(p.dk + off) =
+              pack_bf16(dk[0][j] * p.scale, dk[0][j + 1] * p.scale);
+          *reinterpret_cast<uint32_t*>(p.dv + off) = pack_bf16(dv[0][j], dv[0][j + 1]);
+        } else {
+          const long long off = (row * p.H + h) * HD + col;
+          *reinterpret_cast<float2*>(p.part_k + off) =
+              make_float2(dk[0][j] * p.scale, dk[0][j + 1] * p.scale);
+          *reinterpret_cast<float2*>(p.part_v + off) = make_float2(dv[0][j], dv[0][j + 1]);
+        }
       }
     }
   }
@@ -707,126 +779,149 @@ flash_bwd_dkdv_sum_kernel(const BParams p, long long n4) {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS, BCfg<HD>::MIN_CTAS)
-flash_bwd_dq_kernel(const BParams p) {
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap omap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, const BParams p) {
   using C = BCfg<HD>;
   using namespace repro;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const uint32_t sQ = smem_u32(smem), sO = sQ + C::QT_TILE, sK0 = sO + C::QT_TILE;
-  float* sl = reinterpret_cast<float*>(smem + 2 * C::QT_TILE + 4 * C::KS_TILE);
-  float* sd = sl + C::Q_ROWS;
-  const int h = blockIdx.x, b = blockIdx.z, kvh = h / p.G;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::Q_ROWS;  // heaviest causal tiles first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base, sO = base + C::Q_OFF_O, sK = base + C::Q_OFF_K,
+                 sV = base + C::Q_OFF_V;
+  const uint32_t qo_full = base + C::Q_OFF_BAR;
+  auto k_full = [&](int s) { return qo_full + 8u * (1 + s); };
+  auto v_full = [&](int s) { return qo_full + 8u * (1 + C::QST + s); };
+  auto empty = [&](int s) { return qo_full + 8u * (1 + 2 * C::QST + s); };
 
-  const int qpos_lo = q0 + p.q_offset, qpos_hi = min(q0 + C::Q_ROWS, p.Sq) - 1 + p.q_offset;
+  const int split = blockIdx.x % C::QSPLIT, h = blockIdx.x / C::QSPLIT, b = blockIdx.z;
+  const int kvh = h / p.G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BM;  // heaviest causal tiles first
+  // the key steps this query tile sees (backward_plan's dq_steps)
+  const int qpos_lo = q0 + p.q_offset, qpos_hi = min(q0 + C::BM, p.Sq) - 1 + p.q_offset;
   const int kv_end = p.causal ? min(p.Skv, qpos_hi + 1) : p.Skv;
   const int kv_begin = p.window > 0 ? max(0, qpos_lo - p.window + 1) : 0;
-  const int kt0 = kv_begin / C::BK;
-  const int steps = kv_end > kv_begin ? (kv_end + C::BK - 1) / C::BK - kt0 : 0;
+  const int t0 = kv_begin / C::BKV;
+  const int steps = kv_end > kv_begin ? (kv_end + C::BKV - 1) / C::BKV - t0 : 0;
 
-  load_rows<HD, C::Q_ROWS>(sQ, p.q, p.q_sb, p.q_ss, p.q_sh, b, h, q0, p.Sq);
-  load_rows<HD, C::Q_ROWS>(sO, p.dout, p.d_sb, p.d_ss, p.d_sh, b, h, q0, p.Sq);
-  load_stats<C::Q_ROWS>(sl, sd, p, b, h, q0);
-  auto issue = [&](int i) {
-    const uint32_t sk = sK0 + (i & 1) * 2 * C::KS_TILE;
-    const int j0 = (kt0 + i) * C::BK;
-    load_rows<HD, C::BK>(sk, p.k, p.k_sb, p.k_ss, p.k_sh, b, kvh, j0, p.Skv);
-    load_rows<HD, C::BK>(sk + C::KS_TILE, p.v, p.v_sb, p.v_ss, p.v_sh, b, kvh, j0, p.Skv);
-  };
-  if (steps > 0) issue(0);
-  cp_async_commit();
-
-  float dq[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-  const int row_a = warp * 16 + g;  // this thread's rows: row_a (c0, c1), row_a + 8 (c2, c3)
-
-  for (int i = 0; i < steps; ++i) {
-    if (i + 1 < steps) issue(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int j0 = (kt0 + i) * C::BK;
-    const uint32_t sK = sK0 + (i & 1) * 2 * C::KS_TILE, sV = sK + C::KS_TILE;
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x BK keys
-    float sc[C::BK / 8][4], dp[C::BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < C::BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      ld_a(aq, sQ, C::LD, warp * 16, kk * 16);
-      ld_a(ao, sO, C::LD, warp * 16, kk * 16);
-#pragma unroll
-      for (int np = 0; np < C::BK / 16; ++np) {
-        uint32_t bk[4], bv[4];
-        ld_b_nk(bk, sK, C::LD, np * 16, kk * 16);
-        ld_b_nk(bv, sV, C::LD, np * 16, kk * 16);
-        mma_bf16(sc[2 * np], aq, bk[0], bk[1]);
-        mma_bf16(sc[2 * np + 1], aq, bk[2], bk[3]);
-        mma_bf16(dp[2 * np], ao, bv[0], bv[1]);
-        mma_bf16(dp[2 * np + 1], ao, bv[2], bv[3]);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(qo_full, 1);
+    for (int s = 0; s < C::QST; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), NWG * 128);
     }
-    const bool need_mask = j0 + C::BK > p.Skv || q0 + C::Q_ROWS > p.Sq ||
-                           (p.causal && j0 + C::BK - 1 > qpos_lo) ||
-                           (p.window > 0 && j0 <= qpos_hi - p.window);
-    const float l_a = sl[row_a], l_b = sl[row_a + 8], d_a = sd[row_a], d_b = sd[row_a + 8];
-#pragma unroll
-    for (int n = 0; n < C::BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hi = e >> 1;
-        const bool ok = !need_mask || visible(p, q0 + row_a + 8 * hi, j0 + n * 8 + 2 * t + (e & 1));
-        grad_entry(sc[n][e], dp[n][e], hi ? l_b : l_a, hi ? d_b : d_a, p, ok);
-      }
-    // dQ += dS K over the BK keys
-#pragma unroll
-    for (int j = 0; j < C::BK / 16; ++j) {
-      uint32_t as[4];
-      acc_to_a(as, dp, j);
-#pragma unroll
-      for (int cp = 0; cp < HD / 16; ++cp) {
-        uint32_t bk[4];
-        ld_b_kn(bk, sK, C::LD, j * 16, cp * 16);
-        mma_bf16(dq[2 * cp], as, bk[0], bk[1]);
-        mma_bf16(dq[2 * cp + 1], as, bk[2], bk[3]);
-      }
-    }
-    __syncthreads();
+    mbar_fence_init();
   }
+  __syncthreads();
 
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  if (wg == NWG) {
+    // ---- producer: Q and dO once, then each step's K and V ----
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == NWG * 128 && steps > 0) {
+      mbar_expect_tx(qo_full, 2 * C::QT_BYTES);
+      for (int bx = 0; bx < HD / C::BOXC; ++bx) {
+        tma_load_4d(sQ + bx * C::BM * C::RB, &qmap, qo_full, bx * C::BOXC, h, q0, b);
+        tma_load_4d(sO + bx * C::BM * C::RB, &omap, qo_full, bx * C::BOXC, h, q0, b);
+      }
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % C::QST, j0 = (t0 + i) * C::BKV;
+        mbar_wait(empty(s), ((i / C::QST) & 1) ^ 1);
+        mbar_expect_tx(k_full(s), C::KS_BYTES);
+        for (int bx = 0; bx < HD / C::BOXC; ++bx)
+          tma_load_4d(sK + s * C::KS_BYTES + bx * C::BKV * C::RB, &kmap, k_full(s),
+                      bx * C::BOXC, kvh, j0, b);
+        mbar_expect_tx(v_full(s), C::KS_BYTES);
+        for (int bx = 0; bx < HD / C::BOXC; ++bx)
+          tma_load_4d(sV + s * C::KS_BYTES + bx * C::BKV * C::RB, &vmap, v_full(s),
+                      bx * C::BOXC, kvh, j0, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: query rows r0 .. r0 + 63 ----
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, qd = lane % 4;
+    const int r0 = q0 + wg * 64, r_last = min(r0 + 64, p.Sq) - 1;
+    const int row_a = r0 + warp * 16 + lane / 4;  // rows of c0/c1; row_a + 8: c2/c3
+    const float2* st = p.stats + (static_cast<long long>(b) * p.H + h) * p.sq_pad;
+    const float2 la = st[row_a], lb = st[row_a + 8];  // (+inf, 0) past Sq
+    float dq[C::QCH][C::QFL];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int qi = q0 + row_a + 8 * half;
-    if (qi >= p.Sq) continue;
-    const long long off = ((static_cast<long long>(b) * p.Sq + qi) * p.H + h) * HD + 2 * t;
+    for (int c = 0; c < C::QCH; ++c) zero(dq[c]);
+    if (steps > 0) mbar_wait(qo_full, 0);
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % C::QST, j0 = (t0 + i) * C::BKV;
+      const uint32_t ph = (i / C::QST) & 1;
+      float sc[C::BKV / 2], dp[C::BKV / 2];
+      mbar_wait(k_full(s), ph);
+      issue_ss<HD, C::BM, C::BKV>(sc, sQ + wg * 64 * C::RB, sK + s * C::KS_BYTES);
+      mbar_wait(v_full(s), ph);
+      issue_ss<HD, C::BM, C::BKV>(dp, sO + wg * 64 * C::RB, sV + s * C::KS_BYTES);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      auto grads = [&](bool mask) {  // as in dK/dV
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(p.dq + off + n * 8) =
-          pack_bf16(dq[n][2 * half], dq[n][2 * half + 1]);
+        for (int j = 0; j < C::BKV / 2; ++j) {
+          const bool hi = (j & 2) != 0;
+          const float2 l = hi ? lb : la;
+          const int key = j0 + 8 * (j / 4) + 2 * qd + (j & 1);
+          grad_entry(sc[j], dp[j], l.x, l.y, p, !mask || visible(p, row_a + (hi ? 8 : 0), key));
+        }
+      };
+      if (block_masked(p, j0, j0 + C::BKV, r0, r_last))
+        grads(true);
+      else
+        grads(false);
+      uint32_t sa[C::BKV / 16][4];
+      pack_frags(dp, sa);
+      fence_regs(sa);
+#pragma unroll
+      for (int c = 0; c < C::QCH; ++c) fence_regs(dq[c]);
+      wgmma_fence();
+      issue_rs<HD, C::BKV, C::BKV>(dq, sa, sK + s * C::KS_BYTES, split * C::QHDO / C::BOXC);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < C::QCH; ++c) fence_regs(dq[c]);
+      fence_regs(sa);
+      mbar_arrive(empty(s));
+    }
+
+    // ---- epilogue: this thread's two rows in bf16 ----
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qi = row_a + 8 * half;
+      if (qi >= p.Sq) continue;
+      const long long off = ((static_cast<long long>(b) * p.Sq + qi) * p.H + h) * HD +
+                            split * C::QHDO;
+#pragma unroll
+      for (int c = 0; c < C::QCH; ++c)
+#pragma unroll
+        for (int j = 2 * half; j < C::QFL; j += 4)
+          *reinterpret_cast<uint32_t*>(p.dq + off + c * 64 + 8 * (j / 4) + 2 * qd) =
+              pack_bf16(dq[c][j] * p.scale, dq[c][j + 1] * p.scale);
+    }
   }
 }
 
-// D = rowsum(dO * O) per (b, h, row) in fp32: hd / 8 lanes per row, 16 bytes each
+// Per (b, h, row) of the padded rows: (lse log2 e, D = rowsum(dO * O)) in
+// fp32, (+inf, 0) past Sq; hd / 8 lanes per row, 16 bytes each
 template <int HD>
 __global__ void __launch_bounds__(256)
-flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                       float* __restrict__ delta, Strides os, Strides ds, int H, int Sq,
-                       long long rows) {
+flash_bwd_stats_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, float2* __restrict__ stats, Strides os,
+                       Strides ds, int H, int Sq, int sq_pad, long long rows) {
   constexpr int TPR = HD / 8;
   const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / TPR;
   const int c = threadIdx.x % TPR;
+  const int i = static_cast<int>(row % sq_pad);
+  const long long bh = row / sq_pad;
   float acc = 0.f;
-  if (row < rows) {
-    const int i = static_cast<int>(row % Sq);
-    const long long bh = row / Sq;
+  if (row < rows && i < Sq) {
     const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
     const uint4 ov = *reinterpret_cast<const uint4*>(o + b * os.b + i * os.s + h * os.h + c * 8);
     const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * ds.b + i * ds.s + h * ds.h + c * 8);
@@ -837,34 +932,65 @@ flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout
   }
 #pragma unroll
   for (int off = TPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (row < rows && c == 0) delta[row] = acc;
+  if (row < rows && c == 0)
+    stats[row] = i < Sq ? make_float2(lse[bh * Sq + i] * LOG2E, acc)
+                        : make_float2(INFINITY, 0.f);
 }
 
+struct Tiles {  // backward_plan's tiles, as the wrapper passes them
+  int key_tile, query_step, query_tile, key_step, stats_rows;
+};
+
 template <int HD>
-int launch_backward(const BParams& p, const void* out, Strides os, Strides ds, float* delta,
-                    int B, cudaStream_t stream) {
+int launch_backward(const void* q, const void* k, const void* v, const void* out,
+                    const void* dout, const float* lse, BParams p, Strides qs, Strides ks,
+                    Strides vs, Strides os, Strides ds, int B, const Tiles& t,
+                    cudaStream_t stream) {
   using C = BCfg<HD>;
+  const int sq_pad = (p.Sq + STATS_PAD - 1) / STATS_PAD * STATS_PAD;
+  if (t.key_tile != C::BN || t.query_step != C::BQ || t.query_tile != C::BM ||
+      t.key_step != C::BKV || t.stats_rows != sq_pad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.sq_pad = sq_pad;
   cudaError_t err;
-  if ((err = repro::allow_smem(flash_bwd_dkdv_kernel<HD>, C::DKV_BYTES)) != cudaSuccess ||
-      (err = repro::allow_smem(flash_bwd_dq_kernel<HD>, C::DQ_BYTES)) != cudaSuccess)
+  CUtensorMap q_step, o_step, k_tile, v_tile, q_tile, o_tile, k_step, v_step;
+  using repro::encode_bf16_map;
+  if ((err = encode_bf16_map(&q_step, q, HD, p.H, p.Sq, B, qs.h, qs.s, qs.b, C::BOXC, C::BQ,
+                             C::RB)) != cudaSuccess ||
+      (err = encode_bf16_map(&o_step, dout, HD, p.H, p.Sq, B, ds.h, ds.s, ds.b, C::BOXC, C::BQ,
+                             C::RB)) != cudaSuccess ||
+      (err = encode_bf16_map(&k_tile, k, HD, p.K, p.Skv, B, ks.h, ks.s, ks.b, C::BOXC, C::BN,
+                             C::RB)) != cudaSuccess ||
+      (err = encode_bf16_map(&v_tile, v, HD, p.K, p.Skv, B, vs.h, vs.s, vs.b, C::BOXC, C::BN,
+                             C::RB)) != cudaSuccess ||
+      (err = encode_bf16_map(&q_tile, q, HD, p.H, p.Sq, B, qs.h, qs.s, qs.b, C::BOXC, C::BM,
+                             C::RB)) != cudaSuccess ||
+      (err = encode_bf16_map(&o_tile, dout, HD, p.H, p.Sq, B, ds.h, ds.s, ds.b, C::BOXC, C::BM,
+                             C::RB)) != cudaSuccess ||
+      (err = encode_bf16_map(&k_step, k, HD, p.K, p.Skv, B, ks.h, ks.s, ks.b, C::BOXC, C::BKV,
+                             C::RB)) != cudaSuccess ||
+      (err = encode_bf16_map(&v_step, v, HD, p.K, p.Skv, B, vs.h, vs.s, vs.b, C::BOXC, C::BKV,
+                             C::RB)) != cudaSuccess)
     return static_cast<int>(err);
-  const long long rows = static_cast<long long>(B) * p.H * p.Sq;
-  if (rows > 0) {
-    const long long threads = rows * (HD / 8);
-    flash_bwd_delta_kernel<HD><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
-        static_cast<const bf16*>(out), p.dout, delta, os, ds, p.H, p.Sq, rows);
-  }
-  const dim3 kv_grid(p.H * C::NSPLIT, (p.Skv + C::KV_ROWS - 1) / C::KV_ROWS, B);
-  flash_bwd_dkdv_kernel<HD><<<kv_grid, THREADS, C::DKV_BYTES, stream>>>(p);
+  if ((err = repro::allow_smem(flash_bwd_dkdv_kernel<HD>, C::D_BYTES)) != cudaSuccess ||
+      (err = repro::allow_smem(flash_bwd_dq_kernel<HD>, C::Q_BYTES)) != cudaSuccess)
+    return static_cast<int>(err);
+  const long long rows = static_cast<long long>(B) * p.H * sq_pad;
+  const long long threads = rows * (HD / 8);
+  flash_bwd_stats_kernel<HD><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse,
+      const_cast<float2*>(p.stats), os, ds, p.H, p.Sq, sq_pad, rows);
+  const dim3 kv_grid(p.H * C::NSPLIT, (p.Skv + C::BN - 1) / C::BN, B);
+  flash_bwd_dkdv_kernel<HD><<<kv_grid, THREADS, C::D_BYTES, stream>>>(q_step, o_step, k_tile,
+                                                                        v_tile, p);
   if (p.G > 1) {
     const long long n4 = static_cast<long long>(B) * p.Skv * p.K * (HD / 4);
     flash_bwd_dkdv_sum_kernel<HD><<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, stream>>>(
         p, n4);
   }
-  if (p.Sq > 0) {
-    const dim3 q_grid(p.H, (p.Sq + C::Q_ROWS - 1) / C::Q_ROWS, B);
-    flash_bwd_dq_kernel<HD><<<q_grid, THREADS, C::DQ_BYTES, stream>>>(p);
-  }
+  const dim3 q_grid(p.H * C::QSPLIT, (p.Sq + C::BM - 1) / C::BM, B);
+  flash_bwd_dq_kernel<HD><<<q_grid, THREADS, C::Q_BYTES, stream>>>(q_tile, o_tile, k_step,
+                                                                     v_step, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -908,38 +1034,50 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 // The backward of flash_attention_launch: dq (B, Sq, H, hd), dk and dv (B, Skv,
 // K, hd), all bf16 and contiguous, from q, k, v, out and dout (the forward's
 // layout rules; dout's strides as out's) and the forward's lse (B, H, Sq) fp32;
-// delta is (B, H, Sq) fp32 scratch; where H > K, part_k and part_v are (B,
-// Skv, H, hd) fp32 scratch, else unread. Three launches on `stream`, four
-// where H > K.
+// stats is (B, H, stats_rows, 2) fp32 scratch; where H > K, part_k and part_v
+// are (B, Skv, H, hd) fp32 scratch, else unread. key_tile .. stats_rows are
+// backward_plan's (kernels/flash_attention/ops.py): a plan whose tiles differ
+// from this file's is refused. Three launches on `stream`, four where H > K.
 extern "C" int flash_attention_backward_launch(
     const void* q, const void* k, const void* v, const void* out, const void* dout,
-    const void* lse, void* delta, void* dq, void* dk, void* dv, void* part_k, void* part_v,
-    int B, int H, int K, int Sq,
-    int Skv, int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    const void* lse, void* stats, void* dq, void* dk, void* dv, void* part_k, void* part_v,
+    int B, int H, int K, int Sq, int Skv, int hd, int key_tile, int query_step, int query_tile,
+    int key_step, int stats_rows, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, long long d_sb, long long d_ss,
     long long d_sh, float scale, int causal, int window, float softcap, void* stream) {
   if (B <= 0) return 0;
-  if (Skv <= 0 || Sq < 0 || K <= 0 || H % K != 0 || B > 65535 || (Skv + 63) / 64 > 65535 ||
-      (Sq + 63) / 64 > 65535 || (H > K && (part_k == nullptr || part_v == nullptr)))
+  if (Skv <= 0 || Sq < 0 || K <= 0 || H % K != 0 || B > 65535 || (Skv + 127) / 128 > 65535 ||
+      (Sq + 127) / 128 > 65535 || (H > K && (part_k == nullptr || part_v == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bwd::BParams p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                       static_cast<const float*>(lse), static_cast<const float*>(delta),
-                       static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                       static_cast<float*>(part_k), static_cast<float*>(part_v),
-                       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d_sb, d_ss, d_sh,
-                       H, K, H / K, Sq, Skv, Skv - Sq, causal, window, scale, softcap,
-                       softcap > 0.f ? 1.f / softcap : 0.f};
-  const Strides os{o_sb, o_ss, o_sh}, ds{d_sb, d_ss, d_sh};
-  float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return bwd::launch_backward<16>(p, out, os, ds, dl, B, s);
-    case 32: return bwd::launch_backward<32>(p, out, os, ds, dl, B, s);
-    case 64: return bwd::launch_backward<64>(p, out, os, ds, dl, B, s);
-    case 128: return bwd::launch_backward<128>(p, out, os, ds, dl, B, s);
-    case 256: return bwd::launch_backward<256>(p, out, os, ds, dl, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (Sq == 0) {  // no query: dK = dV = 0
+    const size_t bytes = static_cast<size_t>(B) * Skv * K * hd * 2;
+    cudaMemsetAsync(dk, 0, bytes, s);
+    cudaMemsetAsync(dv, 0, bytes, s);
+    return static_cast<int>(cudaGetLastError());
   }
+  const bwd::BParams p{static_cast<const float2*>(stats), static_cast<bf16*>(dq),
+                       static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                       static_cast<float*>(part_k), static_cast<float*>(part_v),
+                       H, K, H / K, Sq, Skv, 0, Skv - Sq, causal, window, scale, softcap,
+                       softcap > 0.f ? 1.f / softcap : 0.f, scale * LOG2E,
+                       softcap * LOG2E};
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
+      os{o_sb, o_ss, o_sh}, ds{d_sb, d_ss, d_sh};
+  const bwd::Tiles t{key_tile, query_step, query_tile, key_step, stats_rows};
+  const float* l = static_cast<const float*>(lse);
+#define REPRO_FLASH_BWD_CASE(D) \
+  case D:                       \
+    return bwd::launch_backward<D>(q, k, v, out, dout, l, p, qs, ks, vs, os, ds, B, t, s);
+  switch (hd) {
+    REPRO_FLASH_BWD_CASE(16)
+    REPRO_FLASH_BWD_CASE(32)
+    REPRO_FLASH_BWD_CASE(64)
+    REPRO_FLASH_BWD_CASE(128)
+    REPRO_FLASH_BWD_CASE(256)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_FLASH_BWD_CASE
 }

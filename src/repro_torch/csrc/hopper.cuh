@@ -325,6 +325,14 @@ inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* ptr, int hd, in
   const CUtensorMapSwizzle swz = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                        : CU_TENSOR_MAP_SWIZZLE_32B;
+  // The encoder needs a current context. A thread whose first CUDA call this
+  // is (autograd's backward thread, when the caching allocator served every
+  // tensor) has none: a runtime call binds the device's primary context.
+  static thread_local bool bound = false;
+  if (!bound) {
+    cudaFree(nullptr);
+    bound = true;
+  }
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                               dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -1152,6 +1152,8 @@ def _rel_l2(got, want):
     (1, 130, 130, 6, 3, 32, True, 40, 30.0),  # hd 32, window and soft-cap
     (1, 300, 300, 32, 8, 128, True, 0, 0.0),  # jamba's 32 heads on 8
     (2, 300, 100, 16, 16, 64, False, 0, 0.0),  # more queries than keys, unmasked
+    (2, 4096, 4096, 14, 2, 64, True, 0, 0.0),  # internvl2's training shape, full size
+    (1, 4096, 4096, 32, 8, 128, True, 0, 0.0),  # jamba's attention layer, full size
 ])
 def test_flash_attention_gradients_on_the_card(gen, B, Sq, Skv, H, K, hd, causal, window,
                                                softcap):

@@ -22,7 +22,9 @@ the plain forward's log-sum-exp, against the JAX package on the CPU:
   here over the plain forwards), loss and every gradient against
   ``jax.value_and_grad`` of the reference's loss, each backward called once
   per forward op;
-- the RMSNorm backward's launch plan, and each wrapper's ctypes signature
+- the flash backward's launch plan (every visible pair in exactly one tile
+  pair of each kernel, no tile pair outside the mask band, the scratch
+  sizes) and the RMSNorm backward's, and each wrapper's ctypes signature
   against its C entry's parameter list.
 
 Tolerances (float32): a gradient, and the LSE, within 1e-5 of its largest
@@ -68,6 +70,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.lm import loss_fn
 
 TOL = 1e-5
+CSRC = Path(fa.__file__).resolve().parents[2] / "csrc"
 
 
 def close(got, want, tol=TOL):
@@ -277,8 +280,71 @@ def test_the_slice_through_the_functions_matches_jax(monkeypatch, arch, batch, s
     assert not {n: e for n, e in bad.items() if not e <= GRAD_REL_L2}, bad
 
 
+# (Sq, Skv, causal, window): square and ragged, the queries the tail of the
+# keys, windows narrower and wider than a tile (65 and 66 put a band's edge
+# on a step's first row), unmasked Sq < Skv and Sq > Skv, a window without
+# the causal mask, a single query
+PLAN_MASKS = [(300, 300, True, 0), (200, 333, True, 0), (130, 700, True, 100),
+              (500, 500, True, 64), (400, 400, True, 65), (400, 400, True, 66),
+              (257, 640, True, 300), (300, 100, False, 0), (37, 300, False, 0),
+              (260, 260, False, 0), (200, 300, False, 50), (1, 129, True, 0)]
+
+
+def _visible(Sq, Skv, causal, window):
+    pos = np.arange(Sq)[:, None] + (Skv - Sq)
+    key = np.arange(Skv)[None, :]
+    vis = np.ones((Sq, Skv), bool)
+    if causal:
+        vis &= key <= pos
+    if window > 0:
+        vis &= key > pos - window
+    return vis
+
+
 class TestBackwardPlans:
-    """The RMSNorm backward's launch plan, made on the host."""
+    """The flash backward's and the RMSNorm backward's launch plans, made on
+    the host."""
+
+    @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+    @pytest.mark.parametrize("Sq,Skv,causal,window", PLAN_MASKS)
+    def test_flash_backward_visits_every_visible_pair_once(self, Sq, Skv, causal, window, hd):
+        """Both kernels' sweeps (``backward_visits``, which the kernels'
+        ranges mirror): every visible (query, key) pair lies in exactly one
+        dK/dV tile pair and exactly one dQ tile pair, and every tile pair
+        visited holds a visible pair (no tile outside the band is loaded)."""
+        plan = fa.backward_plan(2, Sq, Skv, 6, 3, hd)
+        vis = _visible(Sq, Skv, causal, window)
+        for visits, grid, (tile, step) in zip(
+                fa.backward_visits(plan, Sq, Skv, causal, window),
+                (plan.dkdv_grid, plan.dq_grid),
+                ((plan.key_tile, plan.query_step), (plan.query_tile, plan.key_step))):
+            seen = np.zeros((Sq, Skv), np.int32)
+            for (t, _), keys, queries in visits:
+                assert t < grid[1]
+                block = vis[queries.start:queries.stop, keys.start:keys.stop]
+                assert block.any(), (t, keys, queries)
+                seen[queries.start:queries.stop, keys.start:keys.stop] += 1
+            assert (seen[vis] == 1).all() and seen.max(initial=0) <= 1
+            assert len({v[0] for v in visits}) == len(visits)
+        assert plan.dkdv_grid == (6 * plan.splits, -(-Skv // plan.key_tile), 2)
+        assert plan.dq_grid == (6 * plan.dq_splits, -(-Sq // plan.query_tile), 2)
+
+    @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+    @pytest.mark.parametrize("Sq,H,K", [(1, 4, 4), (300, 14, 2), (4096, 32, 8), (4097, 16, 8)])
+    def test_flash_backward_scratch_and_tiles(self, Sq, H, K, hd):
+        """The stats' padded rows hold every query step and query tile whole
+        (the kernels read them without a bound check); a split covers hd in
+        whole 64-column boxes; fp32 parts only where a kv head has several
+        query heads; ``STATS_PAD`` is the C file's."""
+        plan = fa.backward_plan(2, Sq, 333, H, K, hd)
+        assert plan.stats_rows >= Sq and plan.stats_rows % fa.STATS_PAD == 0
+        assert fa.STATS_PAD % plan.query_step == 0 and fa.STATS_PAD % plan.query_tile == 0
+        assert plan.stats_shape == (2, H, plan.stats_rows, 2)
+        assert plan.parts_shape == ((2, 333, H, hd) if H > K else None)
+        assert hd % plan.splits == 0 and hd // plan.splits <= 64
+        assert hd % plan.dq_splits == 0 and hd // plan.dq_splits <= 128
+        assert re.search(rf"constexpr int STATS_PAD = {fa.STATS_PAD};",
+                         (CSRC / "flash_attention.cu").read_text())
 
     @pytest.mark.parametrize("rows", [0, 1, 5, 64, 1000, 8192, 70_000])
     @pytest.mark.parametrize("d,elt", [(16, 4), (64, 2), (896, 2), (896, 4), (4096, 2)])
@@ -295,7 +361,6 @@ class TestBackwardPlans:
         assert sorted(r for r in seen if r < rows) == list(range(rows))
 
 
-CSRC = Path(fa.__file__).resolve().parents[2] / "csrc"
 _C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
 
 
