@@ -260,12 +260,16 @@ Phases; any failure exits non-zero before the result lines are printed:
  13b. train_hybrid: jamba's training path through the selective scan's
      backward kernel. The kernel against its plain reverse loop and the
      forward's chunk states against the plain ones, through the wrapper
-     under grad (one launch each way) and through every plan neighbour (G
-     of 4, 8, 16; both y reductions), at jamba's training shape (1, 4096,
+     under grad (one launch each way), the chunk states under every forward
+     plan neighbour (G of 4, 8, 16; both y reductions) and the backward by
+     cp.async stages and by plain loads, at jamba's training shape (1, 4096,
      8192, 16) bf16 with strided B and C, a B = 2 shape and fp32 shapes at
      N of 1, 4, 16 (T ragged, T below a chunk), with and without h0 and
-     dh_final; its time at the training shape beside its bound, the plain
-     loop's and the forward's with and without the chunk states; the
+     dh_final; at jamba's shape two calls bit-equal and two planted faults
+     inside the kernel failing (g not carried into one chunk, one warp's dB
+     / dC share left out); its time at the training shape by both routes
+     beside its bound and scratch, the plain loop's and the forward's with
+     and without the chunk states; the
      gradient gate of one mixer at jamba's widths at 1 x 4096 (kernel path
      within 1.5x the plain bf16 path's rel-L2 to the fp32 plain path, a
      control with 16 lanes a channel passing, three planted faults failing:
@@ -1831,7 +1835,7 @@ def scan_plan_host(torch, args) -> dict:
     plan = ops.scan_plan(*key)
     out = dict(cached_us=host_us(lambda: ops.scan_plan(*key)),
                uncached_us=host_us(lambda: ops.scan_plan.__wrapped__(*key)),
-               async_rows_us=host_us(lambda: ops._async_rows(dt, Bc, Cc, u, plan)))
+               async_rows_us=host_us(lambda: ops._async_rows(dt, Bc, Cc, u, plan.channels)))
     log(f"[time] {'ssm_scan':16s} host time per call at {tuple(u.shape)}: plan "
         f"{out['cached_us']:.3f} us (planned anew: {out['uncached_us']:.3f} us), cp.async row "
         f"test {out['async_rows_us']:.3f} us")
@@ -4998,11 +5002,16 @@ def scan_grad_tol(got, want) -> dict:
 def phase_check_ssm_grad(torch, ck: Checker) -> None:
     """The backward kernel against the plain reverse loop, and the forward's
     chunk states against the plain ones: through the wrapper under grad
-    (``_Scan``: the forward kernel once, the backward once) and through every
-    plan neighbour (G of 4, 8, 16 lanes per channel, each y reduction of the
-    forward), at jamba's training shape, a B = 2 shape and fp32 shapes at N
-    of 1, 4 and 16 with T ragged against the chunk and below one tile, with
-    and without h0 and dh_final."""
+    (``_Scan``: the forward kernel once, the backward once), the chunk
+    states under every forward plan neighbour (G of 4, 8, 16 lanes per
+    channel, each y reduction) and the backward with the wrapper's plan
+    (``bwd_plan``) both ways its inputs arrive (cp.async stages where the
+    rows allow, plain loads with dy moved off 16 bytes), at jamba's training
+    shape, a B = 2 shape and fp32 shapes at N of 1, 4 and 16 with T ragged
+    against the chunk and below one tile, D ragged in a CTA, with and
+    without h0 and dh_final. At jamba's shape two calls must be bit-equal and
+    two planted faults must fail the gate: g not carried into one chunk, and
+    one warp's dB / dC share left out of a CTA's sum."""
     from repro_torch.kernels.ssm_scan import ops
     from repro_torch.kernels.ssm_scan.ref import (
         ssm_scan_backward_reference,
@@ -5033,8 +5042,7 @@ def phase_check_ssm_grad(torch, ck: Checker) -> None:
             want_states = ssm_scan_chunk_states(args[0], args[1], args[3], args[4], args[5],
                                                 ops.CHUNK)
 
-            def held(tag, got, states):
-                ck.compare("ssm_scan", f"chunk states {tag}", states, want_states, SCAN_H_TOL)
+            def held(tag, got):
                 for name, g, w in zip(SCAN_GRAD_NAMES, got, want):
                     if g.dtype != w.dtype:
                         FAILURES.append(f"ssm_scan_backward {tag}: {name} {g.dtype} != {w.dtype}")
@@ -5059,24 +5067,71 @@ def phase_check_ssm_grad(torch, ck: Checker) -> None:
                     p = ops.scan_plan(B, T, D, N, args[3].element_size(), n_sm, group=group,
                                       reduce=reduce)
                     _, _, states = ops._launch(*args, p, states=True)
-                    g = ops._launch_backward(*args[:5], dy, dhf, states, group)
-                    held(f"G {group} {reduce} {shape}", g, states)
+                    ck.compare("ssm_scan", f"chunk states G {group} {reduce} {shape}", states,
+                               want_states, SCAN_H_TOL)
+            bplan = ops._bwd_plan(args[3], N)
+            for route, g_y in (("as planned", dy), ("plain loads", off_16_bytes(torch, dy))):
+                held(f"{route} {shape}", ops._launch_backward(*args[:5], g_y, dhf, states, bplan))
+            if T == HYBRID_TRAIN_S:
+                ssm_grad_repeat_and_faults(torch, ops, args, dy, dhf, states, want, what)
             del want, want_states
         ck.run("ssm_scan_backward", what, case)
     torch.cuda.synchronize()
+
+
+def off_16_bytes(torch, t):
+    """t's values in a contiguous tensor that starts one element past 16
+    bytes (the backward then reads its inputs by plain loads)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def ssm_grad_repeat_and_faults(torch, ops, args, dy, dhf, states, want, what) -> None:
+    """At one shape: the wrapper's plan twice, bit for bit; then each of the
+    C entry's planted faults (``ops.BWD_FAULTS``) must fail the gradient gate
+    of ``phase_check_ssm_grad``: g not carried into one chunk, the last
+    warp's dB / dC share left out of each CTA's sum."""
+    plan = ops._bwd_plan(args[3], args[4].shape[1])
+    first = ops._launch_backward(*args[:5], dy, dhf, states, plan)
+    second = ops._launch_backward(*args[:5], dy, dhf, states, plan)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(first, second))
+    log(f"[check] {'ssm_scan_backward':16s} two calls at {what}: bit-equal {same} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        FAILURES.append(f"ssm_scan_backward {what}: two calls differ")
+    for fault, code in ops.BWD_FAULTS.items():
+        if not code:
+            continue
+        got = ops._launch_backward(*args[:5], dy, dhf, states, plan, code)
+        ratios = {}
+        for name, g, w in zip(SCAN_GRAD_NAMES, got, want):
+            tol = scan_grad_tol(g, w)
+            err = (g.float() - w.float()).abs() - tol["rtol"] * w.float().abs()
+            ratios[name] = float(err.max()) / tol["atol"] if bool(
+                torch.isfinite(g.float()).all()) else math.inf
+        worst = max(ratios, key=ratios.get)
+        caught = ratios[worst] > 1
+        log(f"[check] {'ssm_scan_backward':16s} planted fault, {fault}: worst {worst} at "
+            f"{ratios[worst]:.3g}x its tolerance: {'caught' if caught else 'MISSED'}")
+        if not caught:
+            FAILURES.append(f"ssm_scan_backward planted fault {fault}: passed the gate")
 
 
 def scan_bwd_bound(B, T, D, N, elt: int, dh: bool) -> tuple[float, str, dict]:
     """max(bytes / HBM rate, exps / MUFU rate, flops / fp32 peak) for one
     backward: dt, u and dy read and ddt and du written at their dtype (5 per
     (t, d)), B and C read and dB and dC written (4 per (t, n)), the saved
-    states read (one (D, N) fp32 state per 16 steps), A read and dA written,
-    dh_final read when given and dh0 written; one exponential per (t, d, n)
-    (the decays kept for the walk back) and 22 fp32 operations per (t, d, n)
-    (the chunk's recompute: dt A, (dt u) B and its multiply-add, 4; the walk
-    back: dh from C dy, a h, A a h + u B, the ddt, du and dA sums, the dB and
-    dC terms and the decay of dh, 18)."""
-    nbytes = (5 * B * T * D * elt + 4 * B * T * N * elt + B * -(-T // 16) * D * N * 4
+    states read (one (D, N) fp32 state per ``CHUNK`` steps), A read and dA
+    written, dh_final read when given and dh0 written; one exponential per
+    (t, d, n) (the decays kept for the walk back) and 22 fp32 operations per
+    (t, d, n) (the chunk's recompute: dt A, (dt u) B and its multiply-add, 4;
+    the walk back: dh from C dy, a h, A a h + u B, the ddt, du and dA sums,
+    the dB and dC terms and the decay of dh, 18)."""
+    from repro_torch.kernels.ssm_scan.ops import CHUNK
+
+    nbytes = (5 * B * T * D * elt + 4 * B * T * N * elt + B * -(-T // CHUNK) * D * N * 4
               + 2 * D * N * 4 + (1 + dh) * B * D * N * 4)
     t_bytes = nbytes / HBM_BPS * 1e3
     t_exp = B * T * D * N / MUFU_OPS * 1e3
@@ -5087,10 +5142,12 @@ def scan_bwd_bound(B, T, D, N, elt: int, dh: bool) -> tuple[float, str, dict]:
 
 def phase_time_ssm_grad(torch) -> dict:
     """The backward at jamba's training shape (1, 4096, 8192, 16) bf16: device
-    time per call by CUDA-graph replay beside its bound, the plain reverse
-    loop's (one call in a graph) and its eager time; no single PyTorch call
-    computes it. Beside it the forward kernel at the same shape with and
-    without the chunk states, and the backward with each lane group."""
+    time per call by CUDA-graph replay beside its bound and its scratch (the
+    dB / dC partials, outside the bound), the plain reverse loop's (one call
+    in a graph) and its eager time; no single PyTorch call computes it.
+    Beside it the forward kernel at the same shape with and without the
+    chunk states, and the backward with its inputs by plain loads (dy off 16
+    bytes) instead of cp.async stages."""
     from repro_torch.kernels.ssm_scan import ops
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_backward_reference
 
@@ -5101,6 +5158,7 @@ def phase_time_ssm_grad(torch) -> dict:
     args = scan_inputs(torch, gen, *shape, torch.bfloat16, fused=True)
     dy = torch.randn(B, T, D, generator=gen, device="cuda").bfloat16()
     plan = ops._plan(args[3], N)
+    bplan = ops._bwd_plan(args[3], N)
     _, _, states = ops._launch(*args, plan, states=True)
     b_ms, b_by, parts = scan_bwd_bound(*shape, 2, False)
     r = dict(shape=f"dt, u, dy ({B},{T},{D}) bf16, N {N} (jamba training, B/C strided)",
@@ -5112,17 +5170,20 @@ def phase_time_ssm_grad(torch) -> dict:
                                iters=10, warmup=2),
              forward_ms=device_ms(torch, lambda: ops._launch(*args, plan)),
              forward_states_ms=device_ms(torch, lambda: ops._launch(*args, plan, states=True)),
-             forward_bound_ms=scan_bound(B, T, D, N, 2, False)[0],
-             plan_group=max(plan.group, ops.BWD_MIN_GROUP))
-    r["groups_ms"] = {g: device_ms(torch, lambda g=g: ops._launch_backward(*args[:5], dy, None,
-                                                                           states, g))
-                      for g in ops.GROUPS}
+             forward_bound_ms=scan_bound(B, T, D, N, 2, False)[0], plan=bplan._asdict(),
+             scratch_bytes=(2 * bplan.partials * B * T * N + B * D * N) * 4)
+    dy_off = off_16_bytes(torch, dy)
+    r["plans_ms"] = {"cp.async stages": r["ms"], "plain loads": device_ms(
+        torch, lambda: ops._launch_backward(*args[:5], dy_off, None, states, bplan))}
     log(f"[time] {'ssm_scan_bwd':16s} {r['shape']:44s} kernel {r['ms']:.4f} ms  plain "
         f"{r['plain_ms']:.4f} ms  library none (no single call)  bound {b_ms:.5f} ms ({b_by}: "
         f"bytes {parts['bytes_ms']:.5f} ({parts['bytes'] / 1e9:.3f} GB), exps "
-        f"{parts['exp_ms']:.5f}, fp32 {parts['flop_ms']:.5f});  eager from Python: kernel "
-        f"{r['eager_ms']:.4f} ms; by lanes per channel {r['groups_ms']} (the wrapper's G "
-        f"{r['plan_group']})")
+        f"{parts['exp_ms']:.5f}, fp32 {parts['flop_ms']:.5f}; {b_ms / r['ms']:.1%} of it); "
+        f"scratch {r['scratch_bytes'] / 1e6:.1f} MB of partials (outside the bound); eager from "
+        f"Python: kernel {r['eager_ms']:.4f} ms; the wrapper's plan: {ops.BWD_GROUP} lanes a "
+        f"channel, {bplan.partials} partials, {bplan.smem} B of shared memory")
+    log(f"[time] {'ssm_scan_bwd':16s} by input route (ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in r["plans_ms"].items()))
     log(f"[time] {'ssm_scan':16s} forward at {shape} bf16: {r['forward_ms']:.4f} ms, with the "
         f"chunk states {r['forward_states_ms']:.4f} ms (bound {r['forward_bound_ms']:.5f} ms)")
     return r
@@ -5161,8 +5222,8 @@ def mixer_grad_gate(torch) -> dict:
     cotangent: the kernel path in bf16 against the plain path in fp32 on the
     same weights, within FP32_ERROR_RATIO times the plain bf16 path's rel-L2
     (the plain scan under autograd: the port's CPU path); a control (the
-    kernels with 16 lanes a channel, both ways) must pass and the planted
-    faults must fail."""
+    forward with 16 lanes a channel and y's shuffle reduction: y summed in
+    another order) must pass and the planted faults must fail."""
     import copy
 
     import numpy as np
@@ -5800,7 +5861,8 @@ def main() -> int:
         "launches": hybrid_trained["launches"]["ssm_scan_backward"],
         "max_abs_err": hybrid_trained["max_err"]["ssm_scan_backward"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": None, "shape": t["shape"], "eager_ms": t["eager_ms"],
+        "library_ms": None, "shape": t["shape"], "eager_ms": t["eager_ms"], "plan": t["plan"],
+        "scratch_bytes": t["scratch_bytes"], "plans_ms": t["plans_ms"],
         "train_hybrid_launches": hybrid_trained["launches"]["ssm_scan_backward"],
         "tiny_train_launches": hybrid_trained["tiny"]["launches"]["ssm_scan_backward"]})
     for name in ("flash_attention_backward", "rmsnorm_backward"):  # launched in training only

@@ -49,16 +49,14 @@
 //
 // For training the forward also writes, where the caller passes a states
 // buffer, the fp32 state before every chunk of CHUNK = 16 steps (its own
-// instantiations; serving passes null and runs the kernel without them). ssm_scan_backward_launch
-// (below) restarts from them. It replaces no TPU kernel: the reference
-// differentiates its two-level lax.scan, the state checkpointed every 128
-// steps and each chunk recomputed (src/repro/models/ssm.py:89-110). Chunks
-// of 16 here, because the backward holds a chunk's h_{t-1} and decays in
-// shared memory (16 steps x 32 channels x 16 states x 8 bytes, 64 KB at G
-// = 4); the saved states are then 1/16 of all of them (134 MB a layer at
-// jamba's 1 x 4096). Its bound is that of the forward: one exponential per
-// (t, d, n), the decays kept for the walk back, over the bytes of dt, u and
-// dy in, ddt and du out and the saved states.
+// instantiations; serving passes null and runs the kernel without them).
+// ssm_scan_backward_launch (below) restarts from them. It replaces no TPU
+// kernel: the reference differentiates its two-level lax.scan, the state
+// checkpointed every 128 steps and each chunk recomputed
+// (src/repro/models/ssm.py:89-110). Chunks of 16 here, because a backward
+// lane keeps a whole chunk's h_{t-1} and decays of its states in registers
+// (2 x 16 x 16 / G values); the saved states are then 1/16 of all of them
+// (134 MB a layer at jamba's 1 x 4096).
 //
 // Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W (PERF.md holds
 // every run): jamba's prefill (1, 241, 8192, 16) about 0.030 ms with G = 4
@@ -417,34 +415,91 @@ int by_group(const Args& a, int n_b, int group, int reduce, int smem, bool async
 //   dB_t  = sum_d g_t dt_t u_t                     dC_t = sum_d h_t dy_t
 //   dA    = sum_{b,t} g_t dt_t a_t h_{t-1}         dh0 = a_0 g_0
 //
-// A CTA holds the forward's channels and lanes (G lanes a channel, SPL
-// states a lane, g carried in registers) and walks the chunks of CHUNK steps
-// from the last: it stages the chunk's inputs in fp32, recomputes the chunk's
-// h_{t-1} and a_t into shared memory from the state the forward saved at the
-// chunk's start (one exponential per state and step, as the forward), then
-// walks the chunk back. ddt and du are one sum over a channel's lanes
-// (shuffles); dA stays in registers until the end. The walk overwrites each
-// step's h_{t-1} and a_t, once read, with that step's dB and dC terms, and a
-// pass over the chunk sums them over the CTA's channels, in order, into
-// per-CTA partials; a second kernel sums the partials over the CTAs (and dA
-// over the batch rows) in order: deterministic, no atomics.
+// Bound: 22 fp32 operations per (t, d, n) and one exponential (the decays
+// are kept for the walk back); at jamba's (1, 4096, 8192, 16) bf16 the
+// operations (0.1763 ms on an NVIDIA H100 80GB HBM3 at 700.00 W) lie just
+// above the bytes (0.1409 ms) and the exponentials (0.1284 ms), so the
+// instructions a lane issues per (t, d, n) set the time.
+//
+// Design. A CTA holds BWD_CH = 32 channels of one batch row, BWD_G = 8
+// lanes a channel, SPL = 2 states a lane, and walks the chunks of CHUNK
+// steps from the last, g and dA in registers throughout:
+//  - the chunk lives in registers: from the state the forward saved at its
+//    start, each lane recomputes a_t h_{t-1} and a_t of its states for all
+//    CHUNK steps (the loop unrolled), then walks them back; nothing per
+//    (t, d, n) goes through shared memory;
+//  - the inputs are staged ahead: chunk k - 3's dt, u, dy, B and C are
+//    copied by cp.async (a ring of three stages) and chunk k - 1's converted
+//    to an fp32 tile ((dt, dt u, u, dy) per step and channel, B and C per
+//    step and state) while chunk k walks; rows off 16 bytes are read by
+//    plain loads in the conversion instead;
+//  - ddt and du are sums over a channel's lanes: G steps at a time, then a
+//    reduce-scatter (G - 1 shuffles) leaves lane l step l's sums;
+//  - dB and dC are sums over channels: each step a reduce-scatter over the
+//    warp's 32 / G channels (2 SPL values a lane, one left), then the CTA's
+//    warps' sums added in warp order through shared memory: one fp32 partial
+//    per CTA and step, which ssm_scan_bwd_reduce adds in order (dA's batch
+//    rows too);
+//  - one barrier a chunk: chunk k + 1's ddt, du and dB / dC sums go out in
+//    rounds spread over chunk k's steps, their latency under the walk's
+//    arithmetic; every buffer they touch is double (the ring triple), so
+//    none is overwritten before every thread has read it.
+// No atomics and every sum in a fixed order: two calls are bit-equal. The
+// plan (shared memory, partials) is made on the host: bwd_plan in
+// kernels/ssm_scan/ops.py, whose layout this entry recomputes and refuses
+// if it differs.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md
+// holds every run and the times): at jamba's training shape the
+// shared-memory design before this one took 1.9566 ms. With the phase work
+// between two barriers a chunk, the SM idled through it; spread over the
+// walk's steps, the dB / dC sums last (the walk holds fewest registers at
+// its end), it hides. Each instance takes the 128 registers that two CTAs
+// an SM leave it and spills a few bytes (chip_smoke.py's build phase prints
+// ptxas's count); variants that spilled less were not faster. Measured and
+// not kept: 4 lanes a channel, fewer instructions per state but 243-253
+// registers and so 8 warps an SM; the CTAs' dB / dC sums added over a
+// thread-block cluster through distributed shared memory, whose barrier
+// compiles to a GPU-scope fence and an L1 invalidation and whose clusters
+// of 4 or 8 do not all fit at once beside two CTAs an SM.
 
-// Byte offsets of the backward's shared memory (ops.py: bwd_smem_bytes):
-// h_{t-1} and a_t per step, channel and state (then the dB and dC terms);
-// (dt, dt u, u, dy) per step and channel; (B, C) per step and state; (ddt,
-// du) per step and channel
+constexpr int BWD_CH = 32;            // channels per CTA (ops.py: BWD_CHANNELS)
+constexpr int BWD_G = 8;              // lanes per channel (ops.py: BWD_GROUP)
+constexpr int BWD_STEPS = CHUNK;      // steps a lane keeps in registers: one saved chunk
+constexpr int BWD_VALS = 2 * STATES;  // a step's dB, then its dC, per state
+// planted faults (ops.py: BWD_FAULTS), compiled into instances of their own
+// that only chip_smoke.py's gate launches: g not carried into one chunk; the
+// last warp's dB / dC share left out of the CTA's sum
+enum { FAULT_NONE = 0, FAULT_G_DROPPED = 1, FAULT_WARP_DROPPED = 2 };
+
+// Byte offsets of the backward's shared memory (ops.py: bwd_smem_bytes), two
+// of each (chunks k and k + 1): the fp32 tile ((dt, dt u, u, dy) per step and
+// channel, B and C per step and state), (ddt, du) per step and channel, each
+// warp's dB / dC sums per step; then a ring of three raw stages of dt, u,
+// dy, B and C as they lie in memory (raw_* are offsets inside a stage)
 struct BwdLayout {
-  int h, a, x, bc, g, total;
+  int x, bc, out, red, raw, raw_stage, raw_u, raw_dy, raw_b, raw_c, total;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int ch) {
+__host__ __device__ inline BwdLayout bwd_layout(int n_s, int elt) {
   BwdLayout L{};
-  L.h = 0;
-  L.a = L.h + CHUNK * ch * STATES * 4;
-  L.x = L.a + CHUNK * ch * STATES * 4;
-  L.bc = L.x + CHUNK * ch * 16;
-  L.g = L.bc + CHUNK * STATES * 8;
-  L.total = L.g + CHUNK * ch * 8;
+  int o = 0;
+  L.x = o;
+  o += 2 * BWD_STEPS * BWD_CH * 16;
+  L.bc = o;
+  o += 2 * BWD_STEPS * STATES * 8;  // B, then C: [step][state] each
+  L.out = o;
+  o += 2 * BWD_STEPS * BWD_CH * 8;
+  L.red = o;
+  o += 2 * BWD_G * BWD_STEPS * BWD_VALS * 4;
+  const int row = round16(BWD_STEPS * BWD_CH * elt), bcr = round16(BWD_STEPS * n_s * elt);
+  L.raw_u = row;
+  L.raw_dy = 2 * row;
+  L.raw_b = 3 * row;
+  L.raw_c = 3 * row + bcr;
+  L.raw_stage = 3 * row + 2 * bcr;
+  L.raw = o;
+  L.total = o + 3 * L.raw_stage;
   return L;
 }
 
@@ -463,62 +518,153 @@ struct BwdArgs {
   void* dcc;
   float* dA;
   float* dh0;
-  float* part_b;  // (ceil(D / ch), B, T, N): each CTA's share of dB
+  float* part_b;  // (n_part, B, T, N): each CTA's share of dB
   float* part_c;
   float* part_a;  // (B, D, N): each batch row's share of dA
-  int n_b, n_t, n_d, n_s;
+  int n_b, n_t, n_d, n_s, n_part;
   long long sbb, sbt, scb, sct;
 };
 
-// K fp32 values to or from shared memory (aligned to K * 4 bytes)
-template <int K>
-__device__ __forceinline__ void lds(float (&v)[K], const float* p) {
-  if constexpr (K == 1) {
-    v[0] = p[0];
-  } else {
-    load_smem<K>(v, p);
-  }
-}
-
-template <int K>
-__device__ __forceinline__ void sts(float* p, const float (&v)[K]) {
-  if constexpr (K == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (K == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    p[0] = v[0];
-  }
-}
-
-template <typename T, int G>
-__global__ void __launch_bounds__(MAX_THREADS)
+template <typename T, bool ASYNC, int FAULT>
+__global__ void __launch_bounds__(BWD_CH * BWD_G, 2)
 ssm_scan_bwd_kernel(const BwdArgs a) {
-  constexpr int SPL = STATES / G;
-  constexpr int ch = MAX_THREADS / G;
+  constexpr int G = BWD_G;
+  constexpr int SPL = STATES / G;  // states per lane
+  constexpr int P = 32 / G;        // channels per warp
+  constexpr int NT = BWD_CH * G;   // threads: G warps
+  constexpr int R = BWD_STEPS;
+  constexpr int NV = R * BWD_VALS;  // a chunk's dB and dC sums
+  constexpr int NX = R * BWD_CH;    // a chunk's (step, channel) entries
+  constexpr int ELT = sizeof(T), PER = 16 / ELT;
+  constexpr int CPR = BWD_CH / PER;  // 16-byte copies per row of dt, u or dy
+  static_assert(P == 2 * SPL, "the scatter over a warp's channels leaves one value a lane");
+  static_assert(R % G == 0, "ddt and du are reduce-scattered G steps at a time");
+  static_assert(NV % NT == 0 && NX % NT == 0 && R * CPR <= NT, "whole rounds of the phase work");
   extern __shared__ __align__(16) unsigned char smem[];
-  const BwdLayout L = bwd_layout(ch);
-  float* s_h = reinterpret_cast<float*>(smem + L.h);      // [step][channel][state]
-  float* s_a = reinterpret_cast<float*>(smem + L.a);      // [step][channel][state]
+  const BwdLayout L = bwd_layout(a.n_s, ELT);
+  // each [chunk & 1] first
   float4* s_x = reinterpret_cast<float4*>(smem + L.x);    // (dt, dt u, u, dy) [step][channel]
-  float2* s_bc = reinterpret_cast<float2*>(smem + L.bc);  // (B, C) [step][state]
-  float2* s_g = reinterpret_cast<float2*>(smem + L.g);    // (ddt, du) [step][channel]
+  float* s_bc = reinterpret_cast<float*>(smem + L.bc);    // B, then C [step][state]
+  float2* s_out = reinterpret_cast<float2*>(smem + L.out);  // (ddt, du) [step][channel]
+  float* s_red = reinterpret_cast<float*>(smem + L.red);  // [warp][step][value]
 
   const T* dt = static_cast<const T*>(a.dt);
   const T* u = static_cast<const T*>(a.u);
   const T* dy = static_cast<const T*>(a.dy);
-  const int tid = threadIdx.x;
-  const int c = tid / G, lane = tid % G, n0 = lane * SPL;
-  const int b = blockIdx.y, d0 = blockIdx.x * ch, d = d0 + c;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int cw = (tid % 32) / G, lane = tid % G, n0 = lane * SPL;
+  const int c = warp * P + cw;  // this lane's channel in the CTA
+  const int b = blockIdx.y, d0 = blockIdx.x * BWD_CH, d = d0 + c;
   const bool live = d < a.n_d;
   const long long row0 = static_cast<long long>(b) * a.n_t;
   const T* bc = static_cast<const T*>(a.bc) + b * a.sbb;
   const T* cc = static_cast<const T*>(a.cc) + b * a.scb;
   const long long hrow = (static_cast<long long>(b) * a.n_d + d) * a.n_s;
-  const int n_chunks = (a.n_t + CHUNK - 1) / CHUNK;
-  const int slot = c * STATES + n0;  // this lane's states in a step's row
+  const int n_chunks = (a.n_t + R - 1) / R;
+  const long long n_tn = static_cast<long long>(a.n_t) * a.n_s;
+  const long long part_row = (static_cast<long long>(blockIdx.x) * a.n_b + b) * n_tn;
 
-  float av[SPL], g[SPL], dA[SPL];
+  // This thread's raw copies, fixed across chunks: row piece (xt, xe) of dt,
+  // u and dy (zeros past D), and piece (bt, be) of B and C. Every call
+  // commits a group, empty where k < 0, so that a wait counts the same
+  // groups on every path.
+  const int xt = tid / CPR, xe = (tid % CPR) * PER;
+  const int x_bytes = max(0, min(PER, a.n_d - d0 - xe)) * ELT;
+  const long long x_src = x_bytes ? (row0 + xt) * a.n_d + d0 + xe : 0;
+  const int cpn = a.n_s / PER;  // 16-byte copies per row of B or C (1, 2 or 4)
+  const int bt = cpn ? tid / cpn : 0, be = cpn ? (tid - bt * cpn) * PER : 0;
+  auto issue = [&](int k) {
+    if (k >= 0) {
+      unsigned char* raw = smem + L.raw + (k % 3) * L.raw_stage;
+      const int t0 = k * R, steps = min(R, a.n_t - t0);
+      if (tid < R * CPR && xt < steps) {
+        const long long off = x_bytes ? x_src + static_cast<long long>(t0) * a.n_d : 0;
+        const int dst = (xt * BWD_CH + xe) * ELT;
+        repro::cp_async16(repro::smem_u32(raw + dst), dt + off, x_bytes);
+        repro::cp_async16(repro::smem_u32(raw + L.raw_u + dst), u + off, x_bytes);
+        repro::cp_async16(repro::smem_u32(raw + L.raw_dy + dst), dy + off, x_bytes);
+      }
+      if (tid < steps * cpn) {
+        const int dst = (bt * a.n_s + be) * ELT;
+        repro::cp_async16(repro::smem_u32(raw + L.raw_b + dst), bc + (t0 + bt) * a.sbt + be, 16);
+        repro::cp_async16(repro::smem_u32(raw + L.raw_c + dst), cc + (t0 + bt) * a.sct + be, 16);
+      }
+    }
+    repro::cp_async_commit();
+  };
+
+  // The phase work of iteration k, in rounds a thread takes one at a time:
+  // chunk k + 1's ddt and du out; chunk k - 1's fp32 tile from its raw
+  // copies (zeros past T, D and N: their terms vanish, dt = 0 leaving h and
+  // g as they are); chunk k + 1's dB / dC, its warps' sums added in warp
+  // order and stored as this CTA's partial (last: the walk's registers are
+  // fewest at its end). None of it touches a buffer chunk k's walk reads or
+  // writes.
+  constexpr int W_OUT = NX / NT, W_CV = NX / NT, W_BC = (R * STATES + NT - 1) / NT;
+  constexpr int W_TILE = W_CV + W_BC, W_SUM = NV / NT;
+  constexpr int W_ALL = W_OUT + W_TILE + W_SUM;
+  auto phase = [&](int k, int w) {
+    if (w < W_OUT) {  // chunk k + 1's ddt and du
+      const int kf = k + 1, i = tid + w * NT, tt = i / BWD_CH, e = i - tt * BWD_CH;
+      if (kf < 0 || kf >= n_chunks || kf * R + tt >= a.n_t || d0 + e >= a.n_d) return;
+      const float2 o = s_out[(kf & 1) * NX + i];
+      const long long off = (row0 + kf * R + tt) * a.n_d + d0 + e;
+      static_cast<T*>(a.ddt)[off] = repro::from_f32<T>(o.x);
+      static_cast<T*>(a.du)[off] = repro::from_f32<T>(o.y);
+      return;
+    }
+    w -= W_OUT;
+    if (w >= W_TILE) {  // chunk k + 1's dB / dC over the warps
+      const int kf = k + 1, v = tid + (w - W_TILE) * NT;
+      const int tt = v / BWD_VALS, slot = v - tt * BWD_VALS, n = slot % STATES;
+      if (kf < 0 || kf >= n_chunks || kf * R + tt >= a.n_t || n >= a.n_s) return;
+      const float* red = s_red + (kf & 1) * G * NV + v;
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < (FAULT == FAULT_WARP_DROPPED ? G - 1 : G); ++q) s += red[q * NV];
+      (slot < STATES ? a.part_b : a.part_c)[part_row + (kf * R + tt) * a.n_s + n] = s;
+      return;
+    }
+    const int kc = k - 1;  // chunk k - 1's tile
+    if (kc < 0) return;
+    const unsigned char* raw = smem + L.raw + (kc % 3) * L.raw_stage;
+    const int t0 = kc * R, steps = min(R, a.n_t - t0);
+    if (w < W_CV) {
+      const int i = tid + w * NT, tt = i / BWD_CH, e = i - tt * BWD_CH;
+      float x = 0.f, v = 0.f, gy = 0.f;
+      if (tt < steps) {
+        if constexpr (ASYNC) {
+          x = repro::to_f32(reinterpret_cast<const T*>(raw)[i]);
+          v = repro::to_f32(reinterpret_cast<const T*>(raw + L.raw_u)[i]);
+          gy = repro::to_f32(reinterpret_cast<const T*>(raw + L.raw_dy)[i]);
+        } else if (d0 + e < a.n_d) {
+          const long long off = (row0 + t0 + tt) * a.n_d + d0 + e;
+          x = repro::to_f32(dt[off]);
+          v = repro::to_f32(u[off]);
+          gy = repro::to_f32(dy[off]);
+        }
+      }
+      s_x[(kc & 1) * NX + i] = make_float4(x, x * v, v, gy);
+      return;
+    }
+    const int i = tid + (w - W_CV) * NT, tt = i / STATES, n = i - tt * STATES;
+    if (i >= R * STATES) return;
+    float bv = 0.f, cv = 0.f;
+    if (tt < steps && n < a.n_s) {
+      if constexpr (ASYNC) {
+        bv = repro::to_f32(reinterpret_cast<const T*>(raw + L.raw_b)[tt * a.n_s + n]);
+        cv = repro::to_f32(reinterpret_cast<const T*>(raw + L.raw_c)[tt * a.n_s + n]);
+      } else {
+        bv = repro::to_f32(bc[(t0 + tt) * a.sbt + n]);
+        cv = repro::to_f32(cc[(t0 + tt) * a.sct + n]);
+      }
+    }
+    float* b_k = s_bc + (kc & 1) * 2 * R * STATES;
+    b_k[i] = bv;
+    b_k[R * STATES + i] = cv;
+  };
+
+  float av[SPL], g[SPL], dA[SPL], hs[SPL];  // hs: the saved state of the next chunk to walk
   load_states<SPL>(av, a.A + static_cast<long long>(d) * a.n_s, n0, a.n_s, live);
   if (a.dh_final != nullptr) {
     load_states<SPL>(g, a.dh_final + hrow, n0, a.n_s, live);
@@ -528,103 +674,129 @@ ssm_scan_bwd_kernel(const BwdArgs a) {
   }
 #pragma unroll
   for (int s = 0; s < SPL; ++s) dA[s] = 0.f;
-
-  for (int k = n_chunks - 1; k >= 0; --k) {
-    const int t0 = k * CHUNK, steps = min(CHUNK, a.n_t - t0);
-    __syncthreads();  // the later chunk's terms are summed
-    for (int i = tid; i < steps * ch; i += MAX_THREADS) {
-      const int j = i / ch, e = i - j * ch;
-      float x = 0.f, w = 0.f, gy = 0.f;  // zeros past D: their terms are zeros
-      if (d0 + e < a.n_d) {
-        const long long off = (row0 + t0 + j) * a.n_d + d0 + e;
-        x = repro::to_f32(dt[off]);
-        w = repro::to_f32(u[off]);
-        gy = repro::to_f32(dy[off]);
-      }
-      s_x[i] = make_float4(x, x * w, w, gy);
-    }
-    for (int i = tid; i < steps * STATES; i += MAX_THREADS) {
-      const int j = i / STATES, n = i - j * STATES;
-      float bv = 0.f, cv = 0.f;
-      if (n < a.n_s) {
-        bv = repro::to_f32(bc[(t0 + j) * a.sbt + n]);
-        cv = repro::to_f32(cc[(t0 + j) * a.sct + n]);
-      }
-      s_bc[i] = make_float2(bv, cv);
-    }
-    __syncthreads();
-
-    // the chunk forward again from its saved state: h_{t-1} and a_t per step
-    float h[SPL];
-    load_states<SPL>(h, a.states + ((static_cast<long long>(b) * n_chunks + k) * a.n_d + d) *
+  auto load_state = [&](int k) {
+    load_states<SPL>(hs, a.states + ((static_cast<long long>(b) * n_chunks + k) * a.n_d + d) *
                      a.n_s, n0, a.n_s, live);
-    for (int j = 0; j < steps; ++j) {
-      const float4 xv = s_x[j * ch + c];
-      float bcv[2 * SPL], e[SPL];
-      load_smem<2 * SPL>(bcv, reinterpret_cast<const float*>(s_bc + j * STATES + n0));
-#pragma unroll
-      for (int s = 0; s < SPL; ++s) e[s] = expf(xv.x * av[s]);
-      sts<SPL>(s_h + j * ch * STATES + slot, h);
-      sts<SPL>(s_a + j * ch * STATES + slot, e);
-#pragma unroll
-      for (int s = 0; s < SPL; ++s) h[s] = fmaf(e[s], h[s], xv.y * bcv[2 * s]);
-    }
+  };
+  if (n_chunks > 0) load_state(n_chunks - 1);
 
-    // and back: g from h_t to h_{t-1}, each step's terms
-    for (int j = steps - 1; j >= 0; --j) {
-      const float4 xv = s_x[j * ch + c];
-      float bcv[2 * SPL], hp[SPL], e[SPL], wb[SPL], wc[SPL];
-      load_smem<2 * SPL>(bcv, reinterpret_cast<const float*>(s_bc + j * STATES + n0));
-      lds<SPL>(hp, s_h + j * ch * STATES + slot);
-      lds<SPL>(e, s_a + j * ch * STATES + slot);
-      float pdt = 0.f, pdu = 0.f;
+  // The pipeline: while chunk k walks, chunk k + 1's sums go out, chunk
+  // k - 1 is converted and chunk k - 3 copied, that work spread over the
+  // walk's steps; one barrier a chunk. Every buffer is double (the tile, the
+  // warps' sums, (ddt, du)) or, for the raw copies, a ring of three, so that
+  // nothing is overwritten before every thread has read it.
+  if constexpr (ASYNC) {
+    issue(n_chunks - 1);
+    issue(n_chunks - 2);
+    repro::cp_async_wait<1>();
+  }
+  __syncthreads();
 #pragma unroll
-      for (int s = 0; s < SPL; ++s) {
-        const float bs = bcv[2 * s], cs = bcv[2 * s + 1];
-        g[s] = fmaf(cs, xv.w, g[s]);  // g_t
-        const float ah = e[s] * hp[s];  // a_t h_{t-1}
-        pdt = fmaf(g[s], fmaf(av[s], ah, xv.z * bs), pdt);
-        pdu = fmaf(g[s], bs, pdu);
-        dA[s] = fmaf(g[s], xv.x * ah, dA[s]);
-        wb[s] = g[s] * xv.y;               // dB's term, g dt u
-        wc[s] = fmaf(xv.y, bs, ah) * xv.w;  // dC's term, h_t dy
-        g[s] *= e[s];                      // a_t g_t, toward step t - 1
-      }
-      sts<SPL>(s_h + j * ch * STATES + slot, wb);  // h_{t-1}, a_t no longer needed
-      sts<SPL>(s_a + j * ch * STATES + slot, wc);
+  for (int w = W_OUT; w < W_OUT + W_TILE; ++w) phase(n_chunks, w);  // chunk n - 1's tile
+  if constexpr (ASYNC) {
+    issue(n_chunks - 3);
+    repro::cp_async_wait<1>();
+  }
+  __syncthreads();
+  for (int k = n_chunks - 1; k >= -1; --k) {
+    if (k >= 0) {
+      // chunk k forward again from its saved state: a_t h_{t-1} and a_t per step
+      const float4* x_k = s_x + (k & 1) * NX;
+      const float* b_k = s_bc + (k & 1) * 2 * R * STATES;
+      const float* c_k = b_k + R * STATES;
+      float h[SPL], ah[R][SPL], ea[R][SPL];
 #pragma unroll
-      for (int o = G / 2; o > 0; o >>= 1) {
-        pdt += __shfl_xor_sync(0xffffffffu, pdt, o);
-        pdu += __shfl_xor_sync(0xffffffffu, pdu, o);
+      for (int s = 0; s < SPL; ++s) h[s] = hs[s];
+      if (k > 0) load_state(k - 1);  // in flight while chunk k walks
+      if constexpr (ASYNC) issue(k - 3);
+      if constexpr (FAULT == FAULT_G_DROPPED) {
+        if (k == (n_chunks - 1) / 2 && k + 1 < n_chunks) {
+#pragma unroll
+          for (int s = 0; s < SPL; ++s) g[s] = 0.f;
+        }
       }
-      if (lane == 0) s_g[j * ch + c] = make_float2(pdt, xv.x * pdu);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float2 x = reinterpret_cast<const float2*>(x_k + j * BWD_CH + c)[0];  // dt, dt u
+        float bv[SPL];
+        load_smem<SPL>(bv, b_k + j * STATES + n0);
+#pragma unroll
+        for (int s = 0; s < SPL; ++s) {
+          ea[j][s] = expf(x.x * av[s]);
+          ah[j][s] = ea[j][s] * h[s];
+          h[s] = fmaf(x.y, bv[s], ah[j][s]);
+        }
+      }
+
+      // and back: g from h_t to h_{t-1}, each step's terms
+      float* red = s_red + (k & 1) * G * NV + warp * NV;
+      float2* out = s_out + (k & 1) * NX;
+#pragma unroll
+      for (int jb = R / G - 1; jb >= 0; --jb) {
+        float pd[G], pg[G];  // per step: sum_n A g a h and sum_n g B of this lane's states
+#pragma unroll
+        for (int jj = G - 1; jj >= 0; --jj) {
+          const int j = jb * G + jj;
+          const float4 x = x_k[j * BWD_CH + c];
+          float bv[SPL], cv[SPL], v[P];
+          load_smem<SPL>(bv, b_k + j * STATES + n0);
+          load_smem<SPL>(cv, c_k + j * STATES + n0);
+          const float xwdy = x.y * x.w;
+          float pdt = 0.f, pgb = 0.f;
+#pragma unroll
+          for (int s = 0; s < SPL; ++s) {
+            g[s] = fmaf(cv[s], x.w, g[s]);  // g_t
+            const float q = g[s] * ah[j][s];
+            dA[s] = fmaf(q, x.x, dA[s]);
+            pdt = fmaf(av[s], q, pdt);
+            pgb = fmaf(g[s], bv[s], pgb);
+            v[s] = g[s] * x.y;                                 // dB's term, g dt u
+            v[SPL + s] = fmaf(xwdy, bv[s], ah[j][s] * x.w);  // dC's term, h_t dy
+            g[s] *= ea[j][s];                                  // a_t g_t, toward step t - 1
+          }
+          pd[jj] = pdt;
+          pg[jj] = pgb;
+          // over the warp's P channels: each round a lane keeps half its values
+          // and sends the other half to its partner; lane cw ends with value cw
+#pragma unroll
+          for (int o = P / 2; o > 0; o >>= 1) {
+            const bool up = cw & o;
+#pragma unroll
+            for (int i = 0; i < o; ++i) {
+              const float send = up ? v[i] : v[i + o];
+              const float keep = up ? v[i + o] : v[i];
+              v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o * G);
+            }
+          }
+          red[j * BWD_VALS + (cw < SPL ? 0 : STATES - SPL) + n0 + cw] = v[0];
+          // this step's share of the phase work, its latency under the walk's
+          const int step = R - 1 - j;
+#pragma unroll
+          for (int w = step * W_ALL / R; w < (step + 1) * W_ALL / R; ++w) phase(k, w);
+        }
+        // over the channel's G lanes, the same way: lane l ends with step jb G + l
+#pragma unroll
+        for (int o = G / 2; o > 0; o >>= 1) {
+          const bool up = lane & o;
+#pragma unroll
+          for (int i = 0; i < o; ++i) {
+            const float sd = up ? pd[i] : pd[i + o], kd = up ? pd[i + o] : pd[i];
+            const float sg = up ? pg[i] : pg[i + o], kg = up ? pg[i + o] : pg[i];
+            pd[i] = kd + __shfl_xor_sync(0xffffffffu, sd, o);
+            pg[i] = kg + __shfl_xor_sync(0xffffffffu, sg, o);
+          }
+        }
+        const int j = jb * G + lane;
+        const float4 x = x_k[j * BWD_CH + c];
+        out[j * BWD_CH + c] = make_float2(fmaf(x.z, pg[0], pd[0]), x.x * pg[0]);  // ddt, du
+      }
+    } else {
+      if constexpr (ASYNC) issue(k - 3);  // an empty group
+#pragma unroll
+      for (int w = 0; w < W_ALL; ++w) phase(k, w);
     }
+    if constexpr (ASYNC) repro::cp_async_wait<1>();  // chunk k - 2 landed, k - 3 in flight
     __syncthreads();
-
-    // ddt and du out, a row of channels at a time
-    T* ddt = static_cast<T*>(a.ddt);
-    T* du = static_cast<T*>(a.du);
-    for (int i = tid; i < steps * ch; i += MAX_THREADS) {
-      const int j = i / ch, e = i - j * ch;
-      if (d0 + e < a.n_d) {
-        const long long off = (row0 + t0 + j) * a.n_d + d0 + e;
-        ddt[off] = repro::from_f32<T>(s_g[i].x);
-        du[off] = repro::from_f32<T>(s_g[i].y);
-      }
-    }
-    // this CTA's share of dB and dC: its channels summed in order
-    for (int i = tid; i < steps * a.n_s; i += MAX_THREADS) {
-      const int j = i / a.n_s, n = i - j * a.n_s;
-      float sb = 0.f, sc = 0.f;
-      for (int e = 0; e < ch; ++e) {
-        sb += s_h[(j * ch + e) * STATES + n];
-        sc += s_a[(j * ch + e) * STATES + n];
-      }
-      const long long o =
-          ((static_cast<long long>(blockIdx.x) * a.n_b + b) * a.n_t + t0 + j) * a.n_s + n;
-      a.part_b[o] = sb;
-      a.part_c[o] = sc;
-    }
   }
   store_states<SPL>(dA, a.part_a + hrow, n0, a.n_s, live);
   store_states<SPL>(g, a.dh0 + hrow, n0, a.n_s, live);
@@ -632,14 +804,14 @@ ssm_scan_bwd_kernel(const BwdArgs a) {
 
 // dB and dC: the CTAs' partials summed in order; dA: the batch rows' shares
 template <typename T>
-__global__ void ssm_scan_bwd_reduce(const BwdArgs a, int n_cx) {
+__global__ void ssm_scan_bwd_reduce(const BwdArgs a) {
   const long long n_btn = static_cast<long long>(a.n_b) * a.n_t * a.n_s;
   const long long n_dn = static_cast<long long>(a.n_d) * a.n_s;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        i < n_btn + n_dn; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     if (i < n_btn) {
       float sb = 0.f, sc = 0.f;
-      for (int x = 0; x < n_cx; ++x) {
+      for (int x = 0; x < a.n_part; ++x) {
         sb += a.part_b[x * n_btn + i];
         sc += a.part_c[x * n_btn + i];
       }
@@ -654,29 +826,18 @@ __global__ void ssm_scan_bwd_reduce(const BwdArgs a, int n_cx) {
   }
 }
 
-template <typename T, int G>
+template <typename T, bool ASYNC, int FAULT>
 int launch_bwd(const BwdArgs& a, int smem, cudaStream_t stream) {
-  constexpr int ch = MAX_THREADS / G;
-  auto kernel = ssm_scan_bwd_kernel<T, G>;
-  cudaError_t err = repro::allow_smem(kernel, smem);
+  auto kernel = ssm_scan_bwd_kernel<T, ASYNC, FAULT>;
+  const cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_cx = (a.n_d + ch - 1) / ch;
-  kernel<<<dim3(n_cx, a.n_b), MAX_THREADS, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(a.n_part, a.n_b), BWD_CH * BWD_G, smem, stream>>>(a);
   const long long total = static_cast<long long>(a.n_b) * a.n_t * a.n_s +
                           static_cast<long long>(a.n_d) * a.n_s;
   const long long want = (total + 255) / 256;
   const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  ssm_scan_bwd_reduce<T><<<blocks, 256, 0, stream>>>(a, n_cx);
+  ssm_scan_bwd_reduce<T><<<blocks, 256, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int bwd_by_group(const BwdArgs& a, int group, int smem, cudaStream_t s) {
-  if (group == 4) return launch_bwd<T, 4>(a, smem, s);
-  if (group == 8) return launch_bwd<T, 8>(a, smem, s);
-  return launch_bwd<T, 16>(a, smem, s);
 }
 
 }  // namespace
@@ -719,30 +880,40 @@ extern "C" int ssm_scan_launch(int dtype, const void* dt, const void* Bc, const 
 // in the input dtype; Bc, Cc read as the forward reads them; dBc, dCc: (B,
 // T, N) contiguous in the input dtype; A, dA: (D, N) fp32; states: (B,
 // ceil(T / 16), D, N) fp32 from the forward (chunk 16); dh_final (null for
-// zeros) and dh0: (B, D, N) fp32; part_b, part_c: (ceil(D / channels), B, T,
-// N) fp32 and part_a (B, D, N) fp32, scratch. group and channels as the
-// forward's plan; smem from ops.py's bwd_smem_bytes. Two launches: the walk,
-// then the sums over CTAs.
+// zeros) and dh0: (B, D, N) fp32; part_b, part_c: (n_part, B, T, N) fp32 and
+// part_a (B, D, N) fp32, scratch. The plan (n_part CTAs along D, smem bytes)
+// comes from ops.py's bwd_plan; async_copy says that dt, u, dy, Bc and Cc
+// have 16-byte aligned rows (the wrapper checks it); fault is FAULT_NONE
+// but in chip_smoke.py's planted faults, which run bf16 with async_copy
+// only. Two launches: the walk, then the sums over CTAs.
 extern "C" int ssm_scan_backward_launch(int dtype, const void* dt, const void* Bc,
                                         const void* Cc, const void* u, const void* dy,
                                         const void* A, const void* states, const void* dh_final,
                                         void* ddt, void* du, void* dBc, void* dCc, void* dA,
                                         void* dh0, void* part_b, void* part_c, void* part_a,
                                         int n_b, int n_t, int n_d, int n_s, long long sbb,
-                                        long long sbt, long long scb, long long sct, int group,
-                                        int channels, int smem, void* stream) {
+                                        long long sbt, long long scb, long long sct, int n_part,
+                                        int async_copy, int smem, int fault, void* stream) {
   const int elt = dtype == kBFloat16 ? 2 : dtype == kFloat32 ? 4 : 0;
-  if (elt == 0 || n_s < 1 || n_s > STATES || n_b > 65535 || n_t < 0 ||
-      (group != 4 && group != 8 && group != 16) || channels * group != MAX_THREADS)
+  if (elt == 0 || n_s < 1 || n_s > STATES || n_b > 65535 || n_t < 0 || fault < FAULT_NONE ||
+      fault > FAULT_WARP_DROPPED || (fault != FAULT_NONE && (elt != 2 || !async_copy)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bwd_layout(channels).total != smem)
-    return static_cast<int>(cudaErrorInvalidValue);  // the host's plan and this layout disagree
+  if (async_copy && (n_d * elt % 16 != 0 || n_s * elt % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the host's plan and this layout disagree
+  if (bwd_layout(n_s, elt).total != smem || n_part != (n_d + BWD_CH - 1) / BWD_CH)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_b <= 0 || n_d <= 0) return 0;
   BwdArgs a{dt, Bc, Cc, u, dy, static_cast<const float*>(A), static_cast<const float*>(states),
             static_cast<const float*>(dh_final), ddt, du, dBc, dCc, static_cast<float*>(dA),
             static_cast<float*>(dh0), static_cast<float*>(part_b), static_cast<float*>(part_c),
-            static_cast<float*>(part_a), n_b, n_t, n_d, n_s, sbb, sbt, scb, sct};
+            static_cast<float*>(part_a), n_b, n_t, n_d, n_s, n_part, sbb, sbt, scb, sct};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16) return bwd_by_group<bf16>(a, group, smem, s);
-  return bwd_by_group<float>(a, group, smem, s);
+  if (fault == FAULT_G_DROPPED) return launch_bwd<bf16, true, FAULT_G_DROPPED>(a, smem, s);
+  if (fault == FAULT_WARP_DROPPED) return launch_bwd<bf16, true, FAULT_WARP_DROPPED>(a, smem, s);
+  if (dtype == kBFloat16)
+    return async_copy ? launch_bwd<bf16, true, FAULT_NONE>(a, smem, s)
+                      : launch_bwd<bf16, false, FAULT_NONE>(a, smem, s);
+  return async_copy ? launch_bwd<float, true, FAULT_NONE>(a, smem, s)
+                    : launch_bwd<float, false, FAULT_NONE>(a, smem, s);
 }

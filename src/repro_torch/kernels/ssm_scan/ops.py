@@ -14,11 +14,12 @@ reduced across a channel's lanes.
 On the card, when grad mode is on and an input requires grad, the call goes
 through ``_Scan``: the forward kernel also saves the state before every
 chunk of ``CHUNK`` steps, and the backward is ``ssm_scan_backward``, the
-hand-written backward kernel of the same file (its own ``.launches``; it
-spreads a channel over the forward plan's lanes, at least
-``BWD_MIN_GROUP``). On the CPU autograd differentiates the plain loop;
-``ssm_scan_backward`` there is the plain reverse loop
-(``ssm_scan_backward_reference``).
+hand-written backward kernel of the same file (its own ``.launches``):
+``BWD_GROUP`` lanes a channel, ``BWD_CHANNELS`` channels a CTA, one chunk in
+registers; ``bwd_plan`` gives its shared memory and the dB / dC partials
+(one per CTA along D) its second launch adds. On the CPU autograd
+differentiates the plain loop; ``ssm_scan_backward`` there is the plain
+reverse loop (``ssm_scan_backward_reference``).
 """
 
 from __future__ import annotations
@@ -32,9 +33,10 @@ import torch
 from .. import _build
 from .ref import ssm_scan_backward_reference, ssm_scan_reference
 
-__all__ = ["ssm_scan", "ssm_scan_backward", "scan_plan", "smem_bytes", "bwd_smem_bytes",
-           "SsmPlan", "N_MAX", "GROUPS", "REDUCTIONS", "THREADS", "TILE_T", "FILL_THREADS",
-           "SMEM_LIMIT", "CHUNK", "BWD_MIN_GROUP"]
+__all__ = ["ssm_scan", "ssm_scan_backward", "scan_plan", "smem_bytes", "bwd_plan",
+           "bwd_smem_bytes", "SsmPlan", "BwdPlan", "N_MAX", "GROUPS", "REDUCTIONS", "THREADS",
+           "TILE_T", "FILL_THREADS", "SMEM_LIMIT", "CHUNK", "BWD_GROUP", "BWD_CHANNELS",
+           "BWD_FAULTS"]
 
 N_MAX = 16  # a channel's states, padded with zeros to N_MAX (csrc/ssm_scan.cu: STATES)
 GROUPS = (4, 8, 16)  # lanes per channel the kernel is built for; each holds N_MAX // G states
@@ -47,15 +49,22 @@ TILE_T = 64  # steps staged per tile, at most (csrc/ssm_scan.cu: its entry's che
 FILL_THREADS = 128  # threads per SM the plan asks of the grid before it spreads a channel wider
 SMEM_LIMIT = 232_448  # shared memory one CTA may take on an H100
 CHUNK = 16  # steps between the states the forward saves for the backward (csrc: CHUNK)
-# the backward's fewest lanes per channel: at 4 a CTA holds 32 channels and
-# bwd_smem_bytes(32) = 78 KB (two CTAs an SM), at 8 half that (five); 1.957
-# against 2.236 ms at jamba's (1, 4096, 8192, 16) bf16 (chip_smoke.py on an
-# H100 80GB HBM3 at 700 W)
-BWD_MIN_GROUP = 8
+# The backward (csrc/ssm_scan.cu: BWD_G, BWD_CH): lanes per channel, each
+# keeping a chunk's a_t h_{t-1} and a_t of its N_MAX // BWD_GROUP states in
+# registers (128 registers, 16 warps an SM), and channels per CTA, each CTA
+# writing its own dB / dC partial. 4 lanes a channel and thread-block
+# clusters summing the CTAs' partials on chip were slower (PERF.md, the
+# selective-scan backward's redesign)
+BWD_GROUP = 8
+BWD_CHANNELS = 32
+# planted faults of the C entry, instances of their own for chip_smoke.py's
+# gate only (bf16, staged rows): g not carried into one chunk; the last
+# warp's dB / dC share left out of a CTA's sum
+BWD_FAULTS = {"none": 0, "g dropped at a chunk boundary": 1, "a warp's dB / dC share dropped": 2}
 _DTYPES = (torch.bfloat16, torch.float32)
 _PTR, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = ((_INT,) + (_PTR,) * 8 + (_INT,) * 4 + (_LL,) * 4 + (_INT,) * 6 + (_PTR,) * 2)
-_BWD_ARGTYPES = ((_INT,) + (_PTR,) * 17 + (_INT,) * 4 + (_LL,) * 4 + (_INT,) * 3 + (_PTR,))
+_BWD_ARGTYPES = ((_INT,) + (_PTR,) * 17 + (_INT,) * 4 + (_LL,) * 4 + (_INT,) * 4 + (_PTR,))
 
 
 class SsmPlan(NamedTuple):
@@ -64,6 +73,12 @@ class SsmPlan(NamedTuple):
     tile_t: int  # steps staged in shared memory per tile (a multiple of group for "scatter")
     reduce: str  # one of REDUCTIONS
     smem: int  # bytes of dynamic shared memory
+    ctas: int
+
+
+class BwdPlan(NamedTuple):
+    smem: int  # bytes of dynamic shared memory
+    partials: int  # CTAs along D per batch row, BWD_CHANNELS channels each: the dB / dC partials
     ctas: int
 
 
@@ -81,11 +96,28 @@ def smem_bytes(tile_t: int, channels: int, n: int, elt: int) -> int:
     return raw + fp32 + _r16(tile_t * channels * 4)
 
 
-def bwd_smem_bytes(channels: int) -> int:
-    """The backward's shared memory (csrc/ssm_scan.cu: ``bwd_layout``): per
-    step of a chunk, h_{t-1} and the decay per channel and state (N_MAX), (dt,
-    dt u, u, dy) and (ddt, du) per channel, (B, C) per state."""
-    return CHUNK * (channels * (2 * N_MAX * 4 + 16 + 8) + N_MAX * 8)
+def bwd_smem_bytes(n: int, elt: int) -> int:
+    """The backward's shared memory (csrc/ssm_scan.cu: ``bwd_layout``), for
+    chunks of CHUNK steps, two of each: the fp32 tile ((dt, dt u, u, dy) per
+    channel, B and C per state padded to N_MAX), (ddt, du) per channel and
+    each of the ``BWD_GROUP`` warps' dB and dC sums; then a ring of three raw
+    stages of dt, u, dy (a row of channels each) and B, C (n each)."""
+    tile = CHUNK * (BWD_CHANNELS * 16 + N_MAX * 8)
+    sums = BWD_GROUP * CHUNK * 2 * N_MAX * 4
+    raw = 3 * _r16(CHUNK * BWD_CHANNELS * elt) + 2 * _r16(CHUNK * n * elt)
+    return 2 * (tile + CHUNK * BWD_CHANNELS * 8 + sums) + 3 * raw
+
+
+def bwd_plan(b: int, d: int, n: int, elt: int) -> BwdPlan:
+    """The backward's CTAs for ``b`` batch rows of ``d`` channels with n
+    states in ``elt``-byte inputs: ``BWD_CHANNELS`` channels a CTA of one
+    batch row (the row's last CTA fewer), each CTA's dB / dC sums a partial
+    of its own. Raises for sizes the kernel does not take."""
+    if min(b, d) < 1 or not 1 <= n <= N_MAX or elt not in (2, 4) or b > 65535:
+        raise ValueError(f"ssm_scan_backward: no plan for B={b} D={d} N={n} elt={elt} "
+                         f"(1 <= N <= {N_MAX}, B <= 65535, 2- or 4-byte inputs)")
+    partials = -(-d // BWD_CHANNELS)
+    return BwdPlan(bwd_smem_bytes(n, elt), partials, b * partials)
 
 
 @functools.lru_cache(maxsize=4096)  # a plan per shape: the wrapper asks for one on every call
@@ -160,15 +192,16 @@ def _check(dt, Bc, Cc, u, A, h0) -> None:
             raise ValueError(f"{name} needs unit stride on N, got strides {t.stride()}")
 
 
-def _async_rows(dt, Bc, Cc, u, plan: SsmPlan) -> bool:
+def _async_rows(dt, Bc, Cc, u, channels: int) -> bool:
     """Whether every row the kernel stages starts on 16 bytes and spans whole
     16-byte chunks, so that cp.async can copy it (else plain loads): dt and u
-    are contiguous (B, T, D), Bc and Cc step through their strides."""
+    are contiguous (B, T, D), a CTA's ``channels`` of them a row, Bc and Cc
+    step through their strides."""
     elt = u.element_size()
     B, T, D = u.shape
     (sbb, sbt, _), (scb, sct, _) = Bc.stride(), Cc.stride()
     # row widths, then the strides of the dims that have more than one row
-    sizes = (D, Bc.shape[-1], plan.channels) + (sbb, scb) * (B > 1) + (sbt, sct) * (T > 1)
+    sizes = (D, Bc.shape[-1], channels) + (sbb, scb) * (B > 1) + (sbt, sct) * (T > 1)
     return not ((dt.data_ptr() | u.data_ptr() | Bc.data_ptr() | Cc.data_ptr()) % 16
                 or any(v * elt % 16 for v in sizes))
 
@@ -188,7 +221,7 @@ def _launch(dt, Bc, Cc, u, A, h0, plan: SsmPlan, *, states: bool = False):
               u.data_ptr(), A.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
               h_final.data_ptr(), B, T, D, N, Bc.stride(0), Bc.stride(1), Cc.stride(0),
               Cc.stride(1), plan.group, plan.channels, plan.tile_t, REDUCTIONS.index(plan.reduce),
-              int(_async_rows(dt, Bc, Cc, u, plan)), plan.smem,
+              int(_async_rows(dt, Bc, Cc, u, plan.channels)), plan.smem,
               None if saved is None else saved.data_ptr(), _build.stream_handle())
     _build.check(code, "ssm_scan")
     return (y, h_final, saved) if states else (y, h_final)
@@ -197,6 +230,11 @@ def _launch(dt, Bc, Cc, u, A, h0, plan: SsmPlan, *, states: bool = False):
 def _plan(u: torch.Tensor, N: int) -> SsmPlan:
     B, T, D = u.shape
     return scan_plan(B, T, D, N, u.element_size(), _sm_count(u.device.index))
+
+
+def _bwd_plan(u: torch.Tensor, N: int) -> BwdPlan:
+    B, _, D = u.shape
+    return bwd_plan(B, D, N, u.element_size())
 
 
 def _kernel_forward(dt, Bc, Cc, u, A, h0):
@@ -236,28 +274,29 @@ def _check_backward(dt, Bc, Cc, u, A, h0, dy, dh_final, states) -> None:
                              f"{t.stride()}")
 
 
-def _launch_backward(dt, Bc, Cc, u, A, dy, dh_final, states, group: int):
+def _launch_backward(dt, Bc, Cc, u, A, dy, dh_final, states, plan: BwdPlan, fault: int = 0):
     """One call of the backward's C entry (its walk and its sums over CTAs)
-    with ``group`` lanes per channel (the wrapper's, or another to test)."""
+    with ``plan``; ``fault`` one of ``BWD_FAULTS`` (chip_smoke.py's planted
+    faults)."""
     B, T, D = u.shape
     N = A.shape[1]
-    channels = THREADS // group
     dev = u.device
     ddt, du = torch.empty_like(dt), torch.empty_like(u)
     dBc = torch.empty((B, T, N), dtype=Bc.dtype, device=dev)
     dCc = torch.empty((B, T, N), dtype=Cc.dtype, device=dev)
     dA = torch.empty((D, N), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, D, N), dtype=torch.float32, device=dev)
-    part_b, part_c = (torch.empty((-(-D // channels), B, T, N), dtype=torch.float32, device=dev)
+    part_b, part_c = (torch.empty((plan.partials, B, T, N), dtype=torch.float32, device=dev)
                       for _ in range(2))
     part_a = torch.empty((B, D, N), dtype=torch.float32, device=dev)
+    staged = _async_rows(dt, Bc, Cc, u, BWD_CHANNELS) and dy.data_ptr() % 16 == 0
     fn = _build.function("ssm_scan", "ssm_scan_backward_launch", _BWD_ARGTYPES)
     code = fn(_build.DTYPE_CODES[u.dtype], dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
               u.data_ptr(), dy.data_ptr(), A.data_ptr(), states.data_ptr(),
               None if dh_final is None else dh_final.data_ptr(), ddt.data_ptr(), du.data_ptr(),
               dBc.data_ptr(), dCc.data_ptr(), dA.data_ptr(), dh0.data_ptr(), part_b.data_ptr(),
               part_c.data_ptr(), part_a.data_ptr(), B, T, D, N, Bc.stride(0), Bc.stride(1),
-              Cc.stride(0), Cc.stride(1), group, channels, bwd_smem_bytes(channels),
+              Cc.stride(0), Cc.stride(1), plan.partials, int(staged), plan.smem, fault,
               _build.stream_handle())
     _build.check(code, "ssm_scan")
     return ddt, dBc, dCc, du, dA, dh0
@@ -278,8 +317,7 @@ def ssm_scan_backward(dt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, u: t
     _check_backward(dt, Bc, Cc, u, A, h0, dy, dh_final, states)
     if u.device.type == "cpu":
         return ssm_scan_backward_reference(dt, Bc, Cc, u, A, h0, dy, dh_final)
-    group = max(_plan(u, A.shape[1]).group, BWD_MIN_GROUP)
-    out = _launch_backward(dt, Bc, Cc, u, A, dy, dh_final, states, group)
+    out = _launch_backward(dt, Bc, Cc, u, A, dy, dh_final, states, _bwd_plan(u, A.shape[1]))
     ssm_scan_backward.launches += 1
     return out
 

@@ -752,8 +752,8 @@ def assert_scan_grads(got, want):
 
 
 # the backward's edges: T below a chunk, ragged against it, one step; N of
-# 1, 4, 7 and 16; D ragged in a CTA; strided B and C; with and without h0 and
-# dh_final
+# 1, 4, 7 and 16; D ragged in a CTA (200 and 203 channels: 7 CTAs of 32, the
+# last of 8 or 11); strided B and C; with and without h0 and dh_final
 SSM_GRAD_EDGES = [
     (1, 241, 8192, 16, torch.bfloat16, False, False, True),  # jamba prefill's shape
     (2, 37, 200, 16, torch.bfloat16, True, True, True),
@@ -764,25 +764,96 @@ SSM_GRAD_EDGES = [
 ]
 
 
-@pytest.mark.parametrize("B,T,D,N,dtype,h0,dh,fused", SSM_GRAD_EDGES)
-@pytest.mark.parametrize("group", scan_ops.GROUPS)
-@pytest.mark.parametrize("reduce", scan_ops.REDUCTIONS)
-def test_ssm_scan_backward_every_plan(gen, B, T, D, N, dtype, h0, dh, fused, group, reduce):
-    """The forward with chunk states under every plan neighbour, then the
-    backward kernel with that plan's lanes per channel, against the plain
-    chunk states and the plain reverse loop."""
+def _scan_grad_case(gen, B, T, D, N, dtype, h0, dh, fused):
     args = scan_inputs(gen, B, T, D, N, dtype, h0, fused)
     dy = randn(gen, B, T, D, dtype=dtype)
     dhf = torch.randn(B, D, N, generator=gen, device="cuda") if dh else None
+    return args, dy, dhf
+
+
+def _off_16_bytes(t):
+    """t's values in a contiguous tensor that starts one element past 16 bytes."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("B,T,D,N,dtype,h0,dh,fused", SSM_GRAD_EDGES)
+@pytest.mark.parametrize("route", ["as planned", "plain loads"])
+def test_ssm_scan_backward_every_plan(gen, B, T, D, N, dtype, h0, dh, fused, route):
+    """The backward kernel with the wrapper's plan from the forward's chunk
+    states, against the plain reverse loop, both ways its inputs arrive: as
+    the rows' alignment lets them (cp.async stages where every row starts on
+    16 bytes), and by plain loads (dy moved off 16 bytes)."""
+    args, dy, dhf = _scan_grad_case(gen, B, T, D, N, dtype, h0, dh, fused)
+    want = ssm_scan_backward_reference(*args, dy, dhf)
+    if route == "plain loads":
+        dy = _off_16_bytes(dy)
+    _, _, states = scan_ops._kernel_forward(*args)
+    got = scan_ops._launch_backward(*args[:5], dy, dhf, states, scan_ops._bwd_plan(args[3], N))
+    torch.cuda.synchronize()
+    assert_scan_grads(got, want)
+
+
+@pytest.mark.parametrize("fault", [f for f, code in scan_ops.BWD_FAULTS.items() if code])
+def test_ssm_scan_backward_planted_faults_fail(gen, fault):
+    """Each planted fault of the C entry (g not carried into one chunk; one
+    warp's dB / dC share left out) fails the gradient check; its instances
+    take bf16 with staged rows only, and the C entry refuses any other."""
+    args, dy, dhf = _scan_grad_case(gen, 2, 70, 256, 16, torch.bfloat16, True, True, False)
+    plan = scan_ops._bwd_plan(args[3], 16)
+    _, _, states = scan_ops._kernel_forward(*args)
+    got = scan_ops._launch_backward(*args[:5], dy, dhf, states, plan, scan_ops.BWD_FAULTS[fault])
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        assert_scan_grads(got, ssm_scan_backward_reference(*args, dy, dhf))
+    with pytest.raises(RuntimeError):
+        scan_ops._launch_backward(*args[:5], _off_16_bytes(dy), dhf, states, plan,
+                                  scan_ops.BWD_FAULTS[fault])
+
+
+@pytest.mark.parametrize("B,T,D,N,dtype,h0,dh,fused", SSM_GRAD_EDGES)
+@pytest.mark.parametrize("group", scan_ops.GROUPS)
+@pytest.mark.parametrize("reduce", scan_ops.REDUCTIONS)
+def test_ssm_scan_chunk_states_every_plan(gen, B, T, D, N, dtype, h0, dh, fused, group, reduce):
+    """The forward's chunk states under every forward plan neighbour against
+    the plain ones (the backward restarts from them)."""
+    args = scan_inputs(gen, B, T, D, N, dtype, h0, fused)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     plan = scan_ops.scan_plan(B, T, D, N, args[3].element_size(), n_sm, group=group,
                               reduce=reduce)
     _, _, states = scan_ops._launch(*args, plan, states=True)
-    got = scan_ops._launch_backward(*args[:5], dy, dhf, states, group)
     torch.cuda.synchronize()
     want = ssm_scan_chunk_states(args[0], args[1], args[3], args[4], args[5], scan_ops.CHUNK)
     torch.testing.assert_close(states, want, **SCAN_H)
-    assert_scan_grads(got, ssm_scan_backward_reference(*args, dy, dhf))
+
+
+@pytest.mark.parametrize("B,T,D,N,dtype,h0,dh,fused", SSM_GRAD_EDGES[:3])
+def test_ssm_scan_backward_is_bit_equal_on_repeat(gen, B, T, D, N, dtype, h0, dh, fused):
+    """No atomics and every sum in a fixed order: two calls give the same bits."""
+    args, dy, dhf = _scan_grad_case(gen, B, T, D, N, dtype, h0, dh, fused)
+    _, _, states = scan_ops._kernel_forward(*args)
+    first = scan_ops.ssm_scan_backward(*args, dy, dhf, states)
+    second = scan_ops.ssm_scan_backward(*args, dy, dhf, states)
+    for name, a, b in zip(GRAD_NAMES, first, second):
+        assert torch.equal(a, b), name
+
+
+def test_ssm_scan_backward_graph_replay_equals_eager(gen):
+    """The backward captured in a CUDA graph (its scratch allocated in the
+    graph's pool) and replayed gives the eager call's bits."""
+    args, dy, dhf = _scan_grad_case(gen, 2, 70, 200, 16, torch.bfloat16, True, True, True)
+    _, _, states = scan_ops._kernel_forward(*args)
+    eager = scan_ops.ssm_scan_backward(*args, dy, dhf, states)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = scan_ops.ssm_scan_backward(*args, dy, dhf, states)
+    graph.replay()
+    torch.cuda.synchronize()
+    for name, a, b in zip(GRAD_NAMES, eager, captured):
+        assert torch.equal(a, b), name
 
 
 def test_ssm_scan_backward_wrong_inputs_raise(gen):

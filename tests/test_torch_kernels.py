@@ -450,7 +450,7 @@ class TestSsmScanPlan:
             xp = torch.zeros(B, T, W, dtype=dtype)
             Bc, Cc = xp[..., lo:lo + N], xp[..., lo + N:lo + 2 * N]
             p = scan_ops.scan_plan(B, T, D, N, elt, 132)
-            return scan_ops._async_rows(dt, Bc, Cc, u, p)
+            return scan_ops._async_rows(dt, Bc, Cc, u, p.channels)
 
         assert rows(4, 1, 8192, 16, 8 + 32 + 8192 // 16, per)  # jamba's decode step
         assert rows(1, 241, 8192, 16, 8 * per + 32, per)  # its prefill

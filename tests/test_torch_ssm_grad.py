@@ -4,10 +4,12 @@ to) against ``torch.autograd.grad`` through the plain scan and against
 ``jax.vjp`` of the JAX package's ``ssm_scan_reference``, on the same numpy
 inputs; the plain chunk states against the scan's own states; the
 ``autograd.Function`` that wires the backward to a forward (here the plain
-one, on the card the kernel); the backward wrapper's refusals; and, for the
-slice as a whole, reduced jamba's loss and every gradient with its scans
-routed through that Function under remat, against the reference's
-``jax.value_and_grad``.
+one, on the card the kernel); the backward wrapper's refusals; the backward
+kernel's plan (``bwd_plan``: every channel in one CTA, the layout the C
+entry mirrors) and both C entries' ctypes signatures; and, for the slice as
+a whole, reduced jamba's loss and
+every gradient with its scans routed through that Function under remat,
+against the reference's ``jax.value_and_grad``.
 
 Tolerances: the gradients are sums over T, D or N in fp32 on both sides, in
 another order (autograd and XLA reduce as they like): 1e-5 relative to each
@@ -16,7 +18,10 @@ model's loss and gradients as ``tests/test_torch_train_parity.py``: the loss
 1e-5 relative, each gradient's rel-L2 1e-4.
 """
 
+import ctypes
 import itertools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -231,6 +236,92 @@ def test_backward_wrapper_refuses_other_devices():
     bc = torch.empty(1, 4, 2, device="meta")
     with pytest.raises(ValueError, match="CPU or a CUDA card"):
         ops.ssm_scan_backward(x, bc, bc, x, torch.empty(8, 2, device="meta"), None, x)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's plan (csrc/ssm_scan.cu mirrors it and refuses a plan
+# whose layout differs from its own)
+
+CSRC = Path(ops.__file__).resolve().parents[2] / "csrc"
+PLAN_SHAPES = [(1, 8192), (2, 200), (3, 203), (2, 96), (1, 64), (3, 32), (2, 1), (1, 257)]
+
+
+def _csrc_int(name: str) -> str:
+    found = re.search(rf"constexpr int {name} = (\w+);", (CSRC / "ssm_scan.cu").read_text())
+    assert found, name
+    return found.group(1)
+
+
+class TestBwdPlan:
+    @pytest.mark.parametrize("b,d", PLAN_SHAPES)
+    def test_every_channel_in_one_cta(self, b, d):
+        """CTA (x, row) takes channels [x ch, (x + 1) ch) of its batch row and
+        writes partial x: every (b, d) lands in exactly one CTA, and no CTA
+        lies wholly past D."""
+        plan = ops.bwd_plan(b, d, 16, 2)
+        assert plan.ctas == b * plan.partials
+        seen = []
+        for row in range(b):
+            for x in range(plan.partials):
+                chans = range(x * ops.BWD_CHANNELS, min((x + 1) * ops.BWD_CHANNELS, d))
+                assert chans, (row, x)
+                seen += [(row, c) for c in chans]
+        assert sorted(seen) == [(row, c) for row in range(b) for c in range(d)]
+
+    @pytest.mark.parametrize("b,d", PLAN_SHAPES)
+    @pytest.mark.parametrize("n,elt", [(1, 4), (4, 4), (7, 2), (16, 2), (16, 4)])
+    def test_partials_and_shared_memory_follow_the_layout(self, b, d, n, elt):
+        """The partials and shared memory by the layout the C entry recomputes
+        (``bwd_layout``, the ``n_part`` check): two of the fp32 tile, (ddt,
+        du) and the warps' dB / dC sums, and three raw stages."""
+        plan = ops.bwd_plan(b, d, n, elt)
+        r16 = lambda v: -(-v // 16) * 16  # noqa: E731
+        S, CH, G = ops.CHUNK, ops.BWD_CHANNELS, ops.BWD_GROUP
+        want = (2 * (S * CH * 16 + S * 16 * 8 + S * CH * 8 + G * S * 32 * 4)
+                + 3 * (3 * r16(S * CH * elt) + 2 * r16(S * n * elt)))
+        assert plan.smem == want == ops.bwd_smem_bytes(n, elt)
+        assert 2 * plan.smem <= ops.SMEM_LIMIT  # two CTAs an SM
+        assert plan.partials == -(-d // CH)
+
+    def test_the_c_entry_mirrors_the_constants(self):
+        assert int(_csrc_int("CHUNK")) == ops.CHUNK
+        assert int(_csrc_int("BWD_CH")) == ops.BWD_CHANNELS
+        assert int(_csrc_int("BWD_G")) == ops.BWD_GROUP
+        assert _csrc_int("BWD_STEPS") == "CHUNK"
+
+    def test_chunk_is_a_whole_number_of_the_register_steps(self):
+        """A lane keeps one chunk in registers and reduce-scatters ddt and du
+        ``BWD_GROUP`` steps at a time."""
+        assert ops.CHUNK % ops.BWD_GROUP == 0 and ops.N_MAX % ops.BWD_GROUP == 0
+
+    def test_the_planted_faults_follow_the_c_entry(self):
+        found = re.search(r"enum \{ (FAULT_NONE = 0, [^}]*) \};",
+                          (CSRC / "ssm_scan.cu").read_text())
+        assert found
+        codes = [int(item.split("=")[1]) for item in found.group(1).split(",")]
+        assert sorted(ops.BWD_FAULTS.values()) == codes and ops.BWD_FAULTS["none"] == 0
+
+    @pytest.mark.parametrize("args", [(0, 64, 16, 2), (1, 0, 16, 2), (1, 64, 0, 2),
+                                      (1, 64, 17, 2), (1, 64, 16, 8), (70_000, 64, 16, 2)])
+    def test_sizes_the_kernel_does_not_take_raise(self, args):
+        with pytest.raises(ValueError):
+            ops.bwd_plan(*args)
+
+
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+
+
+@pytest.mark.parametrize("entry,argtypes", [("ssm_scan_launch", ops._ARGTYPES),
+                                            ("ssm_scan_backward_launch", ops._BWD_ARGTYPES)])
+def test_the_wrappers_argtypes_follow_the_c_entries(entry, argtypes):
+    """Each wrapper's ctypes signature is its C entry's parameter list, type
+    by type: the C ABI is checked by nothing else off the card."""
+    head = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)",
+                     (CSRC / "ssm_scan.cu").read_text())
+    assert head, entry
+    kinds = [ctypes.c_void_p if "*" in p else _C_TYPES[" ".join(p.split()[:-1])]
+             for p in head.group(1).split(",")]
+    assert kinds == list(argtypes)
 
 
 # ---------------------------------------------------------------------------
