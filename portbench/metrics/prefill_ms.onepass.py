@@ -1,0 +1,6 @@
+"""Mean prefill service (the engine's service log) over the window."""
+from portbench.derive import mean_service_ms
+
+
+def read(run):
+    return mean_service_ms(run, "prefill")
