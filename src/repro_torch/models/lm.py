@@ -29,6 +29,13 @@ Modes:
   decode_step  — one token per sequence, reads and updates the caches in place
 ``loss_fn(model, batch)`` is the training loss over ``forward``'s logits.
 
+``prefill`` and ``decode_step`` take a ``tracer`` (a ``repro_torch.obs.Tracer``,
+default None), which the serving engine passes on the wall clock, and name
+their host regions by it in a ``torch.profiler`` capture: each layer's mixer
+(with norm1 and the cache update) ``lm.mixer.<mixer>``, its FFN (with norm2)
+``lm.ffn.<ffn>``, and the final norm with the logits ``lm.head``. Without a
+tracer each site enters one shared no-op context.
+
 A config with ``prefix_embed`` (internvl2's stub vision frontend) takes
 ``prefix_embeds`` (B, P, d) in ``forward`` and ``prefill``: cast to the
 model's dtype and put ahead of the token embeddings (gemma's sqrt(d) scaling
@@ -76,6 +83,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.obs.tracer import no_region
 from repro_torch.sharding.partition import hint
 
 from . import attention as A
@@ -250,6 +258,8 @@ class LM(nn.Module):
         dtype = torch_dtype(cfg.dtype)
         self.cfg = cfg
         self.layer_specs: tuple[LayerSpec, ...] = cfg.superblock * cfg.num_superblocks
+        self._region_names = tuple((f"lm.mixer.{s.mixer}", f"lm.ffn.{s.ffn}")
+                                   for s in self.layer_specs)
         kw = dict(seed=seed, dtype=dtype, device=dev)
         self.embed = ParamTree(embed_template(cfg), path="embed", **kw)
         self.layers = nn.ModuleList(
@@ -416,13 +426,15 @@ class LM(nn.Module):
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, *, prefix_embeds: torch.Tensor | None = None,
-                enc_embeds: torch.Tensor | None = None):
+                enc_embeds: torch.Tensor | None = None, tracer=None):
         """tokens: (B, S) ids, after ``prefix_embeds`` (B, P, d) where the
         config takes a prefix; an encoder-decoder also takes ``enc_embeds``
         (B, Se, d), which it encodes first. Returns (last-position logits (B,
         1, V), caches holding the P + S positions (a local layer's last W, as
-        a ring), the recurrent layers' states and the Se frames' cross K/V)."""
+        a ring), the recurrent layers' states and the Se frames' cross K/V).
+        ``tracer``: the regions of the module docstring."""
         cfg = self.cfg
+        region = no_region if tracer is None else tracer.region
         self._check_inputs(prefix_embeds, enc_embeds)
         enc_out = self._encode(enc_embeds) if cfg.is_encdec else None
         x, f = self._embed(tokens, prefix_embeds), None
@@ -430,60 +442,72 @@ class LM(nn.Module):
         P = len(cfg.superblock)
         parts: list[dict[str, list[torch.Tensor]]] = [{} for _ in range(P)]
         for n, (spec, p) in enumerate(zip(self.layer_specs, self.layers)):
-            x, h = self._norm1(p, x, f)
-            if spec.mixer in ("attn", "attn_local"):
-                local = spec.mixer == "attn_local"
-                y, (k, v) = A.attn_forward(p["attn"], h, cfg, causal=True, local=local,
-                                           return_kv=True, rope_cs=rope_cs)
-                c = A.prefill_cache_from_kv(k, v, cfg, local=local)
-                if enc_out is not None:
-                    ck, cv = A.cross_kv(p["cross"], enc_out, cfg)
-                    x, y = self._cross(p, x, y, ck, cv, decode=False)
-                    c.update(cross_k=ck, cross_v=cv)
-            elif spec.mixer == "mamba":
-                y, c = SSM.mamba_forward(p["mamba"], h, cfg, return_cache=True)
-            else:
-                forward = XL.mlstm_forward if spec.mixer == "mlstm" else XL.slstm_forward
-                y, c = forward(p[spec.mixer], h, cfg, return_cache=True)
-            for name, leaf in c.items():
-                parts[n % P].setdefault(name, []).append(leaf)
-            x, f = self._ffn(spec, p, x, y)
+            mixer, ffn = self._region_names[n]
+            with region(mixer):
+                x, h = self._norm1(p, x, f)
+                if spec.mixer in ("attn", "attn_local"):
+                    local = spec.mixer == "attn_local"
+                    y, (k, v) = A.attn_forward(p["attn"], h, cfg, causal=True, local=local,
+                                               return_kv=True, rope_cs=rope_cs)
+                    c = A.prefill_cache_from_kv(k, v, cfg, local=local)
+                    if enc_out is not None:
+                        ck, cv = A.cross_kv(p["cross"], enc_out, cfg)
+                        x, y = self._cross(p, x, y, ck, cv, decode=False)
+                        c.update(cross_k=ck, cross_v=cv)
+                elif spec.mixer == "mamba":
+                    y, c = SSM.mamba_forward(p["mamba"], h, cfg, return_cache=True)
+                else:
+                    forward = XL.mlstm_forward if spec.mixer == "mlstm" else XL.slstm_forward
+                    y, c = forward(p[spec.mixer], h, cfg, return_cache=True)
+                for name, leaf in c.items():
+                    parts[n % P].setdefault(name, []).append(leaf)
+            with region(ffn):
+                x, f = self._ffn(spec, p, x, y)
         caches = tuple({name: torch.stack(leaves) for name, leaves in part.items()}
                        for part in parts)
-        last = x[:, -1:, :] + f[:, -1:, :]  # the final norm reads only the last position
-        return self._logits(rms_norm(last, self.final_norm, cfg.norm_eps)), caches
+        with region("lm.head"):
+            last = x[:, -1:, :] + f[:, -1:, :]  # the final norm reads only the last position
+            logits = self._logits(rms_norm(last, self.final_norm, cfg.norm_eps))
+        return logits, caches
 
     @torch.inference_mode()
-    def decode_step(self, token: torch.Tensor, pos: int, caches: tuple):
+    def decode_step(self, token: torch.Tensor, pos: int, caches: tuple, *, tracer=None):
         """token: (B, 1) ids; pos: the absolute position shared by the batch.
         Writes position ``pos`` of the attention caches (slot pos % W of a
         ring) and the new recurrent states into ``caches`` in place and
-        returns (logits (B, 1, V), caches); cross caches are only read."""
+        returns (logits (B, 1, V), caches); cross caches are only read.
+        ``tracer``: the regions of the module docstring."""
         cfg = self.cfg
+        region = no_region if tracer is None else tracer.region
         pos = int(pos)
         x, f = self._embed(token), None
         rope_cs = self._rope(torch.full((1,), pos, device=x.device))
         P = len(cfg.superblock)
         for n, (spec, p) in enumerate(zip(self.layer_specs, self.layers)):
-            c, sb = caches[n % P], n // P
-            layer_cache = {name: leaf[sb] for name, leaf in c.items()}
-            x, h = self._norm1(p, x, f)
-            if spec.mixer in ("attn", "attn_local"):
-                y, _ = A.attn_decode(p["attn"], h, layer_cache, pos, cfg,
-                                     local=spec.mixer == "attn_local", rope_cs=rope_cs)
-                if cfg.is_encdec:
-                    x, y = self._cross(p, x, y, layer_cache["cross_k"], layer_cache["cross_v"],
-                                       decode=True)
-            elif spec.mixer == "mamba":
-                y, new = SSM.mamba_decode(p["mamba"], h, layer_cache, cfg)
-                for name, leaf in new.items():
-                    layer_cache[name].copy_(leaf)
-            else:
-                decode = XL.mlstm_decode if spec.mixer == "mlstm" else XL.slstm_decode
-                y, _ = decode(p[spec.mixer], h, layer_cache, cfg)
-            x, f = self._ffn(spec, p, x, y)
-        _, h = rms_norm_add(x, f, self.final_norm, cfg.norm_eps)
-        return self._logits(h), caches
+            mixer, ffn = self._region_names[n]
+            with region(mixer):
+                c, sb = caches[n % P], n // P
+                layer_cache = {name: leaf[sb] for name, leaf in c.items()}
+                x, h = self._norm1(p, x, f)
+                if spec.mixer in ("attn", "attn_local"):
+                    y, _ = A.attn_decode(p["attn"], h, layer_cache, pos, cfg,
+                                         local=spec.mixer == "attn_local", rope_cs=rope_cs)
+                    if cfg.is_encdec:
+                        x, y = self._cross(p, x, y, layer_cache["cross_k"],
+                                           layer_cache["cross_v"], decode=True)
+                elif spec.mixer == "mamba":
+                    y, new = SSM.mamba_decode(p["mamba"], h, layer_cache, cfg)
+                    for name, leaf in new.items():
+                        layer_cache[name].copy_(leaf)
+                else:
+                    decode = XL.mlstm_decode if spec.mixer == "mlstm" else XL.slstm_decode
+                    y, _ = decode(p[spec.mixer], h, layer_cache, cfg)
+            with region(ffn):
+                x, f = self._ffn(spec, p, x, y)
+        with region("lm.head"):
+            _, h = rms_norm_add(x, f, self.final_norm, cfg.norm_eps)
+            logits = self._logits(h)
+        return logits, caches
 
 
 def loss_fn(model: LM, batch: dict) -> tuple[torch.Tensor, dict]:

@@ -23,16 +23,25 @@ Producers pass plain Python ``int``/``float``/``str`` attributes, never a
 tensor: a 0-d tensor would reach ``.item()`` at its own precision (float32
 for a reduced model) and the JSONL would no longer equal the reference's.
 The JSONL and Chrome exports are those of ``repro.obs.tracer``, byte for byte.
+
+:meth:`Tracer.region` (the port's own) names a stretch of host code in a
+``torch.profiler`` capture: while a profiler records it is a
+``record_function`` range, else one shared no-op context. It keeps no span,
+enabled or not; the profile is what reads it.
 """
 
 from __future__ import annotations
 
 import json
+from contextlib import nullcontext
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Iterable
+from typing import Any, ContextManager, Iterable
 
-__all__ = ["Span", "Tracer", "merge"]
+from torch._C._autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
+__all__ = ["NO_REGION", "Span", "Tracer", "merge", "no_region"]
 
 # the span categories the serving and fleet stack emits (open set — consumers must not
 # assume exhaustiveness, the report CLI groups by whatever it finds)
@@ -113,6 +122,11 @@ class Tracer:
                 track: str = "main", **attrs) -> None:
         self.span(t=t, dur=0.0, name=name, cat=cat, track=track, **attrs)
 
+    def region(self, name: str) -> ContextManager:
+        """A ``record_function`` range of ``name`` while a ``torch.profiler``
+        records, else :data:`NO_REGION`; keeps no span."""
+        return record_function(name) if _profiler_enabled() else NO_REGION
+
     # -- JSONL --------------------------------------------------------------
     def to_jsonl(self) -> str:
         """One canonical JSON object per line — byte-stable for identical
@@ -186,6 +200,14 @@ class Tracer:
         for s in self.spans:
             seen.setdefault(s.track)
         return list(seen)
+
+
+NO_REGION = nullcontext()
+
+
+def no_region(name: str) -> ContextManager:
+    """:meth:`Tracer.region`'s stand-in where there is no tracer."""
+    return NO_REGION
 
 
 def merge(tracers: Iterable[Tracer]) -> Tracer:

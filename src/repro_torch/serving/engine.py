@@ -33,6 +33,7 @@ C11); such a model runs through ``LM.encode``, ``LM.prefill`` and
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, NamedTuple
 
@@ -106,6 +107,14 @@ class Engine:
     ``repro_torch.obs.Tracer``) records each request's queue / prefill /
     respond spans and one decode span per step, stamped on the engine clock
     with the reference's names and attributes.
+
+    On the wall clock a tracer, enabled or not, also names host regions
+    inside each operation in a ``torch.profiler`` capture (``Tracer.region``;
+    no spans): ``engine.{prefill,decode}.enqueue`` (the model's call up to its
+    return, the model's own ``lm.*`` regions inside), ``engine.{prefill,
+    decode}.sync`` (the wait for the card) and ``engine.sample`` (a decode
+    step's argmax, its copy to the host and the slots' bookkeeping). The
+    model gets ``tracer=`` only where the engine has a tracer.
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, sc: ServeConfig,
@@ -148,16 +157,24 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _timed(self, phase: str, run: Callable[[], Any], *,
+    def _timed(self, phase: str, run: Callable[..., Any], *,
                tokens: int, occupancy: int) -> tuple[Any, float]:
         """Run ``run`` and return (result, service seconds). Wall mode waits
-        for the device BEFORE the closing stamp."""
+        for the device BEFORE the closing stamp; with a tracer, ``run`` gets
+        it (for the model's regions) inside the enqueue region, the wait
+        inside the sync region."""
         if self.timer is not None:
             out, dt = self.timer(phase, run, tokens=tokens, occupancy=occupancy)
             return out, float(dt)
         t0 = time.perf_counter()
-        out = run()
-        self._sync()
+        if self.tracer is None:
+            out = run()
+            self._sync()
+        else:
+            with self.tracer.region(f"engine.{phase}.enqueue"):
+                out = run(tracer=self.tracer)
+            with self.tracer.region(f"engine.{phase}.sync"):
+                self._sync()
         return out, time.perf_counter() - t0
 
     def _tokens(self, a: np.ndarray) -> torch.Tensor:
@@ -193,8 +210,8 @@ class Engine:
             L = len(req.prompt)
             cold = self.timer is None and L not in self._warm_prefill
 
-            def run():
-                logits, caches = self.model.prefill(self._tokens(req.prompt[None]))
+            def run(**model_kw):
+                logits, caches = self.model.prefill(self._tokens(req.prompt[None]), **model_kw)
                 # write this request's cache into the slot inside the timed
                 # region — the copy is device work the request's service includes
                 self._write_slot(caches, slot)
@@ -268,25 +285,27 @@ class Engine:
         pos = int(max(self.positions[s] for s, r in enumerate(self.active) if r is not None))
         n_active = sum(r is not None for r in self.active)
 
-        def run():
-            logits, _ = self.model.decode_step(self._tokens(last), pos, self.caches)
+        def run(**model_kw):
+            logits, _ = self.model.decode_step(self._tokens(last), pos, self.caches, **model_kw)
             return logits
 
         logits, dt = self._timed("decode", run, tokens=n_active, occupancy=n_active)
         self._warm_decode = True
-        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
-        for slot, req in enumerate(self.active):
-            if req is None:
-                continue
-            req.tokens_out.append(int(nxt[slot]))
-            self.positions[slot] += 1
-            self.remaining[slot] -= 1
-            if self.remaining[slot] <= 0 or self.positions[slot] >= self.sc.max_seq - 1:
-                req.t_done = now + dt
-                self.completed.append(req)
-                self.active[slot] = None
-                if self._trace:
-                    self._respond(req)
+        with (nullcontext() if self.tracer is None or self.timer is not None
+              else self.tracer.region("engine.sample")):
+            nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+            for slot, req in enumerate(self.active):
+                if req is None:
+                    continue
+                req.tokens_out.append(int(nxt[slot]))
+                self.positions[slot] += 1
+                self.remaining[slot] -= 1
+                if self.remaining[slot] <= 0 or self.positions[slot] >= self.sc.max_seq - 1:
+                    req.t_done = now + dt
+                    self.completed.append(req)
+                    self.active[slot] = None
+                    if self._trace:
+                        self._respond(req)
         self.service_log.append(
             ServiceEvent(now, "decode", dt, n_active, -1, n_active, cold))
         if self._trace:
