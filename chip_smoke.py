@@ -387,7 +387,7 @@ HYBRID_LOGITS_REL_L2 = 3e-2
 
 FAILURES: list[str] = []
 RESULT: dict = {}
-COUNTED: list = []  # every kernel wrapper with a launch counter (filled by main)
+COUNTED: list = []  # every kernel wrapper with a launch counter (``launches.counted``)
 STARTED = time.perf_counter()
 
 # the fleet path's sizes: the acceptance sweep of tests/test_fleet.py (131,072
@@ -1452,6 +1452,7 @@ def in_fp32(torch, model):
         for p, dt in zip(params, dtypes):
             p.data = p.data.to(dt)
         model.cfg = cfg
+        model._decode_graphs = None  # they read the storage that went
         if p.is_cuda:
             torch.cuda.empty_cache()
 
@@ -5649,21 +5650,21 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, launches
     from repro_torch.kernels.decision_scan.ops import decision_scan
     from repro_torch.kernels.decision_scan.ref import decision_scan_reference
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_reference
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_backward
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_reference
     from repro_torch.kernels.lindley_scan.ops import lindley_kserver, lindley_scan
     from repro_torch.kernels.lindley_scan.ref import (
         lindley_kserver_reference,
         lindley_scan_reference,
     )
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add, rmsnorm_backward
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_add
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_add_reference, rmsnorm_reference
-    from repro_torch.kernels.ssm_scan.ops import ssm_scan, ssm_scan_backward
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_reference
 
     ops = (rmsnorm, rmsnorm_add, flash_attention, decode_attention)
@@ -5674,8 +5675,7 @@ def main() -> int:
                            "ssm_scan"), refs + (ssm_scan_reference,)))
     lindley = (lindley_scan, lindley_kserver)
     lindley_refs = (lindley_scan_reference, lindley_kserver_reference)
-    COUNTED.extend(ops + lindley + (decision_scan, ssm_scan, ssm_scan_backward,
-                                   flash_attention_backward, rmsnorm_backward))
+    COUNTED.extend(launches.counted())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     card = smi[0].strip() if smi else "nvidia-smi gave nothing"

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..launches import launched
 from .ref import decision_scan_reference
 
 __all__ = ["decision_scan", "scan_plan", "ScanPlan", "STAGES", "STEPS", "SMEM_LIMIT",
@@ -133,7 +134,7 @@ def decision_scan(costs: torch.Tensor, cohort: torch.Tensor, *, hysteresis: floa
         return torch.empty((t_n, n), dtype=torch.int32, device=costs.device)
     out = _launch(costs, cohort, prev, hysteresis, stagger, t0,
                   scan_plan(t_n, n, e1, costs.element_size(), _sm_count(device)))
-    decision_scan.launches += 1
+    launched(decision_scan)
     return out
 
 

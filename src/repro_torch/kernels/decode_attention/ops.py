@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..launches import launched
 from .ref import decode_attention_reference
 
 __all__ = ["decode_attention", "split_plan", "scratch_floats", "SplitPlan", "HEAD_DIMS",
@@ -113,7 +114,7 @@ def decode_attention(
         q.stride(0), q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
         hd**-0.5, float(softcap), _build.stream_handle())
     _build.check(code, "decode_attention")
-    decode_attention.launches += 1
+    launched(decode_attention)
     return out
 
 

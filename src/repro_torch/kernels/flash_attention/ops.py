@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..launches import launched
 from .ref import flash_attention_backward_reference, flash_attention_reference
 
 __all__ = ["flash_attention", "flash_attention_backward", "backward_plan", "backward_visits",
@@ -135,7 +136,7 @@ def flash_attention_backward(q, k, v, o, do, *, causal: bool, window: int, softc
                          f"{None if lse is None else (tuple(lse.shape), lse.dtype, lse.device)}")
     _build.check_cuda_tensors(q=q, k=k, v=v, o=o, do=do)
     grads = _launch_backward(q, k, v, o, do, lse, causal=causal, window=window, softcap=softcap)
-    flash_attention_backward.launches += 1
+    launched(flash_attention_backward)
     return grads
 
 
@@ -179,7 +180,7 @@ def flash_attention(
         out = _Flash.apply(q, k, v, causal, window, softcap, chunk, _launch)
     else:
         out = _launch(q, k, v, causal=causal, window=window, softcap=softcap)
-    flash_attention.launches += 1
+    launched(flash_attention)
     return out
 
 

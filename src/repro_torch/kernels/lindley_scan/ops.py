@@ -16,6 +16,7 @@ import functools
 import torch
 
 from .. import _build
+from ..launches import launched
 from .ref import lindley_kserver_reference, lindley_scan_reference
 
 __all__ = ["lindley_scan", "lindley_kserver", "k_limit", "TILE", "STAGES"]
@@ -66,7 +67,7 @@ def lindley_scan(arrivals: torch.Tensor, services: torch.Tensor) -> torch.Tensor
     code = fn(_build.DTYPE_CODES[arrivals.dtype], arrivals.data_ptr(), services.data_ptr(),
               out.data_ptr(), b, n, _build.stream_handle())
     _build.check(code, "lindley_scan")
-    lindley_scan.launches += 1
+    launched(lindley_scan)
     return out
 
 
@@ -95,7 +96,7 @@ def lindley_kserver(arrivals: torch.Tensor, services: torch.Tensor, k: torch.Ten
     code = fn(_build.DTYPE_CODES[arrivals.dtype], arrivals.data_ptr(), services.data_ptr(),
               k.data_ptr(), out.data_ptr(), b, n, int(k_max), _build.stream_handle())
     _build.check(code, "lindley_scan")
-    lindley_kserver.launches += 1
+    launched(lindley_kserver)
     return out
 
 

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..launches import launched
 from .ref import rmsnorm_add_reference, rmsnorm_backward_reference, rmsnorm_reference
 
 __all__ = ["rmsnorm", "rmsnorm_add", "rmsnorm_backward", "norm_plan", "norm_backward_plan",
@@ -149,7 +150,7 @@ def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, gy: torch.Tensor,
     d = x.shape[-1]
     plan = norm_backward_plan(x.numel() // d if d else 0, d, x.element_size())
     grads = _launch_backward(x, scale, gy, gs, eps, plan)
-    rmsnorm_backward.launches += 1
+    launched(rmsnorm_backward)
     return grads
 
 
@@ -223,7 +224,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
         out = _Norm.apply(x, scale, eps, _kernel_norm)
     else:
         out = _kernel_norm(x, scale, eps)
-    rmsnorm.launches += 1
+    launched(rmsnorm)
     return out
 
 
@@ -246,7 +247,7 @@ def rmsnorm_add(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
         out = _NormAdd.apply(x, r, scale, eps, _kernel_norm_add)
     else:
         out = _kernel_norm_add(x, r, scale, eps)
-    rmsnorm_add.launches += 1
+    launched(rmsnorm_add)
     return out
 
 

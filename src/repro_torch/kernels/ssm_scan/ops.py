@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..launches import launched
 from .ref import ssm_scan_backward_reference, ssm_scan_reference
 
 __all__ = ["ssm_scan", "ssm_scan_backward", "scan_plan", "smem_bytes", "bwd_plan",
@@ -318,7 +319,7 @@ def ssm_scan_backward(dt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, u: t
     if u.device.type == "cpu":
         return ssm_scan_backward_reference(dt, Bc, Cc, u, A, h0, dy, dh_final)
     out = _launch_backward(dt, Bc, Cc, u, A, dy, dh_final, states, _bwd_plan(u, A.shape[1]))
-    ssm_scan_backward.launches += 1
+    launched(ssm_scan_backward)
     return out
 
 
@@ -363,7 +364,7 @@ def ssm_scan(dt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, u: torch.Tens
         out = _Scan.apply(dt, Bc, Cc, u, A, h0, _kernel_forward)
     else:
         out = _launch(dt, Bc, Cc, u, A, h0, _plan(u, A.shape[1]))
-    ssm_scan.launches += 1
+    launched(ssm_scan)
     return out
 
 

@@ -85,7 +85,8 @@ def replay(engine: Engine, requests: list[Request]) -> float:
 
 def summarize(engine: Engine) -> dict:
     """End-to-end numbers of a replay: latency on the engine clock, mean
-    service per phase, and output tokens per second of busy time."""
+    service per phase, output tokens per second of busy time, and the
+    model's decode steps on the card by graph replay and eager."""
     lat = np.array([r.latency_s for r in engine.completed if r.latency_s is not None])
     warm = [ev for ev in engine.service_log if not ev.compile]
     prefill = [ev.duration_s for ev in warm if ev.phase == "prefill"]
@@ -103,6 +104,8 @@ def summarize(engine: Engine) -> dict:
         "decode_steps": len(decode),
         "tokens_out": tokens,
         "tokens_per_s_busy": tokens / busy if busy > 0 else None,
+        "decode_graph_steps": engine.model.decode_graph_steps,
+        "decode_eager_steps": engine.model.decode_eager_steps,
     }
 
 
@@ -211,7 +214,9 @@ def run(argv=None) -> tuple[Engine, OffloadGateway]:
           f"ms, p99 {_fmt(s['latency_p99_ms'])} ms")
     print(f"[serve] prefill {_fmt(s['prefill_ms_mean'])} ms mean over {s['prefills']}; "
           f"decode step {_fmt(s['decode_step_ms_mean'])} ms mean over {s['decode_steps']}; "
-          f"{_fmt(s['tokens_per_s_busy'])} tokens/s of busy time")
+          f"{_fmt(s['tokens_per_s_busy'])} tokens/s of busy time; on the card "
+          f"{s['decode_graph_steps']} decode steps replayed as graphs, "
+          f"{s['decode_eager_steps']} eager")
 
     s_dev, var = engine.observed_service_stats()
     print(f"[serve] profiled service {s_dev * 1e3:.3f} ms (var {var:.2e}); device tier rho "

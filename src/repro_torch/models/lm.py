@@ -26,15 +26,20 @@ Modes:
   encode       — (encoder-decoder) frame embeddings to the encoder output
   prefill      — full sequence, returns last-position logits + decode caches
                  (an encoder-decoder encodes ``enc_embeds`` first)
-  decode_step  — one token per sequence, reads and updates the caches in place
+  decode_step  — one token per sequence, reads and updates the caches in place;
+                 after ``capture_decode`` its position-free layers replay as
+                 CUDA graphs (``decode_graph.py``)
 ``loss_fn(model, batch)`` is the training loss over ``forward``'s logits.
 
 ``prefill`` and ``decode_step`` take a ``tracer`` (a ``repro_torch.obs.Tracer``,
 default None), which the serving engine passes on the wall clock, and name
 their host regions by it in a ``torch.profiler`` capture: each layer's mixer
 (with norm1 and the cache update) ``lm.mixer.<mixer>``, its FFN (with norm2)
-``lm.ffn.<ffn>``, and the final norm with the logits ``lm.head``. Without a
-tracer each site enters one shared no-op context.
+``lm.ffn.<ffn>``, and the final norm with the logits ``lm.head``; a decode
+step that replays its graphs names each graph ``lm.graph`` (its input copies
+and its launch), each eager attention mixer ``lm.mixer.<mixer>``, each MoE's
+routing ``lm.moe.route`` and the head ``lm.head``. Without a tracer each site
+enters one shared no-op context.
 
 A config with ``prefix_embed`` (internvl2's stub vision frontend) takes
 ``prefix_embeds`` (B, P, d) in ``forward`` and ``prefill``: cast to the
@@ -74,6 +79,7 @@ K/V, written by prefill and only read at decode.
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Any
 
 import torch
@@ -84,9 +90,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.obs.tracer import no_region
-from repro_torch.sharding.partition import hint
+from repro_torch.sharding.partition import current_rules, hint
 
 from . import attention as A
+from . import decode_graph as DG
 from . import moe as M
 from . import ssm as SSM
 from . import xlstm as XL
@@ -260,6 +267,12 @@ class LM(nn.Module):
         self.layer_specs: tuple[LayerSpec, ...] = cfg.superblock * cfg.num_superblocks
         self._region_names = tuple((f"lm.mixer.{s.mixer}", f"lm.ffn.{s.ffn}")
                                    for s in self.layer_specs)
+        # the eager decode step's pieces by profiler range: a layer's norm1 and
+        # mixer in its mixer's, the rest of the layer in its FFN's, the embedding
+        # in none
+        self._decode_ranges = tuple(
+            (name, tuple(pieces)) for (name, _), pieces in itertools.groupby(
+                DG.decode_pieces(self.layer_specs), key=self._range_of))
         kw = dict(seed=seed, dtype=dtype, device=dev)
         self.embed = ParamTree(embed_template(cfg), path="embed", **kw)
         self.layers = nn.ModuleList(
@@ -275,6 +288,9 @@ class LM(nn.Module):
             self.encoder.final_norm = nn.Parameter(
                 init_tensor(norm_template(cfg.d_model), "encoder.final_norm", **kw),
                 requires_grad=False)
+        self._decode_graphs: DG.DecodeGraphs | None = None
+        self.decode_graph_steps = 0  # decode steps replayed as graphs
+        self.decode_eager_steps = 0  # decode steps run eagerly on the card
 
     @property
     def device(self) -> torch.device:
@@ -331,15 +347,22 @@ class LM(nn.Module):
         (x, f): the layer's output is x + f, left for the next norm to add.
         A block without an FFN hands the mixer's y on as f."""
         if spec.ffn == "none":
-            f = y
+            return hint(x, "batch", "seq", None), hint(y, "batch", "seq", None)
+        x, h = rms_norm_add(x, y, p["norm2"], self.cfg.norm_eps)
+        return self._ffn_out(spec, p, x, h)
+
+    def _ffn_out(self, spec: LayerSpec, p: Any, x: torch.Tensor, h: torch.Tensor,
+                 routed: tuple | None = None):
+        """The FFN over norm2's output h: (x, f). ``routed``: a MoE's (probs,
+        expert ids) where the caller routed h itself (``moe.route`` over
+        ``moe.moe_groups(h)``)."""
+        if spec.ffn == "mlp":
+            f = mlp_apply(p["mlp"], h, self.cfg)
         else:
-            x, h = rms_norm_add(x, y, p["norm2"], self.cfg.norm_eps)
-            if spec.ffn == "mlp":
-                f = mlp_apply(p["mlp"], h, self.cfg)
-            else:
-                f = M.moe_apply(p["moe"], h, self.cfg)
-                if spec.ffn == "moe_dense":  # arctic: routed + parallel dense MLP, last add fused
-                    x, f = x + f, mlp_apply(p["dense_mlp"], h, self.cfg)
+            f = (M.moe_apply(p["moe"], h, self.cfg) if routed is None
+                 else M.moe_dispatch(p["moe"], h, *routed, self.cfg))
+            if spec.ffn == "moe_dense":  # arctic: routed + parallel dense MLP, last add fused
+                x, f = x + f, mlp_apply(p["dense_mlp"], h, self.cfg)
         return hint(x, "batch", "seq", None), hint(f, "batch", "seq", None)
 
     def _cross(self, p: Any, x: torch.Tensor, y: torch.Tensor, ck: torch.Tensor,
@@ -353,6 +376,10 @@ class LM(nn.Module):
     def _rope(self, positions: torch.Tensor):
         cfg = self.cfg
         return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) if cfg.rope else None
+
+    def _rope_at(self, pos: int, device: torch.device):
+        """A decode step's RoPE tables at ``pos`` (None without RoPE)."""
+        return self._rope(torch.full((1,), pos, device=device)) if self.cfg.rope else None
 
     def _layers(self):
         """Apply one layer: under ``torch.utils.checkpoint`` when remat is
@@ -470,44 +497,114 @@ class LM(nn.Module):
             logits = self._logits(rms_norm(last, self.final_norm, cfg.norm_eps))
         return logits, caches
 
+    def _mix(self, n: int, x: torch.Tensor, h: torch.Tensor, caches: tuple, pos: int,
+             rope_cs):
+        """Layer n's mixer at decode over norm1's output h: (x, y). Writes
+        the layer's cache in place (an attention layer's slot ``pos``, a
+        recurrent layer's states); an encoder-decoder's attention adds its
+        cross-attention branch."""
+        cfg, spec, p = self.cfg, self.layer_specs[n], self.layers[n]
+        P = len(cfg.superblock)
+        layer_cache = {name: leaf[n // P] for name, leaf in caches[n % P].items()}
+        if spec.mixer in ("attn", "attn_local"):
+            y, _ = A.attn_decode(p["attn"], h, layer_cache, pos, cfg,
+                                 local=spec.mixer == "attn_local", rope_cs=rope_cs)
+            if cfg.is_encdec:
+                x, y = self._cross(p, x, y, layer_cache["cross_k"], layer_cache["cross_v"],
+                                   decode=True)
+        elif spec.mixer == "mamba":
+            y, new = SSM.mamba_decode(p["mamba"], h, layer_cache, cfg)
+            for name, leaf in new.items():
+                layer_cache[name].copy_(leaf)
+        else:
+            decode = XL.mlstm_decode if spec.mixer == "mlstm" else XL.slstm_decode
+            y, _ = decode(p[spec.mixer], h, layer_cache, cfg)
+        return x, y
+
+    def _range_of(self, piece: DG.Piece) -> tuple[str | None, int]:
+        """(the profiler range an eager decode step runs ``piece`` in, None
+        for none; its layer)."""
+        if piece.layer < 0:
+            return ("lm.head" if piece.kind == "head" else None), -1
+        mixer, ffn = self._region_names[piece.layer]
+        return (mixer if piece.kind in ("norm1", "mixer") else ffn), piece.layer
+
+    def _decode_piece(self, piece: DG.Piece, s: dict, caches: tuple, pos: int,
+                      rope_cs) -> None:
+        """Run one piece of the decode step (``decode_graph.decode_pieces``)
+        on the step's state ``s``, a dict of the tensors live between pieces
+        ("token"; "x" and "f", "h", "y", "probs", "idx"; "logits"), taking
+        what it reads and putting what it makes."""
+        kind, n = piece
+        cfg = self.cfg
+        if kind == "embed":
+            s["x"] = self._embed(s.pop("token"))
+            return
+        if kind == "head":
+            s["logits"] = self._head(s.pop("x"), s.pop("f"))
+            return
+        spec, p = self.layer_specs[n], self.layers[n]
+        if kind == "norm1":
+            s["x"], s["h"] = self._norm1(p, s["x"], s.pop("f", None))
+        elif kind == "mixer":
+            s["x"], s["y"] = self._mix(n, s["x"], s.pop("h"), caches, pos, rope_cs)
+            if spec.ffn == "none":
+                s["x"], s["f"] = self._ffn(spec, p, s["x"], s.pop("y"))
+        elif kind == "ffn":
+            s["x"], s["f"] = self._ffn(spec, p, s["x"], s.pop("y"))
+        elif kind == "norm2":
+            s["x"], s["h"] = rms_norm_add(s["x"], s.pop("y"), p["norm2"], cfg.norm_eps)
+        elif kind == "route":
+            s["probs"], s["idx"] = M.route(p["moe"], M.moe_groups(s["h"], cfg), cfg)
+        else:
+            s["x"], s["f"] = self._ffn_out(spec, p, s["x"], s.pop("h"),
+                                           (s.pop("probs"), s.pop("idx")))
+
+    @torch.inference_mode()
+    def capture_decode(self, caches: tuple) -> DG.DecodeGraphs:
+        """Capture ``decode_step`` against ``caches`` on the card as CUDA
+        graphs (``decode_graph.DecodeGraphs``). Later calls with these caches
+        replay them; they replace any graphs captured before. Nothing runs.
+        The graphs read the parameters' storage as it is now: ``.to()`` and
+        the like drop them (``_apply``), and code that swaps a parameter's
+        ``.data`` must set ``_decode_graphs`` to None."""
+        if self.device.type != "cuda":
+            raise ValueError(f"decode graphs are CUDA graphs; the model is on {self.device}")
+        if current_rules() is not None:
+            raise ValueError("decode graphs are not captured under sharding rules")
+        self._decode_graphs = None
+        self._decode_graphs = DG.DecodeGraphs(self, caches)
+        return self._decode_graphs
+
+    def _apply(self, fn, *args, **kwargs):
+        self._decode_graphs = None  # new storage for the parameters the graphs read
+        return super()._apply(fn, *args, **kwargs)
+
     @torch.inference_mode()
     def decode_step(self, token: torch.Tensor, pos: int, caches: tuple, *, tracer=None):
         """token: (B, 1) ids; pos: the absolute position shared by the batch.
         Writes position ``pos`` of the attention caches (slot pos % W of a
         ring) and the new recurrent states into ``caches`` in place and
         returns (logits (B, 1, V), caches); cross caches are only read.
-        ``tracer``: the regions of the module docstring."""
-        cfg = self.cfg
+        Replays the graphs of ``capture_decode`` where ``decode_graph.engages``
+        (counted in ``decode_graph_steps``), else runs eagerly (on the card,
+        counted in ``decode_eager_steps``). ``tracer``: the regions of the
+        module docstring; a replayed step names each graph ``lm.graph`` and
+        its eager pieces ``lm.mixer.<mixer>``, ``lm.moe.route``, ``lm.head``."""
         region = no_region if tracer is None else tracer.region
         pos = int(pos)
-        x, f = self._embed(token), None
-        rope_cs = self._rope(torch.full((1,), pos, device=x.device))
-        P = len(cfg.superblock)
-        for n, (spec, p) in enumerate(zip(self.layer_specs, self.layers)):
-            mixer, ffn = self._region_names[n]
-            with region(mixer):
-                c, sb = caches[n % P], n // P
-                layer_cache = {name: leaf[sb] for name, leaf in c.items()}
-                x, h = self._norm1(p, x, f)
-                if spec.mixer in ("attn", "attn_local"):
-                    y, _ = A.attn_decode(p["attn"], h, layer_cache, pos, cfg,
-                                         local=spec.mixer == "attn_local", rope_cs=rope_cs)
-                    if cfg.is_encdec:
-                        x, y = self._cross(p, x, y, layer_cache["cross_k"],
-                                           layer_cache["cross_v"], decode=True)
-                elif spec.mixer == "mamba":
-                    y, new = SSM.mamba_decode(p["mamba"], h, layer_cache, cfg)
-                    for name, leaf in new.items():
-                        layer_cache[name].copy_(leaf)
-                else:
-                    decode = XL.mlstm_decode if spec.mixer == "mlstm" else XL.slstm_decode
-                    y, _ = decode(p[spec.mixer], h, layer_cache, cfg)
-            with region(ffn):
-                x, f = self._ffn(spec, p, x, y)
-        with region("lm.head"):
-            _, h = rms_norm_add(x, f, self.final_norm, cfg.norm_eps)
-            logits = self._logits(h)
-        return logits, caches
+        if DG.engages(self._decode_graphs, token, caches):
+            self.decode_graph_steps += 1
+            return self._decode_graphs.run(self, token, pos, caches, region), caches
+        if token.device.type == "cuda":
+            self.decode_eager_steps += 1
+        rope_cs = self._rope_at(pos, token.device)
+        s = {"token": token}
+        for name, pieces in self._decode_ranges:
+            with (no_region if name is None else region)(name):
+                for piece in pieces:
+                    self._decode_piece(piece, s, caches, pos, rope_cs)
+        return s["logits"], caches
 
 
 def loss_fn(model: LM, batch: dict) -> tuple[torch.Tensor, dict]:

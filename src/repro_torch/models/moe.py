@@ -25,7 +25,8 @@ from repro_torch.sharding.partition import hint
 from .layers import _act
 from .params import TSpec
 
-__all__ = ["moe_template", "moe_apply", "capacity", "route", "router_aux_loss"]
+__all__ = ["moe_template", "moe_apply", "moe_groups", "moe_dispatch", "capacity", "route",
+           "router_aux_loss"]
 
 
 def moe_template(cfg: ModelConfig) -> dict:
@@ -61,17 +62,31 @@ def route(p, xt: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Te
     return probs, torch.topk(probs, cfg.num_experts_per_tok, dim=-1).indices
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d). Routed top-k with capacity dropping."""
+def moe_groups(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) -> (g, s, d): the call's tokens in dispatch groups of s,
+    the largest divisor of B * S up to ``moe_group_size`` (a view)."""
     B, S, d = x.shape
-    E, topk = cfg.num_experts, cfg.num_experts_per_tok
     n = B * S
     s = _largest_divisor(n, min(cfg.moe_group_size, n))
-    g = n // s
+    return x.reshape(n // s, s, d)
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d). Routed top-k with capacity dropping."""
+    return moe_dispatch(p, x, *route(p, moe_groups(x, cfg), cfg), cfg)
+
+
+def moe_dispatch(p, x: torch.Tensor, probs: torch.Tensor, expert_idx: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) and its routing (``route`` over ``moe_groups(x)``: probs
+    (g, s, E), expert_idx (g, s, k)) -> (B, S, d): the experts over their
+    capacity buffers, dispatched and combined densely."""
+    B, S, d = x.shape
+    E, topk = cfg.num_experts, cfg.num_experts_per_tok
+    xt = moe_groups(x, cfg)
+    g, s = xt.shape[:2]
     C = capacity(cfg, s)
 
-    xt = x.reshape(g, s, d)
-    probs, expert_idx = route(p, xt, cfg)
     gate_vals = torch.gather(probs, -1, expert_idx)  # (g, s, topk), as top-k returns them
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
 

@@ -13,10 +13,11 @@ Timing is measurement-grade:
     the enqueue, not the device's work (the reference waits with
     ``jax.block_until_ready`` at the same place);
   * :meth:`warmup` runs prefill for every prompt length and one decode step
-    up front (kernel builds, cuBLAS set-up), and a wall-clocked call of a
-    prompt length that was not warmed is flagged ``compile=True`` in the
-    service log and excluded from :meth:`observed_service_stats`, as in the
-    reference;
+    up front (kernel builds, cuBLAS set-up) and, on the card, captures the
+    decode step as CUDA graphs that every later step replays; a wall-clocked
+    call of a prompt length that was not warmed is flagged ``compile=True``
+    in the service log and excluded from :meth:`observed_service_stats`, as
+    in the reference;
   * a pluggable ``timer`` substitutes a seeded, deterministic service-time
     model for the wall clock while the engine still runs the real model.
 
@@ -110,11 +111,13 @@ class Engine:
 
     On the wall clock a tracer, enabled or not, also names host regions
     inside each operation in a ``torch.profiler`` capture (``Tracer.region``;
-    no spans): ``engine.{prefill,decode}.enqueue`` (the model's call up to its
-    return, the model's own ``lm.*`` regions inside), ``engine.{prefill,
-    decode}.sync`` (the wait for the card) and ``engine.sample`` (a decode
-    step's argmax, its copy to the host and the slots' bookkeeping). The
-    model gets ``tracer=`` only where the engine has a tracer.
+    no spans): ``engine.schedule`` (a tick's admissions, their prefills'
+    regions inside, and the decode step's inputs), ``engine.{prefill,
+    decode}.enqueue`` (the model's call up to its return, the model's own
+    ``lm.*`` regions inside), ``engine.{prefill,decode}.sync`` (the wait for
+    the card) and ``engine.sample`` (a decode step's argmax, its copy to the
+    host, the slots' bookkeeping and the service log). The model gets
+    ``tracer=`` only where the engine has a tracer.
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, sc: ServeConfig,
@@ -153,6 +156,13 @@ class Engine:
         self._warm_decode = False
 
     # ------------------------------------------------------------------
+    def _region(self, name: str):
+        """A host region (``Tracer.region``) on the wall clock with a tracer,
+        else none."""
+        if self.tracer is None or self.timer is not None:
+            return nullcontext()
+        return self.tracer.region(name)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -183,7 +193,9 @@ class Engine:
     def warmup(self, prompt_lens: Iterable[int] = (), *, decode: bool = True) -> None:
         """Run prefill for every prompt length the workload can draw and one
         decode step, outside the measured path. Runs on scratch inputs and a
-        scratch cache; engine state is untouched."""
+        scratch cache; engine state is untouched. On the card it then
+        captures the decode step against the engine's caches as CUDA graphs
+        (``LM.capture_decode``), which records work and runs none."""
         for L in sorted({int(x) for x in prompt_lens}):
             if L in self._warm_prefill:
                 continue
@@ -193,6 +205,8 @@ class Engine:
             scratch = self.model.init_caches(self.sc.slots, self.sc.max_seq)
             self.model.decode_step(self._tokens(np.zeros((self.sc.slots, 1), np.int64)), 0,
                                    scratch)
+            if self.device.type == "cuda":  # later steps replay it (models/decode_graph.py)
+                self.model.capture_decode(self.caches)
             self._warm_decode = True
         self._sync()
 
@@ -271,19 +285,20 @@ class Engine:
         completion stamps land at ``now + elapsed service``.
         """
         now = time.time() if now is None else now
-        now = self._admit(now)
-        if not any(r is not None for r in self.active):
-            return 0
-        cold = self.timer is None and not self._warm_decode
+        with self._region("engine.schedule"):
+            now = self._admit(now)
+            if not any(r is not None for r in self.active):
+                return 0
+            cold = self.timer is None and not self._warm_decode
 
-        last = np.zeros((self.sc.slots, 1), np.int64)
-        for slot, req in enumerate(self.active):
-            if req is not None:
-                last[slot, 0] = req.tokens_out[-1]
-        # every slot decodes at the furthest active position (the reference's
-        # shared decode position: shorter prompts write past their own length)
-        pos = int(max(self.positions[s] for s, r in enumerate(self.active) if r is not None))
-        n_active = sum(r is not None for r in self.active)
+            last = np.zeros((self.sc.slots, 1), np.int64)
+            for slot, req in enumerate(self.active):
+                if req is not None:
+                    last[slot, 0] = req.tokens_out[-1]
+            # every slot decodes at the furthest active position (the reference's
+            # shared decode position: shorter prompts write past their own length)
+            pos = int(max(self.positions[s] for s, r in enumerate(self.active) if r is not None))
+            n_active = sum(r is not None for r in self.active)
 
         def run(**model_kw):
             logits, _ = self.model.decode_step(self._tokens(last), pos, self.caches, **model_kw)
@@ -291,8 +306,7 @@ class Engine:
 
         logits, dt = self._timed("decode", run, tokens=n_active, occupancy=n_active)
         self._warm_decode = True
-        with (nullcontext() if self.tracer is None or self.timer is not None
-              else self.tracer.region("engine.sample")):
+        with self._region("engine.sample"):
             nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
             for slot, req in enumerate(self.active):
                 if req is None:
@@ -306,12 +320,12 @@ class Engine:
                     self.active[slot] = None
                     if self._trace:
                         self._respond(req)
-        self.service_log.append(
-            ServiceEvent(now, "decode", dt, n_active, -1, n_active, cold))
-        if self._trace:
-            self.tracer.span(
-                t=now, dur=dt, name="decode", cat="decode", track="engine",
-                occupancy=n_active, compile=cold)
+            self.service_log.append(
+                ServiceEvent(now, "decode", dt, n_active, -1, n_active, cold))
+            if self._trace:
+                self.tracer.span(
+                    t=now, dur=dt, name="decode", cat="decode", track="engine",
+                    occupancy=n_active, compile=cold)
         return n_active
 
     def _respond(self, req: Request) -> None:

@@ -87,9 +87,15 @@ def model_regions(n_calls: int) -> Counter:
     return want
 
 
-def idle_by_innermost(annotations, device, lo, hi) -> dict:
-    """Each gap in [lo, hi] between the card's operations, by the name of the
-    latest-starting annotation open at its midpoint (None: no annotation)."""
+def idle_by_innermost(annotations, device, lo, hi, *, cut: bool = True) -> dict:
+    """Each gap in [lo, hi] between the card's operations by the name of the
+    latest-starting annotation open at its midpoint, the first to end of
+    those that start together (None: no annotation). With ``cut`` a gap is
+    first cut at every annotation's edge inside it, each piece named alone,
+    as ``portbench/regions.py`` attributes the benchmark's idle time: a gap
+    that spans several annotations (the turn from one tick's sample to the
+    next tick's first launch) is shared among them by where the host was.
+    Without, the whole gap goes to the annotation at its midpoint."""
     busy = []
     for a, b in sorted(device):
         if busy and a <= busy[-1][1]:
@@ -97,14 +103,17 @@ def idle_by_innermost(annotations, device, lo, hi) -> dict:
         else:
             busy.append([a, b])
     edges = [lo] + [x for iv in busy for x in iv] + [hi]
+    bounds = sorted({x for r in annotations for x in r[:2]}) if cut else []
     out: dict = {}
     for a, b in zip(edges[0::2], edges[1::2]):
-        if b <= a:
-            continue
-        mid = (a + b) / 2
-        holders = [r for r in annotations if r[0] <= mid <= r[1]]
-        name = max(holders)[2] if holders else None
-        out[name] = out.get(name, 0) + (b - a)
+        cuts = [a] + [x for x in bounds if a < x < b] + [b]
+        for c, d in zip(cuts, cuts[1:]):
+            if d <= c:
+                continue
+            mid = (c + d) / 2
+            holders = [r for r in annotations if r[0] <= mid <= r[1]]
+            name = max(holders, key=lambda r: (r[0], -r[1]))[2] if holders else None
+            out[name] = out.get(name, 0) + (d - c)
     return out
 
 
@@ -116,11 +125,14 @@ def test_each_operation_names_its_regions(model, enabled):
     n_dec = sum(e.phase == "decode" for e in eng.service_log)
     assert (n_pre, n_dec) == (2, 6)
     got = Counter(name for _, _, name in regions(prof))
+    # every tick here decodes: one schedule (its admission, the step's inputs) a step
     assert got == model_regions(n_pre + n_dec) + Counter({
         "engine.prefill.enqueue": n_pre, "engine.prefill.sync": n_pre,
-        "engine.decode.enqueue": n_dec, "engine.decode.sync": n_dec, "engine.sample": n_dec})
-    # a full jamba superblock's step: a mixer and an FFN a layer, the head, enqueue, sync, sample
-    assert sum(model_regions(1).values()) + 3 == 2 * len(CFG.superblock) + 4
+        "engine.schedule": n_dec, "engine.decode.enqueue": n_dec, "engine.decode.sync": n_dec,
+        "engine.sample": n_dec})
+    # a full jamba superblock's step: a mixer and an FFN a layer, the head, schedule, enqueue,
+    # sync, sample
+    assert sum(model_regions(1).values()) + 4 == 2 * len(CFG.superblock) + 5
     # the regions keep no span: an enabled tracer holds the lifecycle spans alone
     assert {s.name for s in tr.spans} == (LIFECYCLE if enabled else set())
 
@@ -234,27 +246,43 @@ def test_the_idle_sweep_names_each_gap_by_its_innermost_annotation():
     # the card works in [0, 20), [45, 60) and [95, 130); idle in [20, 45), [60, 95), [130, 250)
     device = [(0, 20), (45, 55), (50, 60), (95, 130)]
     got = idle_by_innermost(annotations, device, 0, 250)
-    # [20, 45) at 32.5: the mamba mixer; [60, 95) at 77.5: the MoE; [130, 250) at 190: the tick
-    assert got == {"lm.mixer.mamba": 25, "lm.ffn.moe": 35, "tick": 120}
-    assert idle_by_innermost(annotations, [], 300, 400) == {None: 100}
+    # cut at the annotations' edges: [20, 40) the mamba mixer and [40, 45) the enqueue;
+    # [60, 90) the MoE and [90, 95) the enqueue; [130, 200) the tick and [200, 250) none
+    assert got == {"lm.mixer.mamba": 20, "engine.decode.enqueue": 10, "lm.ffn.moe": 30,
+                   "tick": 70, None: 50}
+    # whole gaps by their midpoints: [20, 45) at 32.5 the mamba mixer; [60, 95) at 77.5 the
+    # MoE; [130, 250) at 190 the tick
+    assert idle_by_innermost(annotations, device, 0, 250, cut=False) == {
+        "lm.mixer.mamba": 25, "lm.ffn.moe": 35, "tick": 120}
+    for cut in (True, False):
+        assert idle_by_innermost(annotations, [], 300, 400, cut=cut) == {None: 100}
 
 
 @pytest.mark.cuda
 def test_a_traced_decode_on_the_card_names_its_idle_time_and_launches_alike():
     """One jamba superblock at full width, one slot: twelve decode steps under
     the profiler, each tick in a ``tick`` range as the benchmark's traced run
-    takes them, with a disabled tracer; then four with none."""
+    takes them, with a disabled tracer; then four with none. Each step
+    replays the graphs captured at warm-up: its regions are the graphs
+    (``lm.graph``) and the eager pieces between them. At least 90% of the
+    idle time inside ticks falls in the program's regions, gaps cut at the
+    annotations' edges; the share by whole gaps at their midpoints is
+    printed beside it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels are CUDA C++ for sm_90a; no CPU mode)")
     cfg = replace(get_config("jamba_v0_1_52b"), num_superblocks=1)
-    eng = Engine(cfg, LM(cfg, device="cuda", seed=0), ServeConfig(slots=1, max_seq=512),
-                 device="cuda")
+    model = LM(cfg, device="cuda", seed=0)
+    eng = Engine(cfg, model, ServeConfig(slots=1, max_seq=512), device="cuda")
     eng.warmup([128])
+    graphed = Counter({"lm.graph": model._decode_graphs.graphs, "lm.mixer.attn": MIXERS[
+        "lm.mixer.attn"], "lm.moe.route": FFNS["lm.ffn.moe"], "lm.head": 1})
+    replays = model.decode_graph_steps
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities):  # the profiler's own set-up, outside the stretch
         torch.ones(16, device="cuda").sum()
         torch.cuda.synchronize()
     prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, 128).astype(np.int32)
+    shares = {}
     for tracer, steps in ((Tracer(enabled=False), 12), (None, 4)):
         eng.tracer = tracer
         eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=40))
@@ -273,6 +301,9 @@ def test_a_traced_decode_on_the_card_names_its_idle_time_and_launches_alike():
             continue
         enqueues = [a for a in named if a[2] == "engine.decode.enqueue"]
         assert len(enqueues) == steps
+        for a, b, _ in enqueues:
+            assert Counter(n for c, d, n in named if a <= c and d <= b
+                           and n.startswith("lm.")) == graphed
         mids = [(a + b) / 2 for a, b in launches]
         per_step = [sum(a <= m <= b for m in mids) for a, b, _ in enqueues]
         assert per_step[0] > 0 and len(set(per_step)) == 1, per_step
@@ -280,7 +311,14 @@ def test_a_traced_decode_on_the_card_names_its_idle_time_and_launches_alike():
                   for e in prof.profiler.kineto_results.events()
                   if "CUDA" in str(e.device_type()) and not e.is_user_annotation()
                   and e.duration_ns() > 0]
-        idle = idle_by_innermost(annotations, device, ticks[0][0], ticks[-1][1])
-        inside = sum(v for k, v in idle.items() if k is not None)
-        in_regions = sum(v for k, v in idle.items() if k is not None and k.startswith(PROGRAM))
-        assert in_regions >= 0.9 * inside, idle
+        # both sweeps: gaps cut at annotation edges (as regions.py), and whole gaps by midpoint
+        for cut in (True, False):
+            idle = idle_by_innermost(annotations, device, ticks[0][0], ticks[-1][1], cut=cut)
+            inside = sum(v for k, v in idle.items() if k is not None)
+            in_regions = sum(v for k, v in idle.items()
+                             if k is not None and k.startswith(PROGRAM))
+            shares["cut" if cut else "midpoint"] = (in_regions / inside, idle)
+        print(f"idle inside ticks in the program's regions: {shares}")
+    # every step after the warm-up replayed: the two prefills' first steps and the rest
+    assert eng.completed and model.decode_graph_steps - replays == 2 * 39
+    assert shares["cut"][0] >= 0.9, shares
